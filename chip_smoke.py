@@ -46,11 +46,13 @@ SEED = 0
 N_TRACKS = 4096            # MGSV-EC's catalog size
 KERNEL_ROWS = (8, 256)     # fused rows B*k: a B=1 query, and B=32 x k-bucket 8
 KERNEL_L = 152             # 50 frames + 96 snippets, padded to a multiple of 8
-# Tolerance of the kernel against its plain version.  Both compute in
-# float32 and differ only in summation order; the layer ends in LayerNorm, so
-# its outputs are of order 1 and a reordered float32 sum over at most 1,024
-# terms moves them by ~1e-6.  1e-4 leaves two orders of headroom and still
-# catches any indexing or masking fault, which moves outputs by O(1).
+# Tolerance of the kernel against its plain version.  The kernel's GEMMs
+# keep float32 accuracy (3xTF32 on the tensor cores, each tile's partial sum
+# added in float32), so the two differ by rounding and summation order; the
+# layer ends in LayerNorm, so its outputs are of order 1 and those
+# differences move them by a few 1e-6.  1e-4 leaves more than an order of
+# headroom and still catches any indexing or masking fault, which moves
+# outputs by O(1).
 KERNEL_ATOL = 1e-4
 SPAN_ATOL_S = 5e-3         # localized moments, seconds on a 240 s scale
 SCORE_ATOL = 1e-4

@@ -14,11 +14,13 @@
 //
 // What bounds it on the card: at B=256, L=152, D=256, F=1024 one layer is
 // about 67 GFLOP of float32 work, most of it the FFN, against about 160 MB
-// of activation traffic (x, pos, ctx, out): some 400 FLOP per byte, far
-// above the float32 ridge point, so the float32 FMA rate bounds it.  The
-// design therefore spends its effort on register-blocked float32 GEMM tiles
-// (each thread owns an 8 x 8 output block, so every shared-memory read feeds
-// eight FMAs) and keeps the [L, L] scores and the [L, F] FFN hidden state
+// of activation traffic (x, pos, ctx, out) and 240 MB more for this
+// design's q/k/v scratch: some 170 FLOP per byte, well above the float32
+// ridge point, so the arithmetic rate bounds it.  The
+// GEMMs therefore run on the tensor cores in 3xTF32 (each operand split
+// into two tf32 halves, three mma.sync products per tile), which keeps
+// float32 accuracy where plain tf32 would lose three decimal digits, and
+// the design keeps the [L, L] scores and the [L, F] FFN hidden state
 // out of device memory.  Three kernels run back to back on the caller's
 // stream:
 //
@@ -34,9 +36,7 @@
 //      register accumulators; residual and LN2.
 //
 // Weights stream from L2 through double-buffered shared-memory tiles filled
-// with cp.async, transposed on the way in.  wgmma (tf32 is too coarse for
-// this layer's float32 tolerance), TMA and a single fused launch are later
-// work.
+// with cp.async.  wgmma, TMA and a single fused launch are later work.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -47,12 +47,12 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kHeadDim = 32;          // one lane per head channel
 constexpr int kPad = kHeadDim + 1;    // padded [L][kPad] rows: conflict-free columns
-constexpr int kRows = 64;             // rows per GEMM block tile (8 per warp)
-constexpr int kCols = 256;            // output columns per GEMM pass (8 per lane) = D
+constexpr int kRows = 64;             // rows per GEMM block tile
+constexpr int kCols = 256;            // output columns per GEMM pass = D
 constexpr int kKc = 32;               // reduction depth per staged weight tile
-constexpr int kLda = kCols + 4;       // activation tile row stride, rows 16 B aligned
-constexpr int kLdw = kCols + 1;       // staged weight tile [kKc][kLdw]; 257 = 1 mod 32
-constexpr int kWsFloats = kKc * kLdw;
+constexpr int kLda = kCols + 4;       // activation tile row stride: 16 B rows, 4 mod 32 banks
+constexpr int kLdws = kKc + 4;        // staged weight tile [kCols][kLdws], same two properties
+constexpr int kWsFloats = kCols * kLdws;
 constexpr float kBigNeg = -1e9f;
 constexpr float kLnEps = 1e-5f;
 
@@ -68,9 +68,9 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -81,50 +81,110 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
-// Stage W[n0 + n][k0 + k] (n < kCols, k < kKc; torch [N][K] layout, row
-// stride ldw) into Ws[k][n].  Lanes take consecutive k of one row n:
-// 128-byte global reads, and banks (k * 257 + n) % 32 = (k + n) % 32 differ.
+// Stage W[n0 + n][k0 .. k0 + kKc) (n < kCols; torch [N][K] layout, row
+// stride ldw) into Ws[n][0 .. kKc), 16 bytes per copy: each row is one
+// 128-byte global read.
 __device__ __forceinline__ void stage_w(float* Ws, const float* __restrict__ W,
                                         int ldw, int n0, int k0) {
-#pragma unroll 8
-  for (int e = threadIdx.x; e < kCols * kKc; e += kThreads) {
-    const int n = e / kKc, k = e % kKc;
-    cp_async4(Ws + k * kLdw + n, W + (size_t)(n0 + n) * ldw + k0 + k);
+#pragma unroll
+  for (int e = threadIdx.x; e < kCols * kKc / 4; e += kThreads) {
+    const int n = e / (kKc / 4), q = e % (kKc / 4);
+    cp_async16(Ws + n * kLdws + 4 * q, W + (size_t)(n0 + n) * ldw + k0 + 4 * q);
   }
   cp_async_commit();
 }
 
-// acc[i][j] += sum_{k < kKc} A[8 ty + i][k] * Ws[k][tx + 32 j]; A row stride
-// kLda.  The A reads are warp-uniform (broadcast), the Ws reads consecutive.
-__device__ __forceinline__ void mma_tile(float (&acc)[8][8], const float* A,
-                                         const float* Ws) {
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  const float* a_base = A + 8 * ty * kLda;
+// 3xTF32: x = big + small with both halves exact in tf32, and
+// a.b ~ a_small.b_big + a_big.b_small + a_big.b_big keeps float32 accuracy
+// (the dropped small.small term is ~2^-22 relative) on the tensor cores.
+__device__ __forceinline__ void split_tf32(float x, unsigned& big, unsigned& small) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
+  const float rest = x - __uint_as_float(big);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(rest));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The block's [kRows x kCols] output is split over the 8 warps as 2 x 4
+// warp tiles of 32 rows x 64 columns, each 2 x 8 m16n8 accumulator tiles.
+using Acc = float[2][8][4];
+
+// acc += A[.. x kKc] . Ws[.. x kKc]^T for this warp's tile.  Fragment
+// reads hit banks 4 g + t (g = lane / 4, t = lane % 4): conflict-free,
+// because both row strides are 4 mod 32.  The tensor cores add in float32
+// but truncate to the running sum's exponent, so the tile's products are
+// summed from zero (small cross terms first) and only then added to acc
+// with an ordinary rounded add: 12 truncating steps on a tile-sized sum
+// instead of 3 K / 8 on the whole dot product.
+__device__ __forceinline__ void mma_tile(Acc& acc, const float* A, const float* Ws) {
+  constexpr int kSteps = kKc / 8;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const float* a_base = A + (32 * (warp & 1) + g) * kLda + t;
+  const float* w_base = Ws + (64 * (warp >> 1) + g) * kLdws + t;
+  unsigned ab[2][kSteps][4], as[2][kSteps][4];
 #pragma unroll
-  for (int kk = 0; kk < kKc; kk += 4) {
-    float4 a[8];
+  for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
-      a[i] = *reinterpret_cast<const float4*>(a_base + i * kLda + kk);
+    for (int s = 0; s < kSteps; ++s) {
+      const float* p = a_base + 16 * mi * kLda + 8 * s;
+      split_tf32(p[0], ab[mi][s][0], as[mi][s][0]);              // row g,     k t
+      split_tf32(p[8 * kLda], ab[mi][s][1], as[mi][s][1]);       // row g + 8, k t
+      split_tf32(p[4], ab[mi][s][2], as[mi][s][2]);              // row g,     k t + 4
+      split_tf32(p[8 * kLda + 4], ab[mi][s][3], as[mi][s][3]);   // row g + 8, k t + 4
+    }
 #pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      float w[8];
+  for (int ni = 0; ni < 8; ++ni) {
+    unsigned bb[kSteps][2], bs[kSteps][2];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) w[j] = Ws[(kk + t) * kLdw + tx + 32 * j];
+    for (int s = 0; s < kSteps; ++s) {
+      const float* q = w_base + 8 * ni * kLdws + 8 * s;
+      split_tf32(q[0], bb[s][0], bs[s][0]);                      // k t,     column g
+      split_tf32(q[4], bb[s][1], bs[s][1]);                      // k t + 4, column g
+    }
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float av = t == 0 ? a[i].x : t == 1 ? a[i].y : t == 2 ? a[i].z : a[i].w;
+    for (int mi = 0; mi < 2; ++mi) {
+      float part[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av, w[j], acc[i][j]);
+      for (int s = 0; s < kSteps; ++s) {
+        mma_tf32(part, as[mi][s], bb[s][0], bb[s][1]);
+        mma_tf32(part, ab[mi][s], bs[s][0], bs[s][1]);
       }
+#pragma unroll
+      for (int s = 0; s < kSteps; ++s) mma_tf32(part, ab[mi][s], bb[s][0], bb[s][1]);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[mi][ni][r] += part[r];
     }
   }
+}
+
+// f(row, col, value) for each accumulator of this thread (row < kRows,
+// col < kCols), in the m16n8 C-fragment layout.
+template <class F>
+__device__ __forceinline__ void for_each_acc(Acc& acc, F f) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        f(32 * (warp & 1) + 16 * mi + g + 8 * (r >> 1),
+          64 * (warp >> 1) + 8 * ni + 2 * t + (r & 1), acc[mi][ni][r]);
 }
 
 // acc += A[kRows x K] (shared, row stride kLda) . W[n0 .. n0+kCols)[0 .. K)^T.
 // Expects A written and the block synchronized; returns synchronized.
 // Ws holds two staged tiles: the next one loads while this one computes.
-__device__ void gemm(float (&acc)[8][8], const float* A, const float* __restrict__ W,
+__device__ void gemm(Acc& acc, const float* A, const float* __restrict__ W,
                      int ldw, int n0, int K, float* Ws) {
   const int nk = K / kKc;
   stage_w(Ws, W, ldw, n0, 0);
@@ -138,11 +198,8 @@ __device__ void gemm(float (&acc)[8][8], const float* A, const float* __restrict
   }
 }
 
-__device__ __forceinline__ void zero(float (&acc)[8][8]) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+__device__ __forceinline__ void zero(Acc& acc) {
+  for_each_acc(acc, [](int, int, float& v) { v = 0.f; });
 }
 
 // In-place LayerNorm over each row of a [kRows][kLda] tile (kCols values).
@@ -197,47 +254,58 @@ __device__ void load_rows(float* A, const float* __restrict__ src,
 constexpr size_t kGemmSmem = sizeof(float) * (size_t)(kRows * kLda + 2 * kWsFloats);
 constexpr size_t kFfnSmem = sizeof(float) * (size_t)(2 * kRows * kLda + 2 * kWsFloats);
 
+// Write rows [r0, r0 + kRows) of a [kRows][kLda] tile to a [rows][ld]
+// tensor at column offset c0, 16 bytes per store, skipping rows past the end.
+__device__ void store_rows(float* dst, int ld, int c0, const float* A, int r0, int rows) {
+  for (int e = threadIdx.x; e < kRows * kCols / 4; e += kThreads) {
+    const int r = e / (kCols / 4), c4 = e % (kCols / 4), gr = r0 + r;
+    if (gr < rows)
+      *reinterpret_cast<float4*>(dst + (size_t)gr * ld + c0 + 4 * c4) =
+          *reinterpret_cast<const float4*>(A + r * kLda + 4 * c4);
+  }
+}
+
 __global__ void __launch_bounds__(kThreads, 1)
 qkv_kernel(const float* __restrict__ x, const float* __restrict__ pos,
            const float* __restrict__ w_in, const float* __restrict__ b_in,
            float* __restrict__ qkv, int rows) {
   extern __shared__ float4 smem4[];
-  float* A = reinterpret_cast<float*>(smem4);   // [kRows][kLda]
-  float* Ws = A + kRows * kLda;                  // [2][kKc][kLdw]
+  float* A = reinterpret_cast<float*>(smem4);   // [kRows][kLda]: input, then output
+  float* Ws = A + kRows * kLda;                  // [2][kCols][kLdws]
   const int r0 = blockIdx.x * kRows, part = blockIdx.y;   // 0 q, 1 k, 2 v
   load_rows(A, x, part < 2 ? pos : nullptr, r0, rows);
-  float acc[8][8];
+  Acc acc;
   zero(acc);
   gemm(acc, A, w_in, kCols, part * kCols, kCols, Ws);
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int gr = r0 + 8 * ty + i;
-    if (gr >= rows) break;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = part * kCols + tx + 32 * j;
-      qkv[(size_t)gr * 3 * kCols + col] = acc[i][j] + b_in[col];
-    }
-  }
+  const float* bias = b_in + part * kCols;
+  for_each_acc(acc, [&](int r, int c, float& v) { A[r * kLda + c] = v + bias[c]; });
+  __syncthreads();
+  store_rows(qkv, 3 * kCols, part * kCols, A, r0, rows);
+}
+
+// Softmax rows start 16-byte aligned and hold L rounded up to 4 floats.
+__host__ __device__ constexpr int attention_rows_offset(int L) {
+  return (3 * L * kPad + L + 3) & ~3;
 }
 
 __host__ __device__ constexpr size_t attention_smem_bytes(int L) {
-  return sizeof(float) * (size_t)(3 * L * kPad + L + 2 * kWarps * L);
+  return sizeof(float) * (size_t)(attention_rows_offset(L) + 2 * kWarps * ((L + 3) & ~3));
 }
 
 __global__ void __launch_bounds__(kThreads)
 attention_kernel(const float* __restrict__ qkv, const float* __restrict__ mask,
                  float* __restrict__ ctx, int L) {
-  extern __shared__ float smem[];
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
   const int h = blockIdx.x, b = blockIdx.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float* q_s = smem;                 // [L][kPad], pre-scaled by 1/sqrt(dh)
   float* k_s = q_s + L * kPad;       // [L][kPad]
   float* v_s = k_s + L * kPad;       // [L][kPad]
   float* m_s = v_s + L * kPad;       // [L] key mask
-  float* p0 = m_s + L + 2 * warp * L;   // this warp's two softmax rows
-  float* p1 = p0 + L;
+  const int Lp = (L + 3) & ~3;
+  float* p0 = smem + attention_rows_offset(L) + 2 * warp * Lp;   // this warp's two
+  float* p1 = p0 + Lp;                                            // softmax rows
 
   const float scale = 1.0f / sqrtf((float)kHeadDim);
   const float* base = qkv + (size_t)b * L * 3 * kCols + h * kHeadDim;
@@ -288,7 +356,21 @@ attention_kernel(const float* __restrict__ qkv, const float* __restrict__ mask,
     sum1 = warp_sum(sum1);
     __syncwarp();
     float acc0 = 0.f, acc1 = 0.f;
-    for (int j = 0; j < L; ++j) {
+    int j = 0;
+    for (; j + 4 <= L; j += 4) {           // four keys per broadcast 16-byte read
+      const float4 a = *reinterpret_cast<const float4*>(p0 + j);
+      const float4 c = *reinterpret_cast<const float4*>(p1 + j);
+      const float* v = v_s + j * kPad + lane;
+      acc0 = fmaf(a.x, v[0], acc0);
+      acc1 = fmaf(c.x, v[0], acc1);
+      acc0 = fmaf(a.y, v[kPad], acc0);
+      acc1 = fmaf(c.y, v[kPad], acc1);
+      acc0 = fmaf(a.z, v[2 * kPad], acc0);
+      acc1 = fmaf(c.z, v[2 * kPad], acc1);
+      acc0 = fmaf(a.w, v[3 * kPad], acc0);
+      acc1 = fmaf(c.w, v[3 * kPad], acc1);
+    }
+    for (; j < L; ++j) {
       const float vv = v_s[j * kPad + lane];
       acc0 = fmaf(p0[j], vv, acc0);
       acc1 = fmaf(p1[j], vv, acc1);
@@ -310,58 +392,44 @@ ffn_kernel(const float* __restrict__ x, const float* __restrict__ ctx,
            float* __restrict__ out, int rows, int F) {
   extern __shared__ float4 smem4[];
   float* A = reinterpret_cast<float*>(smem4);  // ctx, then each ReLU slice, then y1 + FFN
-  float* Y = A + kRows * kLda;                  // LN1 output
-  float* Ws = Y + kRows * kLda;                 // [2][kKc][kLdw]
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  float* Y = A + kRows * kLda;                  // x + out-proj, then LN1 output
+  float* Ws = Y + kRows * kLda;                 // [2][kCols][kLdws]
   const int r0 = blockIdx.x * kRows;
 
   load_rows(A, ctx, nullptr, r0, rows);
-  float acc[8][8];
+  Acc acc;
   zero(acc);
   gemm(acc, A, w_out, kCols, 0, kCols, Ws);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = 8 * ty + i, gr = r0 + r;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = tx + 32 * j;
-      const float xv = gr < rows ? x[(size_t)gr * kCols + c] : 0.f;
-      Y[r * kLda + c] = acc[i][j] + b_out[c] + xv;
+  for_each_acc(acc, [&](int r, int c, float& v) { Y[r * kLda + c] = v + b_out[c]; });
+  __syncthreads();
+  for (int e = threadIdx.x; e < kRows * kCols / 4; e += kThreads) {
+    const int r = e / (kCols / 4), c4 = e % (kCols / 4), gr = r0 + r;
+    if (gr < rows) {
+      float4* y = reinterpret_cast<float4*>(Y + r * kLda + 4 * c4);
+      const float4 xv = reinterpret_cast<const float4*>(x + (size_t)gr * kCols)[c4];
+      y->x += xv.x; y->y += xv.y; y->z += xv.z; y->w += xv.w;
     }
   }
   __syncthreads();
   layer_norm_rows(Y, g1, be1);
 
-  float acc2[8][8];
+  Acc acc2;
   zero(acc2);
   for (int f0 = 0; f0 < F; f0 += kCols) {
     zero(acc);
     gemm(acc, Y, w1, kCols, f0, kCols, Ws);
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = tx + 32 * j;
-        A[(8 * ty + i) * kLda + c] = fmaxf(acc[i][j] + b1[f0 + c], 0.f);
-      }
+    for_each_acc(acc, [&](int r, int c, float& v) {
+      A[r * kLda + c] = fmaxf(v + b1[f0 + c], 0.f);
+    });
     __syncthreads();
     gemm(acc2, A, w2 + f0, F, 0, kCols, Ws);
   }
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int r = 8 * ty + i, c = tx + 32 * j;
-      A[r * kLda + c] = acc2[i][j] + b2[c] + Y[r * kLda + c];
-    }
+  for_each_acc(acc2, [&](int r, int c, float& v) {
+    A[r * kLda + c] = v + b2[c] + Y[r * kLda + c];
+  });
   __syncthreads();
   layer_norm_rows(A, g2, be2);
-  for (int e = threadIdx.x; e < kRows * kCols / 4; e += kThreads) {
-    const int r = e / (kCols / 4), c4 = e % (kCols / 4), gr = r0 + r;
-    if (gr < rows)
-      reinterpret_cast<float4*>(out + (size_t)gr * kCols)[c4] =
-          *reinterpret_cast<const float4*>(A + r * kLda + 4 * c4);
-  }
+  store_rows(out, kCols, 0, A, r0, rows);
 }
 
 }  // namespace

@@ -1,10 +1,10 @@
 """Where the time goes in the PyTorch port's serving path, on one CUDA GPU.
 
-    python3 scripts/profile_serving_cuda.py [--tracks 4096] [--batch 32]
+    python3 scripts/profile_serving_cuda.py [--samples 25]
 
 Builds the paper-width model (seeded random weights, float32) and a
-seeded index, warms up, times RetrievalEngine.query at B=1 and B=--batch
-with and without the kernel (host clock, in turns), then traces one query
+4,096-track seeded index, warms up, times RetrievalEngine.query at B=1
+and B=32 with and without the kernel (host clock, in turns), then traces one query
 with torch.profiler and prints the device time by kernel, the query's wall
 time and the device's busy share of it.  It also traces the fused encoder layer
 alone at the query's DETR rows, so the kernel's three launches (QKV,
@@ -31,6 +31,9 @@ from mgsv_tpu_torch.core.device import resolve_device
 from mgsv_tpu_torch.models.made import MaDe
 from mgsv_tpu_torch.serve.engine import RetrievalEngine, build_music_index
 
+TRACKS = 4096   # MGSV-EC's catalog size
+BATCH = 32      # the micro-batcher's max_batch
+
 
 def device_table(prof, rows: int = 15) -> float:
     """Print device kernels by total time; return their sum in ms."""
@@ -53,9 +56,6 @@ def latencies(engine, videos, vmask, n: int) -> np.ndarray:
 
 def main() -> int:
     parser = argparse.ArgumentParser()
-    parser.add_argument("--tracks", type=int, default=4096)
-    parser.add_argument("--batch", type=int, default=32)
-    parser.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
     parser.add_argument("--samples", type=int, default=25,
                         help="timed queries per engine and turn")
     args = parser.parse_args()
@@ -66,25 +66,25 @@ def main() -> int:
 
     base = Config()
     cfg = dataclasses.replace(base, model=dataclasses.replace(
-        base.model, compute_dtype=args.dtype))
+        base.model, compute_dtype="float32"))
     data = cfg.data
     rng = np.random.default_rng(0)
     model = MaDe(cfg, torch.Generator().manual_seed(0)).to(device).eval()
-    feats = rng.standard_normal((args.tracks, data.max_snippet_num, data.ast_dim),
+    feats = rng.standard_normal((TRACKS, data.max_snippet_num, data.ast_dim),
                                 dtype=np.float32)
-    masks = np.ones((args.tracks, data.max_snippet_num), np.float32)
-    index = build_music_index(model, [str(i) for i in range(args.tracks)], feats, masks,
+    masks = np.ones((TRACKS, data.max_snippet_num), np.float32)
+    index = build_music_index(model, [str(i) for i in range(TRACKS)], feats, masks,
                               batch_size=256)
     del feats
     engine = RetrievalEngine(model, cfg, index)
     plain = RetrievalEngine(model, cfg, index, use_fused_kernels=False)
-    videos = rng.standard_normal((args.batch, data.max_v_frames, data.vit_dim),
+    videos = rng.standard_normal((BATCH, data.max_v_frames, data.vit_dim),
                                  dtype=np.float32)
     vmask = np.ones(videos.shape[:2], np.float32)
     for _ in range(3):
         engine.query(videos, vmask)
         plain.query(videos, vmask)
-    for b in (1, args.batch):
+    for b in (1, BATCH):
         # in turns: plain, kernel, kernel, plain
         runs = [latencies(e, videos[:b], vmask[:b], args.samples)
                 for e in (plain, engine, engine, plain)]
@@ -99,14 +99,14 @@ def main() -> int:
         t0 = time.perf_counter()
         engine.query(videos, vmask)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    print(f"query B={args.batch} tracks={args.tracks} dtype={args.dtype}: "
+    print(f"query B={BATCH} tracks={TRACKS} dtype=float32: "
           f"wall {wall_ms:.3f} ms; device time by kernel:")
     busy = device_table(prof)
     print(f"  device busy {busy:.3f} ms = {busy / wall_ms:.3f} of the wall time")
 
     from mgsv_tpu_torch.ops.cuda.fused_encoder_layer import fused_encoder_layer
 
-    rows = args.batch * 8                    # B x bucket(top_k=5)
+    rows = BATCH * 8                    # B x bucket(top_k=5)
     layer = model.detr_transformer.encoder.layers[0]
     x = torch.randn(rows, 152, cfg.model.dim_input, device=device)
     pos = torch.randn_like(x)
