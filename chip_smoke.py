@@ -107,9 +107,9 @@ def check_kernel(device: torch.device) -> dict:
                                                            dtype=np.float32)).to(device)
                       for _ in range(2))
             mask = torch.from_numpy(ragged_mask(rng, rows, KERNEL_L, 1)).to(device)
-            out = fel.fused_encoder_layer(x, mask, pos, layer, heads)
+            out = fel.fused_encoder_layer(x, mask, pos, layer)
             torch.cuda.synchronize()
-            ref = fel.fused_encoder_layer_reference(x, mask, pos, layer, heads)
+            ref = fel.fused_encoder_layer_reference(x, mask, pos, layer)
             err = (out - ref).abs().max().item()
             phase("kernel", name="fused_encoder_layer", rows=rows, L=KERNEL_L,
                   max_abs_err=err, atol=KERNEL_ATOL)
@@ -117,8 +117,8 @@ def check_kernel(device: torch.device) -> dict:
                 raise AssertionError(f"fused_encoder_layer disagrees: {err} at rows={rows}")
             worst = max(worst, err)
 
-        kernel = lambda: fel.fused_encoder_layer(x, mask, pos, layer, heads)
-        plain = lambda: fel.fused_encoder_layer_reference(x, mask, pos, layer, heads)
+        kernel = lambda: fel.fused_encoder_layer(x, mask, pos, layer)
+        plain = lambda: fel.fused_encoder_layer_reference(x, mask, pos, layer)
         for fn in (kernel, plain):
             cuda_ms(fn, 3)
         # in turns (plain, kernel, kernel, plain) so drift hits both alike

@@ -53,6 +53,8 @@ constexpr int kKc = 32;               // reduction depth per staged weight tile
 constexpr int kLda = kCols + 4;       // activation tile row stride: 16 B rows, 4 mod 32 banks
 constexpr int kLdws = kKc + 4;        // staged weight tile [kCols][kLdws], same two properties
 constexpr int kWsFloats = kCols * kLdws;
+constexpr int kMaxL = 256;            // longest sequence (attention shared memory: 116 KB)
+constexpr int kMaxB = 65535;          // batch rows: grid y of the attention launch
 constexpr float kBigNeg = -1e9f;
 constexpr float kLnEps = 1e-5f;
 
@@ -434,16 +436,27 @@ ffn_kernel(const float* __restrict__ x, const float* __restrict__ ctx,
 
 }  // namespace
 
-// Shapes the kernels take; the Python wrapper checks the same before calling.
-extern "C" int mgsv_fused_encoder_layer_supports(int B, int L, int D, int H, int F) {
-  return B >= 1 && B <= 65535 && L >= 1 && D == kCols && H * kHeadDim == D &&
-         F >= kCols && F % kCols == 0 && (long long)B * L < (1ll << 31) &&
-         attention_smem_bytes(L) <= 227 * 1024;
+// Once per device, before the first launch on it: lets each kernel take its
+// dynamic shared memory (the attention kernel's for the longest L it takes).
+// Returns the first CUDA error (0 = ok).
+extern "C" int mgsv_fused_encoder_layer_init() {
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(qkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)kGemmSmem)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(attention_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)attention_smem_bytes(kMaxL))) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(ffn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)kFfnSmem)) != cudaSuccess)
+    return (int)err;
+  return 0;
 }
 
-// One post-norm encoder layer on `stream`.  qkv ([B, L, 3D]) and ctx
-// ([B, L, D]) are scratch buffers, out the [B, L, D] result; every pointer
-// 16-byte aligned.  Returns cudaGetLastError() (0 = ok).
+// One post-norm encoder layer on `stream`, after mgsv_fused_encoder_layer_init
+// on that device.  qkv ([B, L, 3D]) and ctx ([B, L, D]) are scratch
+// buffers, out the [B, L, D] result; every pointer 16-byte aligned.  The
+// shapes must be ones the Python wrapper accepts (its check_supported).
+// Returns cudaGetLastError() (0 = ok).
 extern "C" int mgsv_fused_encoder_layer_fwd(
     const float* x, const float* pos, const float* mask,
     const float* w_in, const float* b_in, const float* w_out, const float* b_out,
@@ -451,23 +464,15 @@ extern "C" int mgsv_fused_encoder_layer_fwd(
     const float* w2, const float* b2, const float* g2, const float* be2,
     float* qkv, float* ctx, float* out, int B, int L, int D, int H, int F,
     void* stream) {
-  if (!mgsv_fused_encoder_layer_supports(B, L, D, H, F)) return (int)cudaErrorInvalidValue;
+  if (B < 1 || B > kMaxB || L < 1 || L > kMaxL || D != kCols || H * kHeadDim != D ||
+      F < kCols || F % kCols != 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rows = B * L, row_tiles = (rows + kRows - 1) / kRows;
-  const size_t smem_att = attention_smem_bytes(L);
   cudaError_t err;
-  if ((err = cudaFuncSetAttribute(qkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)kGemmSmem)) != cudaSuccess ||
-      (err = cudaFuncSetAttribute(attention_kernel,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)smem_att)) != cudaSuccess ||
-      (err = cudaFuncSetAttribute(ffn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)kFfnSmem)) != cudaSuccess)
-    return (int)err;
-
   qkv_kernel<<<dim3(row_tiles, 3), kThreads, kGemmSmem, s>>>(x, pos, w_in, b_in, qkv, rows);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  attention_kernel<<<dim3(H, B), kThreads, smem_att, s>>>(qkv, mask, ctx, L);
+  attention_kernel<<<dim3(H, B), kThreads, attention_smem_bytes(L), s>>>(qkv, mask, ctx, L);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   ffn_kernel<<<row_tiles, kThreads, kFfnSmem, s>>>(x, ctx, w_out, b_out, g1, be1, w1, b1,
                                                    w2, b2, g2, be2, out, rows, F);

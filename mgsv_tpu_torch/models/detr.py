@@ -33,7 +33,6 @@ class DetrEncoderLayer(nn.Module):
         super().__init__()
         if pre_norm:
             raise NotImplementedError(_PRE_NORM_MSG)
-        self.heads = heads
         self.self_attn = MultiHeadAttention(dim, heads)
         self.linear1 = nn.Linear(dim, ffn_dim)
         self.linear2 = nn.Linear(ffn_dim, dim)
@@ -134,7 +133,6 @@ class DetrTransformer(nn.Module):
         super().__init__()
         if pre_norm:
             raise NotImplementedError(_PRE_NORM_MSG)
-        self.heads = heads
         self.encoder = DetrEncoder(dim, heads, ffn_dim, enc_layers)
         self.decoder = DetrDecoder(dim, heads, ffn_dim, dec_layers, decoder_self_attn)
 

@@ -26,5 +26,5 @@ def detr_forward_fused(
     """Returns (hidden [dec_layers, B, Q, D], memory [B, L, D])."""
     memory = src
     for layer in detr.encoder.layers:
-        memory = fused_encoder_layer(memory, mask, pos, layer, detr.heads)
+        memory = fused_encoder_layer(memory, mask, pos, layer)
     return detr.decode(memory, mask, pos, query_embed, target), memory

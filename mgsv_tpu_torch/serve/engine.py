@@ -4,11 +4,11 @@ still to port, ROADMAP.md).
 
 A query runs the video tower, the dual + pooled X-Pool similarity against
 the whole index, top-k, and DETR localization of every (query, candidate)
-pair.  With `use_fused_kernels` (the default on a CUDA device when the
-kernel takes the config's shapes, as the paper config's) the DETR encoder
-layers run on the hand-written CUDA kernel (ops/cuda/fused_encoder_layer.py)
-in float32, as the JAX fused path does; otherwise the plain modules run in
-the configured compute dtype.
+pair.  With `use_fused_kernels` (the default on a CUDA device) the DETR
+encoder layers run on the hand-written CUDA kernel
+(ops/cuda/fused_encoder_layer.py) in float32, as the JAX fused path does;
+a config whose shapes the kernel does not take raises at the first query.
+Otherwise the plain modules run in the configured compute dtype.
 """
 
 from __future__ import annotations
@@ -24,7 +24,6 @@ from mgsv_tpu.config import Config
 from mgsv_tpu_torch.eval.similarity import dual_similarity, xpool_similarity_blocked
 from mgsv_tpu_torch.models import layers as L
 from mgsv_tpu_torch.models.made import MaDe
-from mgsv_tpu_torch.ops.cuda.fused_encoder_layer import kernel_supports
 from mgsv_tpu_torch.ops.detr_fused import detr_forward_fused
 from mgsv_tpu_torch.ops.spans import span_cw_to_se
 
@@ -101,10 +100,7 @@ class RetrievalEngine:
         self.index = index
         self.device = next(model.parameters()).device
         if use_fused_kernels is None:
-            m, pad = cfg.model, max(cfg.model.detr_seq_pad_multiple, 1)
-            seq_len = -(-(cfg.data.max_v_frames + cfg.data.max_snippet_num) // pad) * pad
-            use_fused_kernels = self.device.type == "cuda" and kernel_supports(
-                seq_len, m.dim_input, m.detr_heads, m.detr_ffn_dim)
+            use_fused_kernels = self.device.type == "cuda"
         self.use_fused_kernels = use_fused_kernels
         self.sim_block_size = sim_block_size
         if index_dtype in ("bf16", "bfloat16"):

@@ -112,10 +112,10 @@ def main() -> int:
     pos = torch.randn_like(x)
     mask = torch.ones(rows, 152, device=device)
     with torch.no_grad():
-        fused_encoder_layer(x, mask, pos, layer, cfg.model.detr_heads)
+        fused_encoder_layer(x, mask, pos, layer)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(10):
-                fused_encoder_layer(x, mask, pos, layer, cfg.model.detr_heads)
+                fused_encoder_layer(x, mask, pos, layer)
             torch.cuda.synchronize()
     print(f"fused_encoder_layer rows={rows} L=152, 10 calls:")
     device_table(prof, rows=4)

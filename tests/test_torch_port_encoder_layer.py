@@ -77,7 +77,7 @@ def test_plain_version_matches_pallas_and_oracle(b, L, d, heads):
     layer.load_state_dict(encoder_state(params["params"]), strict=True)
     with torch.no_grad():
         xt, mt, pt = map(torch.from_numpy, (x, mask, pos))
-        out = fel.fused_encoder_layer(xt, mt, pt, layer, heads)
+        out = fel.fused_encoder_layer(xt, mt, pt, layer)
         module = layer(xt, mt, pt)
     for ref in (pallas, oracle):
         np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
@@ -116,7 +116,7 @@ def test_detr_forward_fused_matches_jax():
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "head_dim", "width", "length",
-                                 "contiguous"])
+                                 "contiguous", "layer_dim"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     b, L, d, heads = 2, 16, 256, 8
     layer = DetrEncoderLayer(d, heads, 4 * d)
@@ -127,18 +127,30 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     elif bad == "shape":
         pos = torch.zeros(b, L + 1, d)
     elif bad == "head_dim":
-        heads = 4
+        layer = DetrEncoderLayer(d, 4, 4 * d)
     elif bad == "width":
         layer = DetrEncoderLayer(d, heads, 3 * d // 2)
     elif bad == "length":
         x, pos, mask = (torch.zeros(b, fel.MAX_L + 1, d), torch.zeros(b, fel.MAX_L + 1, d),
                         torch.ones(b, fel.MAX_L + 1))
-    else:
+    elif bad == "contiguous":
         x = torch.zeros(b, d, L).transpose(1, 2)
+    else:                              # the layer's width differs from the input's
+        layer = DetrEncoderLayer(d // 2, heads, 4 * d)
     with pytest.raises(ValueError):
-        fel.check_supported(x, mask, pos, layer, heads)
+        fel.check_supported(x, mask, pos, layer)
     fel.check_supported(torch.zeros(b, L, d), torch.ones(b, L), torch.zeros(b, L, d),
-                        DetrEncoderLayer(d, 8, 4 * d), 8)
+                        DetrEncoderLayer(d, 8, 4 * d))
+
+
+def test_weight_check_runs_again_after_the_weights_move():
+    layer = DetrEncoderLayer(256, 8, 1024)
+    cpu = torch.device("cpu")
+    assert fel._weights(layer, cpu)[0] is layer.self_attn.in_proj_weight
+    assert layer in fel._checked_weights
+    layer.double()                     # new storage: the check runs again and fails
+    with pytest.raises(ValueError):
+        fel._weights(layer, cpu)
 
 
 @pytest.mark.cuda
@@ -153,7 +165,7 @@ def test_cuda_kernel_matches_plain_version():
     layer = layer.to(dev)
     before = fel.fused_encoder_layer.launches
     with torch.no_grad():
-        out = fel.fused_encoder_layer(x, mask, pos, layer, heads)
-        ref = fel.fused_encoder_layer_reference(x, mask, pos, layer, heads)
+        out = fel.fused_encoder_layer(x, mask, pos, layer)
+        ref = fel.fused_encoder_layer_reference(x, mask, pos, layer)
     assert fel.fused_encoder_layer.launches == before + 1
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
