@@ -2,19 +2,29 @@
 
     python3 chip_smoke.py          # from the repository root, one CUDA device
 
-Drives the port's serving path at the paper widths (Config(): D=256, 50
-frames, 96 snippets, 2 DETR encoder / 6 decoder layers) with seeded random
-weights, in phases that each print one line and raise on failure:
+Drives the port's two paths at the paper widths (Config(): D=256, 50
+frames, 96 snippets, 2 DETR encoder / 6 decoder layers, B=512 in training)
+with seeded random weights, in phases that each print lines and raise on
+failure:
 
   1. device   card name, and its name and power limit from nvidia-smi
-  2. build    compiles the CUDA kernels from mgsv_tpu_torch/csrc
-  3. kernel   each kernel against its plain PyTorch version on the card
-              (float32, TF32 off), with both times at the serving shape
-  4. slice    a 4,096-track index built through build_music_index, queries
-              at B=1 and B=32 through RetrievalEngine with the kernel, held
-              against the same engine without it; launch counts read over
-              that run; the default bf16 config timed
-  5. http     RetrievalServer on 127.0.0.1: /healthz and three /query
+  2. build    compiles the CUDA kernels from mgsv_tpu_torch/csrc, one nvcc
+              per source, all started together; registers and spills
+  3. kernels  each kernel against its plain PyTorch version on the card
+              (float32, TF32 off) at the training shapes, at rate 0 and at
+              the configuration's dropout rate: the forward output and every
+              gradient; kernel and plain times in turns; the encoder layer
+              also at the serving shapes, timed beside its bound
+  4. train    one float32 training step of MaDe (Config() widths, dropout
+              on) through the kernels and one through the plain versions,
+              from the same weights, batch and seed: the loss and every
+              parameter's gradient compared; launches per step read
+  5. timed    a few steps of the default bf16 Config() at B=512: clips/s
+              and peak memory
+  6. slice    serving: a 4,096-track index built through build_music_index,
+              queries at B=1 and B=32 through RetrievalEngine with the
+              kernel, held against the same engine without it; launches read
+  7. http     RetrievalServer on 127.0.0.1: /healthz and three /query
               replies equal to direct engine.query calls
 
 then prints the kernels' JSON line and, last, {"ok": true, "device": ...}.
@@ -24,42 +34,102 @@ or any phase fails.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 import http.client
 import json
+import re
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 import torch
 
-from mgsv_tpu.config import Config
+from mgsv_tpu_torch.config import Config
 from mgsv_tpu_torch.core.device import resolve_device
+from mgsv_tpu_torch.data.example_batch import example_batch, to_tensors
 from mgsv_tpu_torch.models.detr import DetrEncoderLayer
+from mgsv_tpu_torch.models.layers import l2_normalize
 from mgsv_tpu_torch.models.made import MaDe
+from mgsv_tpu_torch.models.xpool import XPoolTransformer
 from mgsv_tpu_torch.ops.cuda import fused_encoder_layer as fel
+from mgsv_tpu_torch.ops.cuda import xpool_sim as xps
 from mgsv_tpu_torch.runtime import kernels
 from mgsv_tpu_torch.serve.engine import RetrievalEngine, build_music_index
+from mgsv_tpu_torch.train.optimizer import make_optimizer
+from mgsv_tpu_torch.train.step import make_train_step
 
 SEED = 0
+DROPOUT_SEED = 1234        # the Philox seed of the kernel phases
+TRAIN_B = 512              # the paper's training batch
+TRAIN_L = 152              # 50 frames + 96 snippets, padded to a multiple of 8
 N_TRACKS = 4096            # MGSV-EC's catalog size
-KERNEL_ROWS = (8, 256)     # fused rows B*k: a B=1 query, and B=32 x k-bucket 8
-KERNEL_L = 152             # 50 frames + 96 snippets, padded to a multiple of 8
-# Tolerance of the kernel against its plain version.  The kernel's GEMMs
-# keep float32 accuracy (3xTF32 on the tensor cores, each tile's partial sum
-# added in float32), so the two differ by rounding and summation order; the
-# layer ends in LayerNorm, so its outputs are of order 1 and those
-# differences move them by a few 1e-6.  1e-4 leaves more than an order of
-# headroom and still catches any indexing or masking fault, which moves
-# outputs by O(1).
+SERVE_ROWS = (8, 256)      # fused rows B*k: a B=1 query, and B=32 x k-bucket 8
+TIMED_STEPS = 5
+HORIZON = 1000             # schedule length the optimizers are built for
+# H100 SXM peaks (NVIDIA's data sheet, dense): the kernels compute float32
+# on the tensor cores as TF32 products, so their bound takes the TF32 rate.
+PEAK_TF32_FLOPS = 495e12
+PEAK_HBM_BYTES = 3.35e12
+
+# Tolerances of a kernel against its plain version (both float32, TF32 off).
+# Forward outputs: the kernels' GEMMs keep float32 accuracy (3xTF32 on the
+# tensor cores, each tile's partial sum added in float32), so kernel and
+# plain version differ by rounding and summation order; both layers end in
+# LayerNorm (and X-Pool in a cosine), so outputs are of order 1 and move by
+# a few 1e-6.  1e-4 leaves more than an order of headroom and still catches
+# an indexing, masking or dropout fault, which moves outputs by O(1e-2..1).
 KERNEL_ATOL = 1e-4
+# Gradients are held against a float64 run of the plain version.  They are
+# sums over up to 77,824 rows (B*L) or 262,144 pairs, and a float32 ReLU
+# gate flips wherever its input lies within rounding of zero (tens of the
+# 80M gates of an encoder layer at B=512): each flip moves a gradient by a
+# whole O(1) term, so two float32 versions disagree by far more than
+# rounding.  Per tensor the kernel's max abs error against float64 must stay
+# within 1e-3 x the largest magnitude of the gradient, plus twice the error
+# the float32 plain version itself makes there, plus 1e-6 for gradients
+# that are zero in exact arithmetic (key biases: a softmax ignores a
+# constant shift).  A wrong index or mask moves a gradient by O(its size).
+GRAD_RTOL, GRAD_FLOOR = 1e-3, 1e-6
+# The training loss: InfoNCE over 512 x 512 logits scaled by 1/0.03 and the
+# set criterion; against float64 within 1e-4 relative plus twice the float32
+# plain step's own error.
+LOSS_RTOL = 1e-4
 SPAN_ATOL_S = 5e-3         # localized moments, seconds on a 240 s scale
 SCORE_ATOL = 1e-4
+
+COUNTERS = {"fused_encoder_layer": fel.fused_encoder_layer,
+            "fused_encoder_layer_bwd": fel.fused_encoder_layer_bwd,
+            "xpool_sim_fwd": xps.xpool_sim_fwd,
+            "xpool_sim_bwd": xps.xpool_sim_bwd}
+PER_STEP = {"fused_encoder_layer": 2, "fused_encoder_layer_bwd": 2,
+            "xpool_sim_fwd": 1, "xpool_sim_bwd": 1}
 
 
 def phase(tag: str, /, **fields) -> None:
     print(f"[{tag}] " + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The training step's kernel wrappers replaced by their plain versions
+    (the model looks them up at each call), so a step runs autograd through
+    the plain versions on the card."""
+    with mock.patch.object(fel, "fused_encoder_layer", fel.fused_encoder_layer_reference), \
+            mock.patch.object(xps, "xpool_sim", xps.xpool_sim_reference):
+        yield
+
+
+def reset_counts() -> None:
+    for fn in COUNTERS.values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in COUNTERS.items()}
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -72,64 +142,332 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def in_turns(kernel, plain, iters: int = 5):
+    """(kernel ms, plain ms), timed plain, kernel, kernel, plain after one
+    warm-up call each, so drift hits both alike."""
+    cuda_ms(kernel, 1)
+    cuda_ms(plain, 1)
+    p1, k1, k2, p2 = (cuda_ms(fn, iters) for fn in (plain, kernel, kernel, plain))
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def bound(flops: float, nbytes: int) -> tuple:
+    """(ms, "operations" | "bytes"): the larger of the operations at the TF32
+    peak and the bytes (inputs read once, outputs written once) at the
+    memory rate."""
+    t_ops, t_bytes = flops / PEAK_TF32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def entry(name, source, replaces, err, ms, plain_ms, flops, nbytes) -> dict:
+    """One kernel's record.  No single PyTorch call computes any of the four
+    functions (the encoder layer adds pos to q and k only, and runs both
+    LayerNorms and the FFN after the attention; the X-Pool pair stage is a
+    softmax pooling followed by two LayerNorms, a dropped branch and a
+    cosine per pair), so library_ms is null."""
+    bound_ms, bound_by = bound(flops, nbytes)
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
+
+
+def encoder_flops(b: int, length: int, d: int, ffn: int) -> int:
+    """One encoder layer's forward: QKV, scores and P.V, out-projection, FFN."""
+    rows = b * length
+    return (2 * rows * d * 3 * d + 4 * b * length * length * d + 2 * rows * d * d
+            + 4 * rows * d * ffn)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def ragged_mask(rng: np.random.Generator, rows: int, length: int, lo: int) -> np.ndarray:
     lens = rng.integers(lo, length + 1, rows)
     return (np.arange(length)[None] < lens[:, None]).astype(np.float32)
 
 
-def check_device() -> str:
+def randn(rng: np.random.Generator, shape, device) -> torch.Tensor:
+    return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device)
+
+
+@torch.no_grad()
+def perturb_(module: torch.nn.Module, generator: torch.Generator, scale: float = 0.02):
+    """Move every parameter off its initial value (identity projections,
+    zero biases, unit LayerNorms), so every gradient path carries signal."""
+    for p in module.parameters():
+        p.add_(scale * torch.randn(p.shape, generator=generator))
+    return module
+
+
+def check_close(what: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """Max abs error of a forward output against the plain version's."""
+    err = (got - want).abs().max().item()
+    if not torch.isfinite(got).all() or not err <= KERNEL_ATOL:
+        raise AssertionError(f"{what}: max abs error {err} > {KERNEL_ATOL}")
+    return err
+
+
+def check_grads(what: str, names, kernel, plain, exact) -> tuple:
+    """The kernel's gradients against the float64 plain run `exact`, with
+    the float32 plain run's error as the allowance (see GRAD_RTOL); returns
+    (the kernel's largest max abs error, the float32 plain run's largest,
+    the name of the tensor where the kernel's is largest, that tensor's
+    largest magnitude)."""
+    worst, worst_plain, worst_name, worst_max = 0.0, 0.0, "", 0.0
+    for name, k, p, e in zip(names, kernel, plain, exact):
+        err, plain_err = (k.double() - e).abs().max().item(), (p.double() - e).abs().max().item()
+        tol = GRAD_RTOL * e.abs().max().item() + 2 * plain_err + GRAD_FLOOR
+        if not torch.isfinite(k).all() or not err <= tol:
+            raise AssertionError(f"{what} d{name}: max abs error {err} > {tol}")
+        if err >= worst:
+            worst, worst_name, worst_max = err, name, e.abs().max().item()
+        worst_plain = max(worst_plain, plain_err)
+    return worst, worst_plain, worst_name, worst_max
+
+
+def check_device() -> tuple:
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     phase("device", name=json.dumps(name), count=torch.cuda.device_count())
     print(smi.splitlines()[0], flush=True)
-    return name
+    return name, smi.splitlines()[0]
 
 
-def check_kernel(device: torch.device) -> dict:
-    """The encoder-layer kernel against its plain version at the serving
-    shapes; times at the larger one."""
+def build_kernels() -> None:
     t0 = time.perf_counter()
-    kernels.load("fused_encoder_layer")
-    phase("build", kernel="fused_encoder_layer", seconds=f"{time.perf_counter() - t0:.2f}")
+    kernels.build_all()
+    for name in kernels.KERNELS:
+        log = kernels.build_logs.get(name, "")
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+        spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores", log)]
+        phase("build", kernel=name, max_registers=max(regs, default="cached"),
+              spill_store_bytes=sum(spills))
+    phase("build", seconds=f"{time.perf_counter() - t0:.2f}")
 
-    cfg = Config().model
-    d, heads, ffn = cfg.dim_input, cfg.detr_heads, cfg.detr_ffn_dim
+
+def check_encoder(device: torch.device) -> list:
+    """Kernels #1 (forward) and #2 (backward) against autograd through the
+    plain version, at B=512, L=152, rates 0 and the configuration's."""
+    m = Config().model
+    d, heads, ffn, rate = m.dim_input, m.detr_heads, m.detr_ffn_dim, m.detr_dropout
+    gen = torch.Generator().manual_seed(SEED)
     layer = DetrEncoderLayer(d, heads, ffn)
-    layer.reset_parameters(torch.Generator().manual_seed(SEED))
-    layer = layer.to(device)
+    layer.reset_parameters(gen)
+    layer = perturb_(layer, gen).to(device)
+    params = list(layer.parameters())
+    names = ["x", "pos"] + [n for n, _ in layer.named_parameters()]
     rng = np.random.default_rng(SEED)
-    worst = 0.0
-    with torch.no_grad():
-        for rows in KERNEL_ROWS:
-            x, pos = (torch.from_numpy(rng.standard_normal((rows, KERNEL_L, d),
-                                                           dtype=np.float32)).to(device)
-                      for _ in range(2))
-            mask = torch.from_numpy(ragged_mask(rng, rows, KERNEL_L, 1)).to(device)
-            out = fel.fused_encoder_layer(x, mask, pos, layer)
-            torch.cuda.synchronize()
-            ref = fel.fused_encoder_layer_reference(x, mask, pos, layer)
-            err = (out - ref).abs().max().item()
-            phase("kernel", name="fused_encoder_layer", rows=rows, L=KERNEL_L,
-                  max_abs_err=err, atol=KERNEL_ATOL)
-            if not torch.isfinite(out).all() or not err <= KERNEL_ATOL:
-                raise AssertionError(f"fused_encoder_layer disagrees: {err} at rows={rows}")
-            worst = max(worst, err)
+    x, pos, g = (randn(rng, (TRAIN_B, TRAIN_L, d), device) for _ in range(3))
+    mask = torch.from_numpy(ragged_mask(rng, TRAIN_B, TRAIN_L, 1)).to(device)
+    layer64 = copy.deepcopy(layer).double()
+    fwd_err = bwd_err = 0.0
+    for r in (0.0, rate):
+        outs, grads = {}, {}
+        for kind, fn, lay, dt in (("kernel", fel.fused_encoder_layer, layer, torch.float32),
+                                  ("plain", fel.fused_encoder_layer_reference, layer,
+                                   torch.float32),
+                                  ("exact", fel.fused_encoder_layer_reference, layer64,
+                                   torch.float64)):
+            xi, pi = (t.detach().to(dt).requires_grad_() for t in (x, pos))
+            out = fn(xi, mask.to(dt), pi, lay, r, DROPOUT_SEED)
+            grads[kind] = torch.autograd.grad(out, [xi, pi, *lay.parameters()], g.to(dt))
+            outs[kind] = out.detach()
+            del out
+        torch.cuda.synchronize()
+        err = check_close(f"fused_encoder_layer rate {r}", outs["kernel"], outs["plain"])
+        gerr, perr, gname, gmax = check_grads(f"fused_encoder_layer_bwd rate {r}", names,
+                                              grads["kernel"], grads["plain"], grads["exact"])
+        phase("kernel", name="fused_encoder_layer", B=TRAIN_B, L=TRAIN_L, rate=r,
+              max_abs_err=err, atol=KERNEL_ATOL)
+        phase("kernel", name="fused_encoder_layer_bwd", B=TRAIN_B, L=TRAIN_L, rate=r,
+              grads=len(names), max_abs_err=gerr, at=gname, its_max=gmax,
+              plain_f32_err=perr, rtol_of_max=GRAD_RTOL)
+        fwd_err, bwd_err = max(fwd_err, err), max(bwd_err, gerr)
+        del outs, grads
+    with torch.no_grad():                 # the serving shapes, rate 0
+        for rows in SERVE_ROWS:
+            xs, ps = (randn(rng, (rows, TRAIN_L, d), device) for _ in range(2))
+            ms_ = torch.from_numpy(ragged_mask(rng, rows, TRAIN_L, 1)).to(device)
+            err = check_close(f"fused_encoder_layer rows {rows}",
+                              fel.fused_encoder_layer(xs, ms_, ps, layer),
+                              fel.fused_encoder_layer_reference(xs, ms_, ps, layer))
+            kms, pms = in_turns(lambda: fel.fused_encoder_layer(xs, ms_, ps, layer),
+                                lambda: fel.fused_encoder_layer_reference(xs, ms_, ps, layer))
+            bms_, by = bound(encoder_flops(rows, TRAIN_L, d, ffn),
+                             nbytes(xs, ps, ms_, xs, *params))
+            phase("kernel", name="fused_encoder_layer", B=rows, L=TRAIN_L, rate=0.0,
+                  max_abs_err=err, atol=KERNEL_ATOL, ms=f"{kms:.4f}", plain_ms=f"{pms:.4f}",
+                  bound_ms=f"{bms_:.4f}", bound_by=by)
+            fwd_err = max(fwd_err, err)
 
-        kernel = lambda: fel.fused_encoder_layer(x, mask, pos, layer)
-        plain = lambda: fel.fused_encoder_layer_reference(x, mask, pos, layer)
-        for fn in (kernel, plain):
-            cuda_ms(fn, 3)
-        # in turns (plain, kernel, kernel, plain) so drift hits both alike
-        p1, k1, k2, p2 = (cuda_ms(fn, 20) for fn in (plain, kernel, kernel, plain))
-    ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-    phase("kernel-time", name="fused_encoder_layer", rows=KERNEL_ROWS[-1], L=KERNEL_L,
+    with torch.no_grad():
+        ms, plain_ms = in_turns(
+            lambda: fel.fused_encoder_layer(x, mask, pos, layer, rate, DROPOUT_SEED),
+            lambda: fel.fused_encoder_layer_reference(x, mask, pos, layer, rate, DROPOUT_SEED))
+    xi, pi = x.clone().requires_grad_(), pos.clone().requires_grad_()
+    out = fel.fused_encoder_layer_reference(xi, mask, pi, layer, rate, DROPOUT_SEED)
+    bms, plain_bms = in_turns(
+        lambda: fel.fused_encoder_layer_bwd(x, mask, pos, g, layer, rate, DROPOUT_SEED),
+        lambda: torch.autograd.grad(out, [xi, pi, *params], g, retain_graph=True))
+    del out
+    phase("kernel-time", name="fused_encoder_layer", B=TRAIN_B, L=TRAIN_L, rate=rate,
           ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}")
-    return {"name": "fused_encoder_layer", "route": "cuda",
-            "source": "mgsv_tpu_torch/csrc/fused_encoder_layer.cu",
-            "replaces": "mgsv_tpu/ops/pallas/fused_encoder_layer.py:193",
-            "launches": None, "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    phase("kernel-time", name="fused_encoder_layer_bwd", B=TRAIN_B, L=TRAIN_L, rate=rate,
+          ms=f"{bms:.4f}", plain_ms=f"{plain_bms:.4f}")
+    flops = encoder_flops(TRAIN_B, TRAIN_L, d, ffn)
+    return [
+        entry("fused_encoder_layer", "mgsv_tpu_torch/csrc/fused_encoder_layer.cu",
+              "mgsv_tpu/ops/pallas/fused_encoder_layer.py:193", fwd_err, ms, plain_ms,
+              flops, nbytes(x, pos, mask, x, *params)),
+        entry("fused_encoder_layer_bwd", "mgsv_tpu_torch/csrc/fused_encoder_layer_bwd.cu",
+              "mgsv_tpu/ops/pallas/fused_encoder_layer_vjp.py:256", bwd_err, bms, plain_bms,
+              2 * flops, nbytes(x, pos, mask, g, *params, x, pos, *params)),
+    ]
+
+
+def check_xpool(device: torch.device) -> list:
+    """Kernel #3 (forward and backward) against autograd through the plain
+    version, at V = M = 512, S = 96, rates 0 and the configuration's."""
+    cfg = Config()
+    d, s, rate = cfg.model.dim_input, cfg.data.max_snippet_num, cfg.model.xpool_dropout
+    vc = mc = TRAIN_B
+    gen = torch.Generator().manual_seed(SEED + 1)
+    weights = [w.detach() for w in perturb_(XPoolTransformer(d), gen).to(device).stage_weights()]
+    rng = np.random.default_rng(SEED + 1)
+    q, vhat = randn(rng, (vc, d), device), l2_normalize(randn(rng, (vc, d), device))
+    k, v = (randn(rng, (mc, s, d), device) for _ in range(2))
+    mask = torch.from_numpy(ragged_mask(rng, mc, s, 1)).to(device)
+    g = randn(rng, (mc, vc), device)
+    names = ["q", "k", "v", "vhat", "Wout", "bout", "g2", "b2", "Wlin", "blin", "g3", "b3"]
+    fwd_err = bwd_err = 0.0
+    for r in (0.0, rate):
+        outs, grads = {}, {}
+        for kind, fn, dt in (("kernel", xps.xpool_sim, torch.float32),
+                             ("plain", xps.xpool_sim_reference, torch.float32),
+                             ("exact", xps.xpool_sim_reference, torch.float64)):
+            ins = [t.detach().to(dt).requires_grad_() for t in (q, k, v, vhat, *weights)]
+            out = fn(ins[0], ins[1], ins[2], mask, ins[3], ins[4:], r, DROPOUT_SEED)
+            grads[kind] = torch.autograd.grad(out, ins, g.to(dt))
+            outs[kind] = out.detach()
+            del out
+        torch.cuda.synchronize()
+        err = check_close(f"xpool_sim rate {r}", outs["kernel"], outs["plain"])
+        gerr, perr, gname, gmax = check_grads(f"xpool_sim_bwd rate {r}", names,
+                                              grads["kernel"], grads["plain"], grads["exact"])
+        phase("kernel", name="xpool_sim_fwd", V=vc, M=mc, S=s, rate=r, max_abs_err=err,
+              atol=KERNEL_ATOL)
+        phase("kernel", name="xpool_sim_bwd", V=vc, M=mc, S=s, rate=r, grads=len(names),
+              max_abs_err=gerr, at=gname, its_max=gmax, plain_f32_err=perr,
+              rtol_of_max=GRAD_RTOL)
+        fwd_err, bwd_err = max(fwd_err, err), max(bwd_err, gerr)
+        del outs, grads
+
+    with torch.no_grad():
+        ms, plain_ms = in_turns(
+            lambda: xps.xpool_sim_fwd(q, k, v, mask, vhat, weights, rate, DROPOUT_SEED),
+            lambda: xps.xpool_sim_reference(q, k, v, mask, vhat, weights, rate, DROPOUT_SEED))
+    ins = [t.clone().requires_grad_() for t in (q, k, v, vhat, *weights)]
+    out = xps.xpool_sim_reference(ins[0], ins[1], ins[2], mask, ins[3], ins[4:], rate,
+                                  DROPOUT_SEED)
+    bms, plain_bms = in_turns(
+        lambda: xps.xpool_sim_bwd(q, k, v, mask, vhat, weights, g, rate, DROPOUT_SEED),
+        lambda: torch.autograd.grad(out, ins, g, retain_graph=True))
+    del out
+    phase("kernel-time", name="xpool_sim_fwd", V=vc, M=mc, S=s, rate=rate, ms=f"{ms:.4f}",
+          plain_ms=f"{plain_ms:.4f}")
+    phase("kernel-time", name="xpool_sim_bwd", V=vc, M=mc, S=s, rate=rate, ms=f"{bms:.4f}",
+          plain_ms=f"{plain_bms:.4f}")
+    flops = vc * mc * (4 * s * d + 4 * d * d)          # 360,448 per pair at S=96
+    src = "mgsv_tpu_torch/csrc/xpool_sim_train.cu"
+    return [
+        entry("xpool_sim_fwd", src, "mgsv_tpu/ops/pallas/xpool_sim_vjp.py:250", fwd_err,
+              ms, plain_ms, flops, nbytes(q, k, v, mask, vhat, *weights, g)),
+        entry("xpool_sim_bwd", src, "mgsv_tpu/ops/pallas/xpool_sim_vjp.py:301", bwd_err,
+              bms, plain_bms, 2 * flops,
+              nbytes(q, k, v, mask, vhat, *weights, g, q, k, v, vhat, *weights)),
+    ]
+
+
+def train_setup(cfg: Config, device: torch.device, model=None):
+    model = model if model is not None else MaDe(
+        cfg, torch.Generator().manual_seed(SEED)).to(device)
+    optimizer = make_optimizer(model, cfg, total_steps=HORIZON)
+    return model, make_train_step(model, cfg, optimizer)
+
+
+def check_train(device: torch.device) -> dict:
+    """One float32 step through the kernels, one through the plain versions
+    and one through the plain versions in float64, from the same weights,
+    batch and seed; returns the kernel step's launch counts."""
+    base = Config()
+    cfg = base.replace(model=dataclasses.replace(base.model, compute_dtype="float32"))
+    batch = to_tensors(example_batch(np.random.RandomState(SEED), cfg, TRAIN_B), device)
+    model, _ = train_setup(cfg, device)
+    runs = {"kernel": (model, batch, False),
+            "plain": (copy.deepcopy(model), batch, True),
+            "exact": (copy.deepcopy(model).double(),
+                      {k: v.double() if v.is_floating_point() else v for k, v in batch.items()},
+                      True)}
+    logs, grads, launches = {}, {}, {}
+    for kind, (mdl, b, plain) in runs.items():
+        _, step = train_setup(cfg, device, model=mdl)
+        reset_counts()
+        with plain_kernels() if plain else contextlib.nullcontext():
+            log = step(b)
+        torch.cuda.synchronize()
+        launches[kind] = read_counts()
+        logs[kind] = {k: float(v.double().mean()) for k, v in log.items()}
+        grads[kind] = {n: p.grad for n, p in mdl.named_parameters() if p.grad is not None}
+        del log, step
+    if launches["kernel"] != PER_STEP:
+        raise AssertionError(f"kernel step launches {launches['kernel']}, want {PER_STEP}")
+    if any(launches["plain"].values()) or any(launches["exact"].values()):
+        raise AssertionError(f"a plain step launched kernels: {launches}")
+    for kind, log in logs.items():
+        if not all(np.isfinite(v) for v in log.values()):
+            raise AssertionError(f"{kind} step log not finite: {log}")
+    loss = {kind: log["loss"] for kind, log in logs.items()}
+    tol = LOSS_RTOL * abs(loss["exact"]) + 2 * abs(loss["plain"] - loss["exact"])
+    if not abs(loss["kernel"] - loss["exact"]) <= tol:
+        raise AssertionError(f"step loss {loss} (tolerance {tol})")
+    names = list(grads["exact"])
+    if not grads["kernel"].keys() == grads["plain"].keys() == grads["exact"].keys():
+        raise AssertionError("the steps gave gradients to different parameters")
+    worst, worst_plain, _, _ = check_grads(
+        "train step", names, *([grads[k][n] for n in names] for k in ("kernel", "plain", "exact")))
+    phase("train", dtype="float32", B=TRAIN_B, loss=loss["kernel"], plain_loss=loss["plain"],
+          float64_loss=loss["exact"], params=len(names), grad_max_abs_err=worst,
+          plain_f32_grad_err=worst_plain,
+          train_iou=logs["kernel"]["train_iou"], grad_norm=logs["kernel"]["grad_norm"])
+    phase("launches", path="train step", **launches["kernel"])
+    return launches["kernel"]
+
+
+def check_timed(device: torch.device, card: str) -> None:
+    """A few steps of the default bf16 configuration at B=512."""
+    cfg = Config()
+    batch = to_tensors(example_batch(np.random.RandomState(SEED), cfg, TRAIN_B), device)
+    _, step = train_setup(cfg, device)
+    step(batch)                                    # first use: allocator, cuBLAS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        log = step(batch)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    loss = float(log["loss"])
+    if not np.isfinite(loss):
+        raise AssertionError(f"bf16 step loss {loss}")
+    phase("timed", dtype="bfloat16", B=TRAIN_B, steps=TIMED_STEPS,
+          step_ms=f"{dt / TIMED_STEPS * 1e3:.2f}",
+          clips_per_s=f"{TRAIN_B * TIMED_STEPS / dt:.1f}",
+          peak_mem_gb=f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f}",
+          loss=loss, card=json.dumps(card))
 
 
 def timed_query(engine: RetrievalEngine, feats, mask, top_k: int = 5):
@@ -172,10 +510,9 @@ def compare(fused, plain) -> tuple:
 
 
 def check_slice(device: torch.device):
-    """Index + queries at full width; returns (engine, videos, launches)."""
+    """Index + queries at full width; returns (engine, videos, masks)."""
     base = Config()
-    cfg = dataclasses.replace(base, model=dataclasses.replace(
-        base.model, compute_dtype="float32"))
+    cfg = base.replace(model=dataclasses.replace(base.model, compute_dtype="float32"))
     data, m = cfg.data, cfg.model
     rng = np.random.default_rng(SEED)
     model = MaDe(cfg, torch.Generator().manual_seed(SEED)).to(device).eval()
@@ -202,19 +539,21 @@ def check_slice(device: torch.device):
         engine.query(feats_b, mask_b)
         plain_engine.query(feats_b, mask_b)
 
-    fel.fused_encoder_layer.launches = 0
+    reset_counts()
     fused_runs = [timed_query(engine, f, mk) for f, mk in batches]
-    launches = fel.fused_encoder_layer.launches
-    if launches != m.detr_enc_layers * len(batches):
-        raise AssertionError(f"kernel launched {launches} times, expected "
-                             f"{m.detr_enc_layers} per query call")
+    launches = read_counts()
+    want = dict.fromkeys(COUNTERS, 0)
+    want["fused_encoder_layer"] = m.detr_enc_layers * len(batches)
+    if launches != want:
+        raise AssertionError(f"serving launches {launches}, expected "
+                             f"{m.detr_enc_layers} encoder-layer launches per query call")
     for (res, ms), (feats_b, mask_b) in zip(fused_runs, batches):
         check_results(res, feats_b.shape[0], 5, cfg)
         plain, plain_ms = timed_query(plain_engine, feats_b, mask_b)
         span_err, score_err = compare(res, plain)
         phase("slice", B=feats_b.shape[0], top_k=5, dtype="float32", ms=f"{ms:.2f}",
               plain_ms=f"{plain_ms:.2f}", span_err_s=span_err, score_err=score_err)
-    phase("launches", fused_encoder_layer=launches)
+    phase("launches", path="serving", fused_encoder_layer=launches["fused_encoder_layer"])
 
     bf16_model = MaDe(base, torch.Generator().manual_seed(SEED)).to(device).eval()
     bf16_engine = RetrievalEngine(bf16_model, base, index)
@@ -223,11 +562,11 @@ def check_slice(device: torch.device):
         res, ms = timed_query(bf16_engine, feats_b, mask_b)
         check_results(res, feats_b.shape[0], 5, base)
         phase("slice", B=feats_b.shape[0], top_k=5, dtype="bfloat16", ms=f"{ms:.2f}")
-    return engine, videos, vmask, launches
+    return engine, videos, vmask
 
 
 def check_http(engine: RetrievalEngine, videos, vmask) -> None:
-    from mgsv_tpu.serve.server import RetrievalServer
+    from mgsv_tpu_torch.serve.server import RetrievalServer
 
     server = RetrievalServer(engine, host="127.0.0.1", port=0).start()
     try:
@@ -257,12 +596,16 @@ def main() -> int:
               file=sys.stderr)
         return 1
     device = resolve_device("cuda")
-    name = check_device()
-    kernel = check_kernel(device)
-    engine, videos, vmask, launches = check_slice(device)
+    name, card = check_device()
+    build_kernels()
+    entries = check_encoder(device) + check_xpool(device)
+    launches = check_train(device)
+    check_timed(device, card)
+    engine, videos, vmask = check_slice(device)
     check_http(engine, videos, vmask)
-    kernel["launches"] = launches
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    for e in entries:
+        e["launches"] = launches[e["name"]]
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}),
           flush=True)

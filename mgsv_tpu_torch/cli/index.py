@@ -29,9 +29,9 @@ import sys
 
 import numpy as np
 
-from mgsv_tpu.cli.train import parse_kv_overrides
-from mgsv_tpu.config import Config
-from mgsv_tpu.data.feature_store import PackedFeatureStore
+from mgsv_tpu_torch.cli.overrides import parse_kv_overrides
+from mgsv_tpu_torch.config import Config
+from mgsv_tpu_torch.data.feature_store import PackedFeatureStore
 from mgsv_tpu_torch.core.device import resolve_device
 from mgsv_tpu_torch.interop.from_jax import load_reference_bin
 from mgsv_tpu_torch.serve.engine import MusicIndex, RetrievalEngine, build_music_index
@@ -79,7 +79,7 @@ def main(argv=None):
                              index_dtype=known.index_dtype)
 
     if known.command == "serve":
-        from mgsv_tpu.serve.server import RetrievalServer
+        from mgsv_tpu_torch.serve.server import RetrievalServer
         if known.warmup:
             engine.warmup(batch_sizes=[int(x) for x in known.warmup.split(",") if x],
                           top_k=known.top_k)

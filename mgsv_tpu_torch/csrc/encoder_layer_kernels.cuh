@@ -1,0 +1,233 @@
+// The three forward launches of the post-norm DETR encoder layer, shared by
+// fused_encoder_layer.cu (the forward) and fused_encoder_layer_bwd.cu (its
+// recompute).  Every weight is in torch's [out, in] layout (in_proj_weight
+// rows q|k|v).  Dropout sites, drawn from philox.cuh with stream (batch
+// row b, site): heads 0..H-1 the attention weights (element i L + j),
+// H the attention output (l D + c), H+1 after the ReLU (l F + f), H+2 the
+// FFN output (l D + c).
+#pragma once
+
+#include "philox.cuh"
+#include "tf32_tile.cuh"
+
+namespace {
+
+constexpr int kHeadDim = 32;          // one lane per head channel
+constexpr int kPad = kHeadDim + 1;    // padded [L][kPad] rows: conflict-free columns
+constexpr int kMaxL = 256;            // longest sequence (attention shared memory)
+constexpr int kMaxB = 65535;          // batch rows: grid y of the attention launch
+
+constexpr size_t kGemmSmem = sizeof(float) * (size_t)(kTileFloats + 2 * kWsFloats);
+constexpr size_t kFfnSmem = sizeof(float) * (size_t)(2 * kTileFloats + 2 * kWsFloats);
+
+// (a) [64 rows x 256 cols] tiles of the packed projection over the
+// flattened B*L rows, x+pos for q and k, x for v, into a [B*L, 3D] buffer.
+__global__ void __launch_bounds__(kThreads, 1)
+qkv_kernel(const float* __restrict__ x, const float* __restrict__ pos,
+           const float* __restrict__ w_in, const float* __restrict__ b_in,
+           float* __restrict__ qkv, int rows) {
+  extern __shared__ float4 smem4[];
+  float* A = reinterpret_cast<float*>(smem4);   // [kRows][kLda]: input, then output
+  float* Ws = A + kTileFloats;                   // [2][kCols][kLdws]
+  const int r0 = blockIdx.x * kRows, part = blockIdx.y;   // 0 q, 1 k, 2 v
+  load_rows(A, x, part < 2 ? pos : nullptr, r0, rows);
+  Acc acc;
+  zero(acc);
+  gemm(acc, A, w_in, kCols, part * kCols, kCols, Ws);
+  const float* bias = b_in + part * kCols;
+  for_each_acc(acc, [&](int r, int c, float& v) { A[r * kLda + c] = v + bias[c]; });
+  __syncthreads();
+  store_rows(qkv, 3 * kCols, part * kCols, A, r0, rows);
+}
+
+// Softmax rows start 16-byte aligned and hold L rounded up to 4 floats.
+__host__ __device__ constexpr int attention_rows_offset(int L) {
+  return (3 * L * kPad + L + 3) & ~3;
+}
+
+__host__ __device__ constexpr size_t attention_smem_bytes(int L) {
+  return sizeof(float) * (size_t)(attention_rows_offset(L) + 2 * kWarps * ((L + 3) & ~3));
+}
+
+// (b) One block per (head, batch row).  The head's q, k, v ([L, 32] each)
+// sit in shared memory; each warp takes two query rows at a time, their
+// scores one key per lane, and writes ctx [B, L, D].  Dropout multiplies
+// the normalized weights (after the softmax sum), as torch does.  kDrop
+// false (rate 0, the serving path) compiles the mask code out.
+template <bool kDrop>
+__global__ void __launch_bounds__(kThreads)
+attention_kernel(const float* __restrict__ qkv, const float* __restrict__ mask,
+                 float* __restrict__ ctx, int L, Dropout drop) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* q_s = smem;                 // [L][kPad], pre-scaled by 1/sqrt(dh)
+  float* k_s = q_s + L * kPad;       // [L][kPad]
+  float* v_s = k_s + L * kPad;       // [L][kPad]
+  float* m_s = v_s + L * kPad;       // [L] key mask
+  const int Lp = (L + 3) & ~3;
+  float* p0 = smem + attention_rows_offset(L) + 2 * warp * Lp;   // this warp's two
+  float* p1 = p0 + Lp;                                            // softmax rows
+
+  const float scale = 1.0f / sqrtf((float)kHeadDim);
+  const float* base = qkv + (size_t)b * L * 3 * kCols + h * kHeadDim;
+  for (int e = threadIdx.x; e < L * kHeadDim; e += kThreads) {
+    const int r = e / kHeadDim, c = e % kHeadDim;
+    const float* row = base + (size_t)r * 3 * kCols + c;
+    q_s[r * kPad + c] = row[0] * scale;
+    k_s[r * kPad + c] = row[kCols];
+    v_s[r * kPad + c] = row[2 * kCols];
+  }
+  for (int j = threadIdx.x; j < L; j += kThreads) m_s[j] = mask[(size_t)b * L + j];
+  __syncthreads();
+
+  for (int i0 = 2 * warp; i0 < L; i0 += 2 * kWarps) {
+    const int i1 = i0 + 1 < L ? i0 + 1 : i0;
+    float qa[kHeadDim], qb[kHeadDim];
+#pragma unroll
+    for (int c = 0; c < kHeadDim; ++c) {
+      qa[c] = q_s[i0 * kPad + c];
+      qb[c] = q_s[i1 * kPad + c];
+    }
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+    for (int j = lane; j < L; j += 32) {
+      float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+      for (int c = 0; c < kHeadDim; ++c) {
+        const float kv = k_s[j * kPad + c];
+        s0 = fmaf(qa[c], kv, s0);
+        s1 = fmaf(qb[c], kv, s1);
+      }
+      if (m_s[j] == 0.f) s0 = s1 = kBigNeg;
+      p0[j] = s0;
+      p1[j] = s1;
+      mx0 = fmaxf(mx0, s0);
+      mx1 = fmaxf(mx1, s1);
+    }
+    mx0 = warp_max(mx0);
+    mx1 = warp_max(mx1);
+    float sum0 = 0.f, sum1 = 0.f;
+    for (int j = lane; j < L; j += 32) {
+      const float e0 = expf(p0[j] - mx0), e1 = expf(p1[j] - mx1);
+      sum0 += e0;
+      sum1 += e1;
+      p0[j] = kDrop ? e0 * keep(drop, b, h, i0 * L + j) : e0;
+      p1[j] = kDrop ? e1 * keep(drop, b, h, i1 * L + j) : e1;
+    }
+    sum0 = warp_sum(sum0);
+    sum1 = warp_sum(sum1);
+    __syncwarp();
+    float acc0 = 0.f, acc1 = 0.f;
+    int j = 0;
+    for (; j + 4 <= L; j += 4) {           // four keys per broadcast 16-byte read
+      const float4 a = *reinterpret_cast<const float4*>(p0 + j);
+      const float4 c = *reinterpret_cast<const float4*>(p1 + j);
+      const float* v = v_s + j * kPad + lane;
+      acc0 = fmaf(a.x, v[0], acc0);
+      acc1 = fmaf(c.x, v[0], acc1);
+      acc0 = fmaf(a.y, v[kPad], acc0);
+      acc1 = fmaf(c.y, v[kPad], acc1);
+      acc0 = fmaf(a.z, v[2 * kPad], acc0);
+      acc1 = fmaf(c.z, v[2 * kPad], acc1);
+      acc0 = fmaf(a.w, v[3 * kPad], acc0);
+      acc1 = fmaf(c.w, v[3 * kPad], acc1);
+    }
+    for (; j < L; ++j) {
+      const float vv = v_s[j * kPad + lane];
+      acc0 = fmaf(p0[j], vv, acc0);
+      acc1 = fmaf(p1[j], vv, acc1);
+    }
+    float* out = ctx + ((size_t)b * L + i0) * kCols + h * kHeadDim + lane;
+    out[0] = acc0 / sum0;
+    if (i1 != i0) out[kCols] = acc1 / sum1;
+    __syncwarp();
+  }
+}
+
+// (c) One block per 64 rows.  Out-proj, dropout, residual and LN1; the FFN
+// in 256-wide slices of the hidden dimension, each ReLU slice (dropped out)
+// kept in shared memory and folded straight into the second GEMM's register
+// accumulators; dropout, residual and LN2.  kDrop as in (b).
+template <bool kDrop>
+__global__ void __launch_bounds__(kThreads, 1)
+ffn_kernel(const float* __restrict__ x, const float* __restrict__ ctx,
+           const float* __restrict__ w_out, const float* __restrict__ b_out,
+           const float* __restrict__ g1, const float* __restrict__ be1,
+           const float* __restrict__ w1, const float* __restrict__ b1,
+           const float* __restrict__ w2, const float* __restrict__ b2,
+           const float* __restrict__ g2, const float* __restrict__ be2,
+           float* __restrict__ out, int rows, int L, int H, int F, Dropout drop) {
+  extern __shared__ float4 smem4[];
+  float* A = reinterpret_cast<float*>(smem4);  // ctx, then each ReLU slice, then y1 + FFN
+  float* Y = A + kTileFloats;                   // x + out-proj, then LN1 output
+  float* Ws = Y + kTileFloats;                  // [2][kCols][kLdws]
+  const int r0 = blockIdx.x * kRows;
+  // mask value of (tile row r, site, element column c of a `width`-wide site)
+  auto site_keep = [&](int r, int site, int width, int c) {
+    if (!kDrop) return 1.f;
+    const int gr = r0 + r;
+    return keep(drop, gr / L, site, (gr % L) * width + c);
+  };
+
+  load_rows(A, ctx, nullptr, r0, rows);
+  Acc acc;
+  zero(acc);
+  gemm(acc, A, w_out, kCols, 0, kCols, Ws);
+  for_each_acc(acc, [&](int r, int c, float& v) {
+    Y[r * kLda + c] = (v + b_out[c]) * site_keep(r, H, kCols, c);
+  });
+  __syncthreads();
+  for (int e = threadIdx.x; e < kRows * kCols / 4; e += kThreads) {
+    const int r = e / (kCols / 4), c4 = e % (kCols / 4), gr = r0 + r;
+    if (gr < rows) {
+      float4* y = reinterpret_cast<float4*>(Y + r * kLda + 4 * c4);
+      const float4 xv = reinterpret_cast<const float4*>(x + (size_t)gr * kCols)[c4];
+      y->x += xv.x; y->y += xv.y; y->z += xv.z; y->w += xv.w;
+    }
+  }
+  __syncthreads();
+  layer_norm_rows(Y, g1, be1);
+
+  Acc acc2;
+  zero(acc2);
+  for (int f0 = 0; f0 < F; f0 += kCols) {
+    zero(acc);
+    gemm(acc, Y, w1, kCols, f0, kCols, Ws);
+    for_each_acc(acc, [&](int r, int c, float& v) {
+      A[r * kLda + c] = fmaxf(v + b1[f0 + c], 0.f) * site_keep(r, H + 1, F, f0 + c);
+    });
+    __syncthreads();
+    gemm(acc2, A, w2 + f0, F, 0, kCols, Ws);
+  }
+  for_each_acc(acc2, [&](int r, int c, float& v) {
+    A[r * kLda + c] = (v + b2[c]) * site_keep(r, H + 2, kCols, c) + Y[r * kLda + c];
+  });
+  __syncthreads();
+  layer_norm_rows(A, g2, be2);
+  store_rows(out, kCols, 0, A, r0, rows);
+}
+
+// Both instantiations of (b): dynamic shared memory for the longest L.
+inline cudaError_t attention_init() {
+  const int bytes = (int)attention_smem_bytes(kMaxL);
+  const cudaError_t err = cudaFuncSetAttribute(
+      attention_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(attention_kernel<true>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// Launches (b) over B rows on `s`; rate 0 takes the instantiation without
+// mask code.
+inline void launch_attention(const float* qkv, const float* mask, float* ctx, int B, int H,
+                             int L, const Dropout& drop, cudaStream_t s) {
+  const dim3 grid(H, B);
+  const size_t smem = attention_smem_bytes(L);
+  if (drop.thresh != 0u)
+    attention_kernel<true><<<grid, kThreads, smem, s>>>(qkv, mask, ctx, L, drop);
+  else
+    attention_kernel<false><<<grid, kThreads, smem, s>>>(qkv, mask, ctx, L, drop);
+}
+
+}  // namespace

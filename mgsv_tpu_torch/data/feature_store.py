@@ -1,0 +1,54 @@
+"""Packed memory-mapped feature store, read side (the port's copy of the
+JAX package's `mgsv_tpu/data/feature_store.py`, same on-disk format).
+
+Store layout (directory):
+    meta.json       {"ids": [...], "arrays": {name: {"shape": ..., "dtype": ...}}}
+    <name>.npy      one per array, shape [N, ...]
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Dict, List, Mapping, Optional, Sequence
+
+import numpy as np
+
+
+class PackedFeatureStore:
+    """Immutable memmapped id -> row feature store."""
+
+    def __init__(self, root: str):
+        self.root = root
+        with open(os.path.join(root, "meta.json")) as f:
+            meta = json.load(f)
+        self.ids: List[str] = meta["ids"]
+        self.row_of: Dict[str, int] = {i: r for r, i in enumerate(self.ids)}
+        self.arrays: Dict[str, np.ndarray] = {
+            name: np.load(os.path.join(root, f"{name}.npy"), mmap_mode="r")
+            for name in meta["arrays"]}
+
+    def __len__(self) -> int:
+        return len(self.ids)
+
+    def rows(self, ids: Sequence[str]) -> np.ndarray:
+        return np.asarray([self.row_of[i] for i in ids], dtype=np.int64)
+
+    def gather(self, name: str, row_idx: np.ndarray,
+               dtype: Optional[np.dtype] = np.float32) -> np.ndarray:
+        out = self.arrays[name][row_idx]
+        return out.astype(dtype) if dtype is not None else np.asarray(out)
+
+    @staticmethod
+    def build(root: str, ids: Sequence[str],
+              arrays: Mapping[str, np.ndarray]) -> "PackedFeatureStore":
+        os.makedirs(root, exist_ok=True)
+        meta = {"ids": list(ids), "arrays": {}}
+        for name, arr in arrays.items():
+            if arr.shape[0] != len(ids):
+                raise ValueError(f"{name}: {arr.shape[0]} rows for {len(ids)} ids")
+            np.save(os.path.join(root, f"{name}.npy"), arr)
+            meta["arrays"][name] = {"shape": list(arr.shape), "dtype": str(arr.dtype)}
+        with open(os.path.join(root, "meta.json"), "w") as f:
+            json.dump(meta, f)
+        return PackedFeatureStore(root)

@@ -13,8 +13,8 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from mgsv_tpu.config import Config
-from mgsv_tpu.interop.torch_export import export_uni_state_dict
+from mgsv_tpu_torch.config import Config
+from mgsv_tpu_torch.interop.state_dict import jax_tree_to_state_dict
 from mgsv_tpu_torch.models.made import MaDe
 
 # Frozen CLIP / AST encoder weights a checkpoint written by the reference
@@ -24,9 +24,10 @@ FROZEN_PREFIXES = ("clip_model.", "ast_model.")
 
 
 def load_jax_params(model: MaDe, params: Mapping, cfg: Config) -> MaDe:
-    """Load a JAX MaDe parameter tree ({"params": ...} or bare) into `model`."""
+    """Load a JAX MaDe parameter tree ({"params": ...} or bare; leaves any
+    array numpy reads) into `model`."""
     state = {k: torch.from_numpy(np.array(v, dtype=np.float32))
-             for k, v in export_uni_state_dict(params, cfg).items()}
+             for k, v in jax_tree_to_state_dict(params, cfg).items()}
     model.load_state_dict(state, strict=True)
     return model
 

@@ -5,6 +5,17 @@ Batch-major [B, L, D] throughout.  Parameter names follow the reference
 (`encoder.layers.{i}`, `decoder.layers.{i}`, `decoder.norm`).  The encoder
 has no final LayerNorm in post-norm, and every decoder layer's output goes
 through the shared `decoder.norm` (return_intermediate).
+
+Dropout (rate `dropout` of each layer, 0.1 in the paper configuration) sits
+where the JAX layers have it: the attention weights, the attention output,
+after the FFN's ReLU and after the FFN.  Each encoder layer runs through the
+encoder-layer kernel's autograd Function (ops/cuda/fused_encoder_layer.py:
+forward kernel, backward kernel; its plain version on CPU tensors or, for
+the serving engine without kernels, with `plain=True`), in training and in
+serving, with its four Philox masks keyed on one int seed per layer call
+drawn from the step's generator.  Decoder
+masks come from that `torch.Generator` directly.  Without a generator every
+layer is deterministic.
 """
 
 from __future__ import annotations
@@ -15,7 +26,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mgsv_tpu_torch.models.layers import MultiHeadAttention, xavier_uniform_
+from mgsv_tpu_torch.models.layers import (MultiHeadAttention, draw_seed, dropout, widen,
+                                          xavier_uniform_)
+from mgsv_tpu_torch.ops.cuda import fused_encoder_layer as fel
 
 _PRE_NORM_MSG = ("pre-norm DETR layers are not ported yet "
                  "(ROADMAP.md, queue 1: variant matrix)")
@@ -29,11 +42,13 @@ def _xavier_linear_(lin: nn.Linear, generator: torch.Generator) -> None:
 class DetrEncoderLayer(nn.Module):
     """Post-norm encoder layer: q, k from src + pos, v from src."""
 
-    def __init__(self, dim: int, heads: int, ffn_dim: int, pre_norm: bool = False):
+    def __init__(self, dim: int, heads: int, ffn_dim: int, pre_norm: bool = False,
+                 dropout: float = 0.0):
         super().__init__()
         if pre_norm:
             raise NotImplementedError(_PRE_NORM_MSG)
-        self.self_attn = MultiHeadAttention(dim, heads)
+        self.dropout = dropout
+        self.self_attn = MultiHeadAttention(dim, heads, dropout)
         self.linear1 = nn.Linear(dim, ffn_dim)
         self.linear2 = nn.Linear(ffn_dim, dim)
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
@@ -46,11 +61,19 @@ class DetrEncoderLayer(nn.Module):
         self.norm1.reset_parameters()
         self.norm2.reset_parameters()
 
-    def forward(self, src: torch.Tensor, mask: torch.Tensor,
-                pos: torch.Tensor) -> torch.Tensor:
+    def forward(self, src: torch.Tensor, mask: torch.Tensor, pos: torch.Tensor,
+                masks: Optional[dict] = None) -> torch.Tensor:
+        """The plain layer.  masks: the four multiplicative dropout masks
+        ("attn" [B, H, L, L], "attn_out" [B, L, D], "ffn1" [B, L, F],
+        "ffn2" [B, L, D]), as the JAX package's layer_fwd_with_masks takes
+        them; None: no dropout."""
+        masks = masks or {}
+        site = lambda t, name: t * masks[name] if name in masks else t
         qk = src + pos
-        src = self.norm1(src + self.self_attn(qk, qk, src, key_mask=mask))
-        return self.norm2(src + self.linear2(F.relu(self.linear1(src))))
+        attn = self.self_attn(qk, qk, src, key_mask=mask, attn_mask=masks.get("attn"))
+        src = self.norm1(src + site(attn, "attn_out"))
+        h = site(F.relu(self.linear1(src)), "ffn1")
+        return self.norm2(src + site(self.linear2(h), "ffn2"))
 
 
 class DetrDecoderLayer(nn.Module):
@@ -59,16 +82,17 @@ class DetrDecoderLayer(nn.Module):
     memory."""
 
     def __init__(self, dim: int, heads: int, ffn_dim: int,
-                 self_attn: bool = True, pre_norm: bool = False):
+                 self_attn: bool = True, pre_norm: bool = False, dropout: float = 0.0):
         super().__init__()
         if pre_norm:
             raise NotImplementedError(_PRE_NORM_MSG)
+        self.dropout = dropout
         if self_attn:
-            self.self_attn = MultiHeadAttention(dim, heads)
+            self.self_attn = MultiHeadAttention(dim, heads, dropout)
             self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         else:
             self.self_attn = None
-        self.multihead_attn = MultiHeadAttention(dim, heads)
+        self.multihead_attn = MultiHeadAttention(dim, heads, dropout)
         self.linear1 = nn.Linear(dim, ffn_dim)
         self.linear2 = nn.Linear(ffn_dim, dim)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
@@ -84,42 +108,53 @@ class DetrDecoderLayer(nn.Module):
         self.norm2.reset_parameters()
         self.norm3.reset_parameters()
 
-    def forward(self, tgt, memory, mem_mask, pos, query_pos) -> torch.Tensor:
+    def forward(self, tgt, memory, mem_mask, pos, query_pos,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        drop = lambda t: dropout(t, self.dropout, generator)
         if self.self_attn is not None:
             qk = tgt + query_pos
-            tgt = self.norm1(tgt + self.self_attn(qk, qk, tgt))
-        tgt = self.norm2(tgt + self.multihead_attn(
-            tgt + query_pos, memory + pos, memory, key_mask=mem_mask))
-        return self.norm3(tgt + self.linear2(F.relu(self.linear1(tgt))))
+            tgt = self.norm1(tgt + drop(self.self_attn(qk, qk, tgt, generator=generator)))
+        tgt = self.norm2(tgt + drop(self.multihead_attn(
+            tgt + query_pos, memory + pos, memory, key_mask=mem_mask, generator=generator)))
+        h = drop(F.relu(self.linear1(tgt)))
+        return self.norm3(tgt + drop(self.linear2(h)))
 
 
 class DetrEncoder(nn.Module):
-    def __init__(self, dim: int, heads: int, ffn_dim: int, num_layers: int):
+    def __init__(self, dim: int, heads: int, ffn_dim: int, num_layers: int,
+                 dropout: float = 0.0):
         super().__init__()
         self.layers = nn.ModuleList(
-            DetrEncoderLayer(dim, heads, ffn_dim) for _ in range(num_layers))
+            DetrEncoderLayer(dim, heads, ffn_dim, dropout=dropout) for _ in range(num_layers))
 
-    def forward(self, src, mask, pos) -> torch.Tensor:
+    def forward(self, src, mask, pos, generator: Optional[torch.Generator] = None,
+                plain: bool = False) -> torch.Tensor:
+        """Each layer through the kernel's wrapper (`plain`: its plain
+        version), dropout at the layer's rate only with a generator."""
+        layer_fn = fel.fused_encoder_layer_reference if plain else fel.fused_encoder_layer
         for layer in self.layers:
-            src = layer(src, mask, pos)
+            rate = layer.dropout if generator is not None else 0.0
+            seed = draw_seed(generator) if rate > 0.0 else 0
+            src = layer_fn(src, mask, pos, layer, rate, seed)
         return src
 
 
 class DetrDecoder(nn.Module):
     def __init__(self, dim: int, heads: int, ffn_dim: int, num_layers: int,
-                 self_attn: bool):
+                 self_attn: bool, dropout: float = 0.0):
         super().__init__()
         self.layers = nn.ModuleList(
-            DetrDecoderLayer(dim, heads, ffn_dim, self_attn=self_attn)
+            DetrDecoderLayer(dim, heads, ffn_dim, self_attn=self_attn, dropout=dropout)
             for _ in range(num_layers))
         self.norm = nn.LayerNorm(dim, eps=1e-5)
 
-    def forward(self, tgt, memory, mem_mask, pos, query_pos) -> torch.Tensor:
+    def forward(self, tgt, memory, mem_mask, pos, query_pos,
+                generator=None) -> torch.Tensor:
         """-> [num_layers, B, Q, D], each layer's output through `norm`."""
         intermediate = []
         for layer in self.layers:
-            tgt = layer(tgt, memory, mem_mask, pos, query_pos)
-            intermediate.append(self.norm(tgt.float()))
+            tgt = layer(tgt, memory, mem_mask, pos, query_pos, generator)
+            intermediate.append(self.norm(widen(tgt)))
         return torch.stack(intermediate, dim=0)
 
 
@@ -129,12 +164,12 @@ class DetrTransformer(nn.Module):
 
     def __init__(self, dim: int, heads: int, ffn_dim: int, enc_layers: int,
                  dec_layers: int, decoder_self_attn: bool = True,
-                 pre_norm: bool = False):
+                 pre_norm: bool = False, dropout: float = 0.0):
         super().__init__()
         if pre_norm:
             raise NotImplementedError(_PRE_NORM_MSG)
-        self.encoder = DetrEncoder(dim, heads, ffn_dim, enc_layers)
-        self.decoder = DetrDecoder(dim, heads, ffn_dim, dec_layers, decoder_self_attn)
+        self.encoder = DetrEncoder(dim, heads, ffn_dim, enc_layers, dropout)
+        self.decoder = DetrDecoder(dim, heads, ffn_dim, dec_layers, decoder_self_attn, dropout)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for layer in (*self.encoder.layers, *self.decoder.layers):
@@ -142,13 +177,15 @@ class DetrTransformer(nn.Module):
         self.decoder.norm.reset_parameters()
 
     def forward(self, src, mask, pos, query_embed,
-                target: Optional[torch.Tensor] = None
+                target: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None, plain: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        memory = self.encoder(src, mask, pos)
-        return self.decode(memory, mask, pos, query_embed, target), memory
+        memory = self.encoder(src, mask, pos, generator, plain)
+        return self.decode(memory, mask, pos, query_embed, target, generator), memory
 
     def decode(self, memory, mask, pos, query_embed,
-               target: Optional[torch.Tensor]) -> torch.Tensor:
+               target: Optional[torch.Tensor],
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
         query_pos = query_embed[None].expand(memory.shape[0], *query_embed.shape)
         tgt = torch.zeros_like(query_pos) if target is None else target
-        return self.decoder(tgt, memory, mask, pos, query_pos)
+        return self.decoder(tgt, memory, mask, pos, query_pos, generator)

@@ -53,6 +53,50 @@ def sinusoidal_table(seq_len: int, dim: int) -> np.ndarray:
     return pe
 
 
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """torch's inverted dropout with its mask drawn from `generator` (never
+    the global RNG); the identity without a generator or at rate 0."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return x * keep.to(x.dtype) / (1.0 - rate)
+
+
+class Dropout(nn.Module):
+    """`dropout` as a parameter-free module (it holds a place in a
+    Sequential's state-dict numbering)."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return dropout(x, self.rate, generator)
+
+
+def draw_seed(generator: torch.Generator) -> int:
+    """One int seed for a kernel's Philox masks per call (as the JAX package
+    draws an int32 seed from its dropout rng per call).  The kernels take
+    the seed as a host int.  A CPU generator draws it; a CUDA generator's
+    draw would make the host wait for the device, so the seed is derived on
+    the host from the generator's seed and Philox offset (host state), and
+    the offset steps on as a draw would."""
+    if generator.device.type == "cpu":
+        return int(torch.randint(0, 2 ** 31 - 1, (), generator=generator))
+    offset = generator.get_offset()
+    generator.set_offset(offset + 4)
+    key = np.random.SeedSequence([generator.initial_seed(), offset])
+    return int(key.generate_state(1)[0] & 0x7FFFFFFF)
+
+
+def widen(x: torch.Tensor) -> torch.Tensor:
+    """bf16/f16 -> float32; float32 and float64 unchanged (so a float64 run
+    of the plain modules stays float64)."""
+    return x if x.dtype in (torch.float32, torch.float64) else x.float()
+
+
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     """x * sigmoid(1.702 x)."""
     return x * torch.sigmoid(1.702 * x)
@@ -125,13 +169,16 @@ class MultiHeadAttention(nn.Module):
 
     forward(query, key, value, key_mask) covers the self (q = k = v),
     q = k (DETR: pos added to queries and keys, not values) and cross forms.
+    Dropout at `dropout` applies to the attention weights, as torch does:
+    from `generator`, or the explicit multiplicative `attn_mask`
+    [B, H, Lq, Lk] when one is given.
     """
 
-    def __init__(self, dim: int, heads: int):
+    def __init__(self, dim: int, heads: int, dropout: float = 0.0):
         super().__init__()
         if dim % heads:
             raise ValueError(f"dim {dim} is not a multiple of heads {heads}")
-        self.dim, self.heads = dim, heads
+        self.dim, self.heads, self.dropout = dim, heads, dropout
         self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
         self.out_proj = nn.Linear(dim, dim)
@@ -145,7 +192,9 @@ class MultiHeadAttention(nn.Module):
         nn.init.zeros_(self.out_proj.bias)
 
     def forward(self, query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
-                key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                key_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """query [B, Lq, D], key/value [B, Lk, D], key_mask [B, Lk] -> [B, Lq, D]."""
         wq, wk, wv = self.in_proj_weight.chunk(3, dim=0)
         bq, bk, bv = self.in_proj_bias.chunk(3, dim=0)
@@ -159,6 +208,10 @@ class MultiHeadAttention(nn.Module):
         if key_mask is not None:
             logits = torch.where(key_mask[:, None, None, :] != 0, logits,
                                  torch.full_like(logits, BIG_NEG))
-        attn = torch.softmax(logits.float(), dim=-1).to(v.dtype)
+        attn = torch.softmax(widen(logits), dim=-1).to(v.dtype)
+        if attn_mask is not None:
+            attn = attn * attn_mask.to(attn.dtype)
+        else:
+            attn = dropout(attn, self.dropout, generator)
         out = (attn @ v).transpose(1, 2).reshape(b, lq, d)
         return self.out_proj(out)

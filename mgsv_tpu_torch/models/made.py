@@ -1,23 +1,24 @@
 """MaDe's paper-branch modules, ported from mgsv_tpu/models/made.py.
 
 `MaDe` holds every submodule of the shipped configuration (XA-music X-Pool,
-concat fusion, DETR localization, video moment query, one query) under the
-reference Uni_model's state-dict names, so
-`mgsv_tpu.interop.torch_export.export_uni_state_dict` output and reference
-`.bin` checkpoints load with `strict=True`.  The serving engine drives the
-towers, X-Pool, DETR and heads one by one; the training forward
-(`MaDe.forward`) comes with the training port (ROADMAP.md).
+concat fusion, DETR localization, video moment query) under the reference
+Uni_model's state-dict names, so JAX parameter trees (through
+`interop/state_dict.py`) and reference `.bin` checkpoints load with
+`strict=True`.  The serving engine drives the towers, X-Pool, DETR and heads
+one by one; `MaDe.forward` is the training forward of the JAX `MaDe` on the
+paper branch, with the X-Pool similarity and the DETR encoder layers on the
+CUDA kernels (their plain versions on CPU tensors).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
-from mgsv_tpu.config import Config
+from mgsv_tpu_torch.config import Config
 from mgsv_tpu_torch.models import layers as L
 from mgsv_tpu_torch.models.detr import DetrTransformer
 from mgsv_tpu_torch.models.temporal import TemporalTransformer
@@ -26,10 +27,11 @@ from mgsv_tpu_torch.models.xpool import XPoolTransformer
 
 def tower(proj: nn.Linear, temporal: Optional[TemporalTransformer],
           pe: torch.Tensor, feats: torch.Tensor, mask: torch.Tensor,
-          act_after_proj: bool = False
+          act_after_proj: bool = False, generator: Optional[torch.Generator] = None
           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Frame/snippet tower (the JAX `Tower`): mask, project, add the
-    sinusoidal table, temporal transformer, mask, masked mean, L2.
+    sinusoidal table, temporal transformer (dropout only with a generator),
+    mask, masked mean, L2.
 
     feats [B, L, D_in], mask [B, L] -> (tokens [B, L, D], emb [B, D], mask)."""
     mask = mask.to(feats.dtype)
@@ -37,7 +39,7 @@ def tower(proj: nn.Linear, temporal: Optional[TemporalTransformer],
     if act_after_proj:
         x = L.quick_gelu(x)
     if temporal is not None:
-        x = temporal(x + pe[None, : x.shape[1]], mask)
+        x = temporal(x + pe[None, : x.shape[1]], mask, generator)
         x = x * mask[..., None]
     return x, L.l2_normalize(L.masked_mean(x, mask)), mask
 
@@ -73,10 +75,16 @@ class MaDe(nn.Module):
         m, data = cfg.model, cfg.data
         d = m.dim_input
         cdtype = torch.bfloat16 if m.compute_dtype == "bfloat16" else None
+        self.compute_dtype = cdtype
+        # the fused X-Pool path gives the [V, M] similarity directly: only
+        # for the losses that consume exactly that (JAX made.py:180-184)
+        self.use_fused_sim = m.fused_xpool_sim and cfg.loss.vmr_loss in (
+            "single", "dual_single_loss_fuse", "dual_single_sim_fuse")
 
         def temporal(depth):
             return (TemporalTransformer(d, depth, m.temporal_heads, m.temporal_mlp_dim,
-                                        d, compute_dtype=cdtype) if depth > 0 else None)
+                                        d, compute_dtype=cdtype, dropout=m.temporal_dropout)
+                    if depth > 0 else None)
 
         self.vit_proj = nn.Linear(data.vit_dim, d)
         self.ast_proj = nn.Linear(data.ast_dim, d)
@@ -87,10 +95,11 @@ class MaDe(nn.Module):
         self.register_buffer("audio_pe", torch.from_numpy(
             L.sinusoidal_table(m.audio_pe_len, d)), persistent=False)
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1.0 / m.temperature_init_value)))
-        self.video_guided_to_music_pooling_cross_transformer = XPoolTransformer(d)
+        self.video_guided_to_music_pooling_cross_transformer = XPoolTransformer(
+            d, m.xpool_dropout)
         self.detr_transformer = DetrTransformer(
             d, m.detr_heads, m.detr_ffn_dim, m.detr_enc_layers, m.detr_dec_layers,
-            decoder_self_attn=m.decoder_self_attn)
+            decoder_self_attn=m.decoder_self_attn, dropout=m.detr_dropout)
         self.decoder_query_embed = nn.Embedding(m.num_moment_queries, d)
         self.span_embed = L.DetrMLP(d, d, 1 if m.predict_center else 2, 3)
         self.class_embed = nn.Linear(d, 2)
@@ -121,13 +130,79 @@ class MaDe(nn.Module):
         self.decoder_query_embed.weight.normal_(generator=generator)
         self.logit_scale.fill_(math.log(1.0 / self.cfg.model.temperature_init_value))
 
-    def video_tower(self, feats: torch.Tensor, mask: torch.Tensor):
+    def video_tower(self, feats: torch.Tensor, mask: torch.Tensor,
+                    generator: Optional[torch.Generator] = None):
         return tower(self.vit_proj, self.video_transformer, self.video_pe, feats,
-                     mask, self.cfg.model.with_act_after_proj)
+                     mask, self.cfg.model.with_act_after_proj, generator)
 
-    def music_tower(self, feats: torch.Tensor, mask: torch.Tensor):
+    def music_tower(self, feats: torch.Tensor, mask: torch.Tensor,
+                    generator: Optional[torch.Generator] = None):
         return tower(self.ast_proj, self.audio_transformer, self.audio_pe, feats,
-                     mask, self.cfg.model.with_act_after_proj)
+                     mask, self.cfg.model.with_act_after_proj, generator)
+
+    def forward(self, frame_feats: torch.Tensor, frame_mask: torch.Tensor,
+                segment_feats: torch.Tensor, segment_mask: torch.Tensor,
+                v_duration: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+        """The training forward (JAX made.py:112-311, paper branch).
+
+        frame_feats [B, F, vit_dim], segment_feats [B, S, ast_dim], masks
+        [B, *] (1 = valid).  Dropout at the configured rates only with a
+        `generator` (on the inputs' device); the two kernels draw one Philox
+        seed per call from it.  Returns the JAX model's keys: video_emb,
+        music_emb, frame/seg tokens and masks, logit_scale, single_sim [V, M]
+        (fused path) or music_pooled [M, V, D], memory, pred_logits_layers,
+        pred_spans_layers [layers, B, Q, 2] and, with the contrastive-align
+        loss, proj_queries_layers and proj_vid_mem."""
+        m = self.cfg.model
+        d = m.dim_input
+        frame_tokens, video_emb, frame_mask = self.video_tower(frame_feats, frame_mask,
+                                                               generator)
+        seg_tokens, music_emb, segment_mask = self.music_tower(segment_feats, segment_mask,
+                                                               generator)
+        out: Dict[str, Any] = {
+            "frame_tokens": frame_tokens, "video_emb": video_emb,
+            "seg_tokens": seg_tokens, "music_emb": music_emb,
+            "frame_mask": frame_mask, "segment_mask": segment_mask,
+            "logit_scale": self.logit_scale,
+        }
+        seg_mask = segment_mask if m.fusion_mask else None
+        if self.use_fused_sim:
+            rate = m.xpool_dropout if generator is not None else 0.0
+            seed = L.draw_seed(generator) if rate > 0.0 else 0
+            mask = seg_mask if seg_mask is not None else torch.ones_like(segment_mask)
+            out["single_sim"] = self.xpool.pooled_similarity(video_emb, seg_tokens, mask,
+                                                             rate, seed)
+        else:
+            out["music_pooled"] = self.xpool(video_emb, seg_tokens, seg_mask, generator)
+
+        fused = torch.cat([frame_tokens, seg_tokens], dim=1)
+        fused_mask = torch.cat([frame_mask, segment_mask], dim=1)
+        fused, fused_mask = L.pad_fused_sequence(fused, fused_mask, m.detr_seq_pad_multiple)
+        pos = L.position_embedding_sine(fused_mask, d)
+        target = video_emb[:, None, :].expand(-1, m.num_moment_queries, -1)
+        with torch.autocast(fused.device.type, dtype=self.compute_dtype or torch.bfloat16,
+                            enabled=self.compute_dtype is not None):
+            hidden, memory = self.detr_transformer(
+                fused, fused_mask, pos, self.decoder_query_embed.weight, target,
+                generator)
+        hidden = L.widen(hidden)
+        out["memory"] = L.widen(memory)
+
+        out["pred_logits_layers"] = self.class_embed(hidden)
+        coord = torch.sigmoid(self.span_embed(hidden))
+        if m.predict_center:
+            width = (v_duration / self.cfg.data.max_m_duration)[None, :, None, None]
+            coord = torch.cat([coord, width.expand(*coord.shape[:-1], 1)], dim=-1)
+        out["pred_spans_layers"] = coord
+        if self.cfg.loss.contrastive_align_loss:
+            pq = L.l2_normalize(self.contrastive_align_projection_query(hidden))
+            if m.audio_short_cut:
+                pq = L.l2_normalize(pq + music_emb[None, :, None, :])
+            out["proj_queries_layers"] = pq
+            out["proj_vid_mem"] = L.l2_normalize(
+                self.contrastive_align_projection_vid(frame_tokens))
+        return out
 
     @property
     def xpool(self) -> XPoolTransformer:

@@ -7,8 +7,9 @@ Keeps the reference's residual placement, taken after norm1:
 
 Parameter names follow the reference Transformer_enhancement:
 `layers.{i}.{0: norm1, 1: attn, 2: norm2, 3: ff}` with the FFN a Sequential
-whose Linear layers sit at indices 0 and 3 (the reference's dropout sites
-at 2 and 4 are identities here: the port runs inference only).
+whose Linear layers sit at indices 0 and 3 and whose dropout sites sit at 2
+and 4.  Dropout (0.8 in the paper configuration) hits the attention weights
+and those two sites, with masks from an explicit `torch.Generator`.
 """
 
 from __future__ import annotations
@@ -18,12 +19,13 @@ from typing import Optional
 import torch
 from torch import nn
 
-from mgsv_tpu_torch.models.layers import MultiHeadAttention, lecun_normal_
+from mgsv_tpu_torch.models.layers import Dropout, MultiHeadAttention, lecun_normal_, widen
 
 
 class TemporalTransformer(nn.Module):
     def __init__(self, dim: int, depth: int, heads: int, mlp_dim: int,
-                 out_dim: int, compute_dtype: Optional[torch.dtype] = None):
+                 out_dim: int, compute_dtype: Optional[torch.dtype] = None,
+                 dropout: float = 0.0):
         super().__init__()
         # compute_dtype (bf16) runs the layers under autocast; final_linear
         # stays float32, as in the JAX module
@@ -31,10 +33,10 @@ class TemporalTransformer(nn.Module):
         self.layers = nn.ModuleList(
             nn.ModuleList([
                 nn.LayerNorm(dim, eps=1e-5),
-                MultiHeadAttention(dim, heads),
+                MultiHeadAttention(dim, heads, dropout),
                 nn.LayerNorm(dim, eps=1e-5),
-                nn.Sequential(nn.Linear(dim, mlp_dim), nn.GELU(), nn.Identity(),
-                              nn.Linear(mlp_dim, dim), nn.Identity()),
+                nn.Sequential(nn.Linear(dim, mlp_dim), nn.GELU(), Dropout(dropout),
+                              nn.Linear(mlp_dim, dim), Dropout(dropout)),
             ]) for _ in range(depth))
         self.final_linear = nn.Linear(dim, out_dim)
 
@@ -49,13 +51,16 @@ class TemporalTransformer(nn.Module):
         lecun_normal_(self.final_linear.weight, generator)
         nn.init.zeros_(self.final_linear.bias)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        """x [B, L, D], mask [B, L] (1 = valid) -> [B, L, out_dim]."""
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x [B, L, D], mask [B, L] (1 = valid) -> [B, L, out_dim]; dropout
+        only with a generator."""
         with torch.autocast(x.device.type, dtype=self.compute_dtype or torch.bfloat16,
                             enabled=self.compute_dtype is not None):
             for norm1, attn, norm2, ff in self.layers:
                 x = norm1(x)
-                x = attn(x, x, x, key_mask=mask) + x
+                x = attn(x, x, x, key_mask=mask, generator=generator) + x
                 x = norm2(x)
-                x = ff(x) + x
-        return self.final_linear(x.float())
+                h = ff[2](ff[1](ff[0](x)), generator)
+                x = ff[4](ff[3](h), generator) + x
+        return self.final_linear(widen(x))

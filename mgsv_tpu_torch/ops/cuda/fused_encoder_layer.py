@@ -1,12 +1,17 @@
 """Fused post-norm DETR encoder layer: the CUDA kernel and its plain version.
 
-`fused_encoder_layer` replaces the Pallas TPU kernel
-mgsv_tpu/ops/pallas/fused_encoder_layer.py::fused_encoder_layer at dropout
-rate 0 (the serving path).  On a CUDA tensor it launches
-csrc/fused_encoder_layer.cu (built at first use, see runtime/kernels.py) or
-raises; on a CPU tensor it runs `fused_encoder_layer_reference`, the layer's
-own plain PyTorch forward.  The kernel source says what bounds it on the
-card and how its three launches split the work.
+`fused_encoder_layer` replaces the Pallas TPU kernels
+mgsv_tpu/ops/pallas/fused_encoder_layer.py::fused_encoder_layer (forward,
+with its four dropout sites) and, through its autograd Function,
+mgsv_tpu/ops/pallas/fused_encoder_layer_vjp.py::_bwd_pallas (the backward
+by recompute): the serving path runs it at rate 0, training at the
+configuration's rate.  On a CUDA tensor it launches
+csrc/fused_encoder_layer.cu and, for the gradient,
+csrc/fused_encoder_layer_bwd.cu (built at first use, see
+runtime/kernels.py), or raises; on a CPU tensor it runs
+`fused_encoder_layer_reference`, the layer's own plain PyTorch forward with
+the same Philox masks, and autograd differentiates that.  The kernel
+sources say what bounds them on the card and how they split the work.
 """
 
 from __future__ import annotations
@@ -14,11 +19,15 @@ from __future__ import annotations
 import ctypes
 import functools
 import weakref
+from typing import TYPE_CHECKING
 
 import torch
 
-from mgsv_tpu_torch.models.detr import DetrEncoderLayer
+from mgsv_tpu_torch.ops import philox
 from mgsv_tpu_torch.runtime import kernels
+
+if TYPE_CHECKING:
+    from mgsv_tpu_torch.models.detr import DetrEncoderLayer
 
 # The shapes the kernel takes; csrc/fused_encoder_layer.cu guards the same.
 HEAD_DIM = 32      # the kernel maps one lane to one head channel
@@ -32,11 +41,18 @@ _checked_weights: "weakref.WeakKeyDictionary[DetrEncoderLayer, tuple]" = (
 
 
 def fused_encoder_layer_reference(x: torch.Tensor, mask: torch.Tensor,
-                                  pos: torch.Tensor,
-                                  layer: DetrEncoderLayer) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: the module's forward (the JAX
-    package's layer_fwd_with_masks with masks=None)."""
-    return layer(x, mask, pos)
+                                  pos: torch.Tensor, layer: DetrEncoderLayer,
+                                  rate: float = 0.0, seed: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: the module's forward with the
+    kernel's Philox masks (the JAX package's layer_fwd_with_masks);
+    differentiable, so its autograd gradient is the plain version of the
+    backward kernel."""
+    masks = None
+    if rate > 0.0:
+        b, L, d = x.shape
+        masks = philox.encoder_masks(seed, b, L, d, layer.linear1.out_features,
+                                     layer.self_attn.heads, rate, device=x.device)
+    return layer(x, mask, pos, masks)
 
 
 def _layer_tensors(layer: DetrEncoderLayer):
@@ -105,7 +121,7 @@ def _weights(layer: DetrEncoderLayer, device: torch.device) -> tuple:
 
 @functools.cache
 def _launcher(device_index: int):
-    """The kernel's C entry point, with the kernels' shared-memory limits
+    """The forward's C entry point, with the kernels' shared-memory limits
     set once on this device (call with the device current)."""
     lib = kernels.load("fused_encoder_layer")
     lib.mgsv_fused_encoder_layer_init.restype = ctypes.c_int
@@ -115,34 +131,115 @@ def _launcher(device_index: int):
                            f"on cuda:{device_index}")
     fn = lib.mgsv_fused_encoder_layer_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 5
+                   + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p])
     return fn
 
 
-def fused_encoder_layer(x: torch.Tensor, mask: torch.Tensor, pos: torch.Tensor,
-                        layer: DetrEncoderLayer) -> torch.Tensor:
-    """Post-norm DetrEncoderLayer forward.  x, pos [B, L, D] float32,
-    mask [B, L] float32 (1 = valid) -> [B, L, D].
+@functools.cache
+def _bwd_launcher(device_index: int):
+    """The backward's C entry points (workspace size, launch)."""
+    lib = kernels.load("fused_encoder_layer_bwd")
+    lib.mgsv_fused_encoder_layer_bwd_init.restype = ctypes.c_int
+    err = lib.mgsv_fused_encoder_layer_bwd_init()
+    if err != 0:
+        raise RuntimeError(f"fused_encoder_layer_bwd: CUDA error {err} in init "
+                           f"on cuda:{device_index}")
+    size = lib.mgsv_fused_encoder_layer_bwd_workspace
+    size.restype = ctypes.c_size_t
+    size.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn = lib.mgsv_fused_encoder_layer_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 31 + [ctypes.c_int] * 5
+                   + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p])
+    return size, fn
 
-    A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    (and counts the launch in `fused_encoder_layer.launches`) or raises."""
-    if x.device.type == "cpu":
-        return fused_encoder_layer_reference(x, mask, pos, layer)
-    _check_inputs(x, mask, pos, layer)
-    weights = _weights(layer, x.device)
+
+def _forward_kernel(x, mask, pos, layer, weights, rate, seed) -> torch.Tensor:
     (b, L, d), f = x.shape, weights[6].shape[0]
     qkv = x.new_empty(b, L, 3 * d)
     ctx = torch.empty_like(x)
     out = torch.empty_like(x)
-    args = [t.data_ptr() for t in (x, pos, mask) + weights + (qkv, ctx, out)]
+    args = [t.data_ptr() for t in (x, pos, mask) + tuple(weights) + (qkv, ctx, out)]
     with torch.cuda.device(x.device):
         launch = _launcher(x.device.index)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = launch(*args, b, L, d, layer.self_attn.heads, f, stream)
+        err = launch(*args, b, L, d, layer.self_attn.heads, f,
+                     *philox.kernel_args(rate, seed), stream)
     if err != 0:
         raise RuntimeError(f"fused_encoder_layer: CUDA error {err} at launch")
     fused_encoder_layer.launches += 1
     return out
+
+
+def fused_encoder_layer_bwd(x: torch.Tensor, mask: torch.Tensor, pos: torch.Tensor,
+                            g: torch.Tensor, layer: DetrEncoderLayer,
+                            rate: float = 0.0, seed: int = 0):
+    """Backward of the layer by recompute: (dx, dpos, gradients of the 12
+    tensors of `_layer_tensors(layer)`, in that order).  CUDA tensors only:
+    the plain version of this kernel is autograd through
+    `fused_encoder_layer_reference`."""
+    if x.device.type != "cuda":
+        raise ValueError("fused_encoder_layer_bwd: the kernel takes CUDA tensors; "
+                         "on the CPU differentiate fused_encoder_layer_reference")
+    _check_inputs(x, mask, pos, layer)
+    _check_tensors((g,), x.device)
+    if g.shape != x.shape:
+        raise ValueError(f"fused_encoder_layer_bwd: g {tuple(g.shape)} vs x {tuple(x.shape)}")
+    weights = _weights(layer, x.device)
+    (b, L, d), f = x.shape, weights[6].shape[0]
+    grads = [torch.empty_like(w) for w in weights]
+    dx, dpos = torch.empty_like(x), torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        size, launch = _bwd_launcher(x.device.index)
+        ws = x.new_empty(int(size(b * L, f)))
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        args = [t.data_ptr() for t in (x, pos, mask, g) + tuple(weights)
+                + (dx, dpos) + tuple(grads) + (ws,)]
+        err = launch(*args, b, L, d, layer.self_attn.heads, f,
+                     *philox.kernel_args(rate, seed), stream)
+    if err != 0:
+        raise RuntimeError(f"fused_encoder_layer_bwd: CUDA error {err} at launch")
+    fused_encoder_layer_bwd.launches += 1
+    return dx, dpos, grads
+
+
+fused_encoder_layer_bwd.launches = 0
+
+
+class _EncoderLayerFn(torch.autograd.Function):
+    """Forward kernel #1, backward kernel #2; saves only the inputs, the
+    weights and the seed (the backward recomputes the rest)."""
+
+    @staticmethod
+    def forward(ctx, x, mask, pos, layer, rate, seed, *weights):
+        ctx.layer, ctx.rate, ctx.seed = layer, rate, seed
+        ctx.save_for_backward(x, mask, pos)
+        return _forward_kernel(x, mask, pos, layer, weights, rate, seed)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mask, pos = ctx.saved_tensors
+        dx, dpos, grads = fused_encoder_layer_bwd(x, mask, pos, g.contiguous(), ctx.layer,
+                                                  ctx.rate, ctx.seed)
+        return (dx, None, dpos, None, None, None, *grads)
+
+
+def fused_encoder_layer(x: torch.Tensor, mask: torch.Tensor, pos: torch.Tensor,
+                        layer: DetrEncoderLayer, rate: float = 0.0,
+                        seed: int = 0) -> torch.Tensor:
+    """Post-norm DetrEncoderLayer forward with dropout `rate` drawn from the
+    Philox stream `seed` (ops/philox.py).  x, pos [B, L, D] float32,
+    mask [B, L] float32 (1 = valid) -> [B, L, D]; differentiable.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches the forward
+    kernel (counted in `fused_encoder_layer.launches`), and its gradient
+    the backward kernel (`fused_encoder_layer_bwd.launches`), or raises."""
+    if x.device.type == "cpu":
+        return fused_encoder_layer_reference(x, mask, pos, layer, rate, seed)
+    _check_inputs(x, mask, pos, layer)
+    weights = _weights(layer, x.device)
+    return _EncoderLayerFn.apply(x, mask, pos, layer, rate, seed, *weights)
 
 
 fused_encoder_layer.launches = 0

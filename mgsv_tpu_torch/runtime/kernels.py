@@ -4,7 +4,8 @@ Each `mgsv_tpu_torch/csrc/<name>.cu` exposes a plain C interface.  At its
 first use in a process it is compiled with nvcc for Hopper (sm_90a) into
 `mgsv_tpu_torch/_build/lib<name>-<hash>.so` and loaded with ctypes; the hash
 covers the sources and the flags, so an edited source is rebuilt and an
-unchanged one is reused.  Nothing is built when a module is imported.
+unchanged one is reused.  `build_all` compiles several sources at once, one
+nvcc process each.  Nothing is built when a module is imported.
 """
 
 from __future__ import annotations
@@ -16,16 +17,20 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict
+from typing import Dict, Sequence
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
+# -Xptxas -v: ptxas reports each kernel's registers, shared memory and
+# spills into the build log (`build_logs`); it does not change the code.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+KERNELS = ("fused_encoder_layer", "fused_encoder_layer_bwd", "xpool_sim_train")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+build_logs: Dict[str, str] = {}
 
 
 def nvcc_path() -> str:
@@ -48,20 +53,42 @@ def _source_hash(src: str) -> str:
     return h.hexdigest()[:16]
 
 
-def build(name: str) -> str:
-    """Compile csrc/<name>.cu if its hash has no library yet; return the path."""
+def _library(name: str) -> str:
     src = os.path.join(CSRC, f"{name}.cu")
-    so = os.path.join(BUILD_DIR, f"lib{name}-{_source_hash(src)}.so")
-    if os.path.exists(so):
-        return so
+    return os.path.join(BUILD_DIR, f"lib{name}-{_source_hash(src)}.so")
+
+
+def build_all(names: Sequence[str] = KERNELS, timeout: float = 600) -> Dict[str, str]:
+    """Compile every csrc/<name>.cu that has no library yet, all nvcc
+    processes started together; return {name: library path}."""
+    libs = {name: _library(name) for name in names}
+    todo = {name: so for name, so in libs.items() if not os.path.exists(so)}
+    if not todo:
+        return libs
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, so)
-    return so
+    nvcc, procs = nvcc_path(), {}
+    try:
+        for name, so in todo.items():
+            cmd = [nvcc, *NVCC_FLAGS, "-o", f"{so}.{os.getpid()}.tmp",
+                   os.path.join(CSRC, f"{name}.cu")]
+            procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True)
+        failed = []
+        for name, proc in procs.items():
+            out, _ = proc.communicate(timeout=timeout)
+            build_logs[name] = out
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed for csrc/{name}.cu:\n{out}")
+            else:
+                os.replace(f"{todo[name]}.{os.getpid()}.tmp", todo[name])
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return libs
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -69,5 +96,5 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = _libs[name] = ctypes.CDLL(build(name))
+            lib = _libs[name] = ctypes.CDLL(build_all([name])[name])
         return lib

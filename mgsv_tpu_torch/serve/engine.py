@@ -8,7 +8,8 @@ pair.  With `use_fused_kernels` (the default on a CUDA device) the DETR
 encoder layers run on the hand-written CUDA kernel
 (ops/cuda/fused_encoder_layer.py) in float32, as the JAX fused path does;
 a config whose shapes the kernel does not take raises at the first query.
-Otherwise the plain modules run in the configured compute dtype.
+Otherwise the plain modules run in the configured compute dtype (the CPU
+runs them either way).
 """
 
 from __future__ import annotations
@@ -20,11 +21,10 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from mgsv_tpu.config import Config
+from mgsv_tpu_torch.config import Config
 from mgsv_tpu_torch.eval.similarity import dual_similarity, xpool_similarity_blocked
 from mgsv_tpu_torch.models import layers as L
 from mgsv_tpu_torch.models.made import MaDe
-from mgsv_tpu_torch.ops.detr_fused import detr_forward_fused
 from mgsv_tpu_torch.ops.spans import span_cw_to_se
 
 
@@ -128,14 +128,10 @@ class RetrievalEngine:
         pos = L.position_embedding_sine(fused_mask, m.dim_input)
         target = video_emb[:, None, :].expand(-1, m.num_moment_queries, -1)
         query_embed = model.decoder_query_embed.weight
-        if self.use_fused_kernels:
-            hidden, _ = detr_forward_fused(model.detr_transformer, fused, fused_mask,
-                                           pos, query_embed, target)
-        else:
-            with torch.autocast(self.device.type, dtype=torch.bfloat16,
-                                enabled=self._autocast):
-                hidden, _ = model.detr_transformer(fused, fused_mask, pos,
-                                                   query_embed, target)
+        with torch.autocast(self.device.type, dtype=torch.bfloat16,
+                            enabled=self._autocast and not self.use_fused_kernels):
+            hidden, _ = model.detr_transformer(fused, fused_mask, pos, query_embed, target,
+                                               plain=not self.use_fused_kernels)
         last = hidden[-1].float()
         logits = model.class_embed(last)
         spans_cw = torch.sigmoid(model.span_embed(last))

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from mgsv_tpu.config import Config
+from mgsv_tpu_torch.config import Config
 from mgsv_tpu_torch.core.device import resolve_device
 from mgsv_tpu_torch.models.made import MaDe
 from mgsv_tpu_torch.serve.engine import RetrievalEngine, build_music_index

@@ -1,0 +1,119 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card.
+
+Every test here is marked `cuda` and skips without a CUDA device (the
+kernels have no CPU mode).  The file imports nothing of JAX, so it runs on
+the machine with the card, where JAX is absent:
+
+    python3 -m pytest -m cuda tests/test_torch_port_cuda.py -q
+
+Forward outputs agree to 1e-4 (float32 kernels with 3xTF32 GEMMs, outputs
+of order 1 after LayerNorm); gradients to 1e-3 of each tensor's largest
+magnitude.  The shapes are small enough that few ReLU gates sit within
+rounding of zero; chip_smoke.py holds the kernels at the training shapes
+against a float64 run.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from mgsv_tpu_torch.core.device import resolve_device
+from mgsv_tpu_torch.models.detr import DetrEncoderLayer
+from mgsv_tpu_torch.models.xpool import XPoolTransformer
+from mgsv_tpu_torch.ops.cuda import fused_encoder_layer as fel
+from mgsv_tpu_torch.ops.cuda import xpool_sim as xps
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernels have no CPU mode")
+    return resolve_device("cuda")
+
+
+def _randn(rng, shape, dev):
+    return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev)
+
+
+def _ragged(rng, rows, length, dev):
+    lens = rng.integers(1, length + 1, rows)
+    return torch.from_numpy((np.arange(length)[None] < lens[:, None]).astype(np.float32)).to(dev)
+
+
+def _perturbed(module, seed):
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in module.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=gen))
+    return module
+
+
+def _assert_grads(got, want):
+    for k, p in zip(got, want):
+        torch.testing.assert_close(k, p, atol=1e-3 * p.abs().max().item() + 1e-6, rtol=0)
+
+
+def _encoder_layer(dev):
+    layer = DetrEncoderLayer(256, 8, 1024)
+    layer.reset_parameters(torch.Generator().manual_seed(0))
+    return _perturbed(layer, 1).to(dev)
+
+
+def test_cuda_kernel_matches_plain_version(dev):
+    rng = np.random.default_rng(3)
+    x, pos = _randn(rng, (8, 152, 256), dev), _randn(rng, (8, 152, 256), dev)
+    mask = _ragged(rng, 8, 152, dev)
+    layer = _encoder_layer(dev)
+    before = fel.fused_encoder_layer.launches
+    with torch.no_grad():
+        out = fel.fused_encoder_layer(x, mask, pos, layer)
+        ref = fel.fused_encoder_layer_reference(x, mask, pos, layer)
+    assert fel.fused_encoder_layer.launches == before + 1
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("b,L", [(4, 152), (15, 150), (3, 21)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_cuda_backward_kernel_matches_plain_version(dev, rate, b, L):
+    """B*L rows: one full split-K chunk, two with a ragged second (2,250
+    rows), and fewer rows than one 64-row tile (63)."""
+    rng = np.random.default_rng(4)
+    x, pos, g = (_randn(rng, (b, L, 256), dev) for _ in range(3))
+    mask = _ragged(rng, b, L, dev)
+    layer = _encoder_layer(dev)
+    before = fel.fused_encoder_layer_bwd.launches
+    outs, grads = [], []
+    for fn in (fel.fused_encoder_layer, fel.fused_encoder_layer_reference):
+        xi, pi = x.clone().requires_grad_(), pos.clone().requires_grad_()
+        out = fn(xi, mask, pi, layer, rate, 7)
+        grads.append(torch.autograd.grad(out, [xi, pi, *layer.parameters()], g))
+        outs.append(out.detach())
+    assert fel.fused_encoder_layer_bwd.launches == before + 1
+    torch.testing.assert_close(outs[0], outs[1], atol=1e-4, rtol=0)
+    _assert_grads(*grads)
+
+
+@pytest.mark.parametrize("vc,m,s", [(70, 9, 96), (128, 64, 96), (33, 5, 50)])
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_cuda_xpool_kernels_match_plain_version(dev, vc, m, s, rate):
+    """Ragged V and M (70 videos: a partial 64-video tile), full tiles, and
+    a snippet count that is no multiple of 32."""
+    rng = np.random.default_rng(vc + m)
+    weights = [w.detach() for w in _perturbed(XPoolTransformer(256), 2).to(dev).stage_weights()]
+    q = _randn(rng, (vc, 256), dev)
+    vhat = torch.nn.functional.normalize(_randn(rng, (vc, 256), dev), dim=-1)
+    k, v = _randn(rng, (m, s, 256), dev), _randn(rng, (m, s, 256), dev)
+    mask, g = _ragged(rng, m, s, dev), _randn(rng, (m, vc), dev)
+    before = xps.xpool_sim_fwd.launches, xps.xpool_sim_bwd.launches
+    outs, grads = [], []
+    for fn in (xps.xpool_sim, xps.xpool_sim_reference):
+        ins = [t.clone().requires_grad_() for t in (q, k, v, vhat, *weights)]
+        out = fn(ins[0], ins[1], ins[2], mask, ins[3], ins[4:], rate, 9)
+        grads.append(torch.autograd.grad(out, ins, g))
+        outs.append(out.detach())
+    assert (xps.xpool_sim_fwd.launches, xps.xpool_sim_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(outs[0], outs[1], atol=1e-4, rtol=0)
+    _assert_grads(*grads)

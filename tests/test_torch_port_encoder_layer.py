@@ -1,10 +1,13 @@
-"""The port's fused encoder layer and fused DETR forward vs the JAX package.
+"""The port's fused encoder layer and the DETR forward vs the JAX package.
 
 On the CPU the wrapper runs its plain version; it is held against the
 Pallas kernel in interpret mode (rate 0) and against the mask-fixed JAX
-oracle `layer_fwd_with_masks(..., None, ...)`, atol 3e-5 as in
-tests/test_detr_fused.py.  The CUDA kernel itself is held against the plain
-version by the `cuda` test below and by chip_smoke.py on the card.
+oracle `layer_fwd_with_masks`, atol 3e-5 as in tests/test_detr_fused.py.
+With gradients (autograd of the plain version, which is the backward
+kernel's plain version) and dropout fed the same Philox masks, atol 2e-4,
+JAX's own tolerance for this layer's VJP (tests/test_fused_layer_vjp.py).
+The CUDA kernels themselves are held against the plain version on the card
+by tests/test_torch_port_cuda.py and chip_smoke.py.
 """
 
 import dataclasses
@@ -21,12 +24,13 @@ from mgsv_tpu.models.detr import DetrEncoderLayer as JaxEncoderLayer, DetrTransf
 from mgsv_tpu.ops.pallas.detr_fused import detr_forward_fused as jax_detr_forward_fused
 from mgsv_tpu.ops.pallas.fused_encoder_layer import (fused_encoder_layer as jax_fused,
                                                      layer_fwd_with_masks)
-from mgsv_tpu_torch.core.device import resolve_device
+from mgsv_tpu.ops.pallas.fused_encoder_layer_vjp import fused_encoder_layer_train
 from mgsv_tpu_torch.models.detr import DetrEncoderLayer, DetrTransformer as TorchDetr
+from mgsv_tpu_torch.ops import philox
 from mgsv_tpu_torch.ops.cuda import fused_encoder_layer as fel
-from mgsv_tpu_torch.ops.detr_fused import detr_forward_fused
 
 ATOL = 3e-5
+VJP_ATOL = 2e-4
 
 
 def _linear(prefix, p):
@@ -108,11 +112,88 @@ def test_detr_forward_fused_matches_jax():
     tdetr = TorchDetr(d, heads, 2 * d, enc, dec, decoder_self_attn=True)
     tdetr.load_state_dict({k[2:]: torch.from_numpy(np.array(v)) for k, v in state.items()},
                           strict=True)
-    with torch.no_grad():
-        hid, mem = detr_forward_fused(tdetr, *map(torch.from_numpy, (x, mask, pos)),
-                                      torch.from_numpy(query), torch.from_numpy(target))
+    with torch.no_grad():                  # CPU tensors: each encoder layer's plain version
+        hid, mem = tdetr(*map(torch.from_numpy, (x, mask, pos)),
+                         torch.from_numpy(query), torch.from_numpy(target))
     np.testing.assert_allclose(mem.numpy(), np.asarray(mem_ref), atol=ATOL, rtol=0)
     np.testing.assert_allclose(hid.numpy(), np.asarray(hid_ref), atol=ATOL, rtol=0)
+
+
+def _encoder_pair(b, L, d, heads, ffn, seed):
+    x, pos, mask = inputs(b, L, d, seed=seed)
+    jlayer = JaxEncoderLayer(d, heads, ffn, dropout=0.0)
+    params = perturbed(jlayer.init(jax.random.PRNGKey(0), jnp.asarray(x),
+                                   jnp.asarray(mask), jnp.asarray(pos)), seed=seed + 1)
+    layer = DetrEncoderLayer(d, heads, ffn)
+    layer.load_state_dict(encoder_state(params["params"]), strict=True)
+    g = np.random.default_rng(seed + 2).standard_normal((b, L, d), dtype=np.float32)
+    return x, pos, mask, g, params["params"], layer
+
+
+def _port_vjp(layer, x, mask, pos, g, rate, seed):
+    xt, pt = (torch.from_numpy(a).requires_grad_() for a in (x, pos))
+    out = fel.fused_encoder_layer(xt, torch.from_numpy(mask), pt, layer, rate, seed)
+    out.backward(torch.from_numpy(g))
+    grads = {"x": xt.grad, "pos": pt.grad}
+    grads.update({n: p.grad for n, p in layer.named_parameters()})
+    return out.detach().numpy(), {k: v.numpy() for k, v in grads.items()}
+
+
+def _assert_grads(grads, dx, dpos, dp, atol):
+    np.testing.assert_allclose(grads["x"], np.asarray(dx), atol=atol, rtol=0)
+    np.testing.assert_allclose(grads["pos"], np.asarray(dpos), atol=atol, rtol=0)
+    for name, ref in encoder_state(dp).items():
+        np.testing.assert_allclose(grads[name], ref.numpy(), atol=atol, rtol=0, err_msg=name)
+
+
+@pytest.mark.kernel
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_plain_forward_and_grads_match_jax_with_the_same_masks(rate):
+    """Forward and every gradient against jax.vjp of layer_fwd_with_masks,
+    fed the port's Philox masks as numpy."""
+    b, L, d, heads, ffn, seed = 3, 13, 32, 4, 64, 21
+    x, pos, mask, g, p, layer = _encoder_pair(b, L, d, heads, ffn, seed)
+    masks = None
+    if rate > 0.0:
+        masks = {k: jnp.asarray(v.numpy()) for k, v in philox.encoder_masks(
+            seed, b, L, d, ffn, heads, rate).items()}
+    ref, vjp = jax.vjp(lambda p_, x_, pos_: layer_fwd_with_masks(
+        p_, x_, jnp.asarray(mask), pos_, masks, heads), p, jnp.asarray(x), jnp.asarray(pos))
+    dp, dx, dpos = vjp(jnp.asarray(g))
+    out, grads = _port_vjp(layer, x, mask, pos, g, rate, seed)
+    np.testing.assert_allclose(out, np.asarray(ref), atol=VJP_ATOL, rtol=0)
+    _assert_grads(grads, dx, dpos, dp, VJP_ATOL)
+    if rate > 0.0:                     # dropout really acted
+        _, plain = _port_vjp(layer, x, mask, pos, g, 0.0, seed)
+        assert np.abs(plain["x"] - grads["x"]).max() > 10 * VJP_ATOL
+
+
+@pytest.mark.kernel
+def test_plain_grads_match_fused_encoder_layer_train_at_rate_0():
+    """Against the TPU kernels' custom VJP (forward and backward Pallas
+    kernels in interpret mode)."""
+    b, L, d, heads, ffn, seed = 2, 16, 32, 4, 64, 5
+    x, pos, mask, g, p, layer = _encoder_pair(b, L, d, heads, ffn, seed)
+    # The Pallas backward does not zero the softmax gradient of masked keys,
+    # which differs from autograd only in a row with no valid key (uniform
+    # softmax).  MaDe never makes one (its first frame is always valid), and
+    # JAX's own test of that VJP has none, so every row keeps a valid key.
+    mask[:, :3] = 1
+    ref, vjp = jax.vjp(lambda p_, x_, pos_: fused_encoder_layer_train(
+        p_, x_, jnp.asarray(mask), pos_, jnp.zeros((1,), jnp.int32), heads, 1, True, 0.0),
+        p, jnp.asarray(x), jnp.asarray(pos))
+    dp, dx, dpos = vjp(jnp.asarray(g))
+    out, grads = _port_vjp(layer, x, mask, pos, g, 0.0, 0)
+    np.testing.assert_allclose(out, np.asarray(ref), atol=VJP_ATOL, rtol=0)
+    _assert_grads(grads, dx, dpos, dp, VJP_ATOL)
+
+
+def test_backward_kernel_wrapper_refuses_cpu_tensors():
+    layer = DetrEncoderLayer(256, 8, 1024)
+    x = torch.zeros(1, 4, 256)
+    with pytest.raises(ValueError):
+        fel.fused_encoder_layer_bwd(x, torch.ones(1, 4), x, x, layer)
+    assert fel.fused_encoder_layer_bwd.launches == 0
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "head_dim", "width", "length",
@@ -151,21 +232,3 @@ def test_weight_check_runs_again_after_the_weights_move():
     layer.double()                     # new storage: the check runs again and fails
     with pytest.raises(ValueError):
         fel._weights(layer, cpu)
-
-
-@pytest.mark.cuda
-def test_cuda_kernel_matches_plain_version():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device; the kernel has no CPU mode")
-    dev = resolve_device("cuda")
-    b, L, d, heads = 8, 152, 256, 8
-    x, pos, mask = (torch.from_numpy(a).to(dev) for a in inputs(b, L, d, seed=3))
-    layer = DetrEncoderLayer(d, heads, 1024)
-    layer.reset_parameters(torch.Generator().manual_seed(0))
-    layer = layer.to(dev)
-    before = fel.fused_encoder_layer.launches
-    with torch.no_grad():
-        out = fel.fused_encoder_layer(x, mask, pos, layer)
-        ref = fel.fused_encoder_layer_reference(x, mask, pos, layer)
-    assert fel.fused_encoder_layer.launches == before + 1
-    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)

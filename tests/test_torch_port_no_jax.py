@@ -1,6 +1,9 @@
 """The port runs where JAX, flax and pandas are absent (the GPU machine's
-environment): a fresh interpreter in which importing them fails imports
-every mgsv_tpu_torch module and chip_smoke.py."""
+environment) and imports nothing of the JAX package: a fresh interpreter in
+which importing them, or the top-level package `mgsv_tpu`, fails imports
+every mgsv_tpu_torch module, chip_smoke.py and the scripts that drive the
+port on the card (scripts/profile_{serving,train}_cuda.py,
+scripts/time_encoder_layer_cuda.py)."""
 
 import os
 import subprocess
@@ -8,12 +11,16 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+_BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "pandas", "mgsv_tpu")
+
 _SCRIPT = r"""
-import importlib, pkgutil, sys
+import importlib, pkgutil, runpy, sys
+
+BLOCKED = %r
 
 class _Block:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "pandas"):
+        if name.split(".")[0] in BLOCKED:       # exact: mgsv_tpu_torch passes
             raise ImportError(f"{name} is blocked in this test")
 
 sys.meta_path.insert(0, _Block())
@@ -22,9 +29,12 @@ names = [m.name for m in pkgutil.walk_packages(mgsv_tpu_torch.__path__, "mgsv_tp
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "pandas")]
+for script in ("scripts/profile_serving_cuda.py", "scripts/profile_train_cuda.py",
+               "scripts/time_encoder_layer_cuda.py"):
+    runpy.run_path(script, run_name="not_main")
+assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 print(len(names))
-"""
+""" % (_BLOCKED,)
 
 
 def test_port_imports_without_jax_flax_pandas():

@@ -25,7 +25,7 @@ from mgsv_tpu.data.feature_store import PackedFeatureStore
 from mgsv_tpu.interop.torch_export import export_uni_state_dict, save_reference_checkpoint
 from mgsv_tpu.models.made import MaDe as JaxMaDe
 from mgsv_tpu.serve import engine as jengine
-from mgsv_tpu.serve.server import RetrievalServer
+from mgsv_tpu_torch.serve.server import RetrievalServer
 from mgsv_tpu_torch.cli import index as index_cli
 from mgsv_tpu_torch.interop.from_jax import load_jax_params, load_reference_bin
 from mgsv_tpu_torch.models.made import MaDe
