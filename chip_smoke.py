@@ -26,6 +26,18 @@ failure:
               kernel, held against the same engine without it; launches read
   7. http     RetrievalServer on 127.0.0.1: /healthz and three /query
               replies equal to direct engine.query calls
+  8. eval-kernel  the evaluation X-Pool kernel (#4) against its plain
+              version at V = M = 2,048, S = 96 (the corpus of an MGSV-EC
+              split), timed in turns beside its bound; one line at the
+              serving scan's shape (V = 32, M = 4,096) for information
+  9. train-cli  `cli.train` in-process on 2,048 generated rows of the
+              default bf16 Config(): 4 steps at B=512, then an evaluation
+              at B=40 (52 batches, one corpus similarity); history.json,
+              the best_* and last checkpoints and every launch count read
+ 10. evaluate-cli  `cli.evaluate` on that run's best_r1 checkpoint: its
+              metrics equal the trainer's record; then `evaluate` with the
+              kernel and with the plain corpus similarity on the same
+              weights, timed: similarities, localization and ranks compared
 
 then prints the kernels' JSON line and, last, {"ok": true, "device": ...}.
 It exits non-zero, without that last line, when no CUDA device is present
@@ -39,18 +51,27 @@ import copy
 import dataclasses
 import http.client
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
 import numpy as np
 import torch
 
+from mgsv_tpu_torch.cli import evaluate as evaluate_cli
+from mgsv_tpu_torch.cli import train as train_cli
 from mgsv_tpu_torch.config import Config
+from mgsv_tpu_torch.core.checkpoint import CheckpointManager
 from mgsv_tpu_torch.core.device import resolve_device
 from mgsv_tpu_torch.data.example_batch import example_batch, to_tensors
+from mgsv_tpu_torch.data.synthetic import open_synthetic
+from mgsv_tpu_torch.eval.evaluator import evaluate
+from mgsv_tpu_torch.eval.similarity import (xpool_eval_inputs, xpool_sim_fused,
+                                            xpool_similarity_blocked)
 from mgsv_tpu_torch.models.detr import DetrEncoderLayer
 from mgsv_tpu_torch.models.layers import l2_normalize
 from mgsv_tpu_torch.models.made import MaDe
@@ -67,6 +88,8 @@ DROPOUT_SEED = 1234        # the Philox seed of the kernel phases
 TRAIN_B = 512              # the paper's training batch
 TRAIN_L = 152              # 50 frames + 96 snippets, padded to a multiple of 8
 N_TRACKS = 4096            # MGSV-EC's catalog size
+EVAL_N = 2048              # corpus of the eval phases: about an MGSV-EC split (2,000)
+SERVE_V = 32               # videos of a B=32 serving scan over the N_TRACKS index
 SERVE_ROWS = (8, 256)      # fused rows B*k: a B=1 query, and B=32 x k-bucket 8
 TIMED_STEPS = 5
 HORIZON = 1000             # schedule length the optimizers are built for
@@ -101,12 +124,19 @@ LOSS_RTOL = 1e-4
 SPAN_ATOL_S = 5e-3         # localized moments, seconds on a 240 s scale
 SCORE_ATOL = 1e-4
 
+# Fused and plain corpus similarities on the same weights: their ranks may
+# differ only in rows where another track's similarity lies this close to
+# the GT's (twice KERNEL_ATOL: each side may move by up to it).
+RANK_TIE_ATOL = 2e-4
+MIOU_ATOL = 1e-6           # the evaluation CLI's mIoU against the trainer's record
+
 COUNTERS = {"fused_encoder_layer": fel.fused_encoder_layer,
             "fused_encoder_layer_bwd": fel.fused_encoder_layer_bwd,
             "xpool_sim_fwd": xps.xpool_sim_fwd,
-            "xpool_sim_bwd": xps.xpool_sim_bwd}
+            "xpool_sim_bwd": xps.xpool_sim_bwd,
+            "xpool_sim_eval": xps.xpool_sim_eval}
 PER_STEP = {"fused_encoder_layer": 2, "fused_encoder_layer_bwd": 2,
-            "xpool_sim_fwd": 1, "xpool_sim_bwd": 1}
+            "xpool_sim_fwd": 1, "xpool_sim_bwd": 1, "xpool_sim_eval": 0}
 
 
 def phase(tag: str, /, **fields) -> None:
@@ -160,7 +190,7 @@ def bound(flops: float, nbytes: int) -> tuple:
 
 
 def entry(name, source, replaces, err, ms, plain_ms, flops, nbytes) -> dict:
-    """One kernel's record.  No single PyTorch call computes any of the four
+    """One kernel's record.  No single PyTorch call computes any of the five
     functions (the encoder layer adds pos to q and k only, and runs both
     LayerNorms and the FFN after the attention; the X-Pool pair stage is a
     softmax pooling followed by two LayerNorms, a dropped branch and a
@@ -381,7 +411,7 @@ def check_xpool(device: torch.device) -> list:
           plain_ms=f"{plain_ms:.4f}")
     phase("kernel-time", name="xpool_sim_bwd", V=vc, M=mc, S=s, rate=rate, ms=f"{bms:.4f}",
           plain_ms=f"{plain_bms:.4f}")
-    flops = vc * mc * (4 * s * d + 4 * d * d)          # 360,448 per pair at S=96
+    flops = xpool_pair_flops(vc, mc, s, d)
     src = "mgsv_tpu_torch/csrc/xpool_sim_train.cu"
     return [
         entry("xpool_sim_fwd", src, "mgsv_tpu/ops/pallas/xpool_sim_vjp.py:250", fwd_err,
@@ -590,6 +620,185 @@ def check_http(engine: RetrievalEngine, videos, vmask) -> None:
         server.stop()
 
 
+def xpool_pair_flops(vc: int, mc: int, s: int, d: int) -> int:
+    """The least work of the pair chain.  Per (video, track): scores and
+    p.v (4 S D), Wlin (2 D^2), the cosine (2 D).  Wout is linear and acts
+    on a softmax-weighted sum whose weights add up to 1, so it can be
+    applied once per snippet of each track (M S 2 D^2) in place of once per
+    pair; the kernel does the latter."""
+    return vc * mc * (4 * s * d + 2 * d * d + 2 * d) + mc * s * 2 * d * d
+
+
+def check_eval_kernel(device: torch.device) -> dict:
+    """Kernel #4 against its plain version at V = M = 2,048, S = 96, ragged
+    snippet masks and X-Pool weights off identity: the wrapper alone against
+    `xpool_sim_eval_reference` on the same inputs, and `xpool_sim_fused`
+    against `xpool_similarity_blocked` (the evaluation's plain path); then
+    the serving scan's shape, for information."""
+    cfg = Config()
+    d, s = cfg.model.dim_input, cfg.data.max_snippet_num
+    gen = torch.Generator().manual_seed(SEED + 2)
+    xpool = perturb_(XPoolTransformer(d), gen).to(device)
+    rng = np.random.default_rng(SEED + 2)
+    out = {}
+    for vc, mc in ((EVAL_N, EVAL_N), (SERVE_V, N_TRACKS)):
+        video, segs = randn(rng, (vc, d), device), randn(rng, (mc, s, d), device)
+        mask = torch.from_numpy(ragged_mask(rng, mc, s, 1)).to(device)
+        ins = xpool_eval_inputs(video, segs, mask, xpool)
+        with torch.no_grad():
+            before = xps.xpool_sim_eval.launches
+            got = xps.xpool_sim_eval(*ins)
+            if xps.xpool_sim_eval.launches != before + 1:
+                raise AssertionError("xpool_sim_eval: not one launch")
+            err = check_close(f"xpool_sim_eval V={vc} M={mc}", got,
+                              xps.xpool_sim_eval_reference(*ins))
+            fn_err = check_close(f"xpool_sim_fused V={vc} M={mc}",
+                                 xpool_sim_fused(video, segs, mask, xpool),
+                                 xpool_similarity_blocked(xpool, video, segs, mask))
+            ms, plain_ms = in_turns(lambda: xps.xpool_sim_eval(*ins),
+                                    lambda: xps.xpool_sim_eval_reference(*ins))
+            fn_ms, blocked_ms = in_turns(
+                lambda: xpool_sim_fused(video, segs, mask, xpool),
+                lambda: xpool_similarity_blocked(xpool, video, segs, mask), iters=2)
+        flops = xpool_pair_flops(vc, mc, s, d)
+        nb = nbytes(*ins[:5], *ins[5], got)
+        bms, by = bound(flops, nb)
+        phase("eval-kernel", name="xpool_sim_eval", V=vc, M=mc, S=s, max_abs_err=err,
+              fused_vs_blocked_err=fn_err, atol=KERNEL_ATOL, ms=f"{ms:.4f}",
+              plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bms:.4f}", bound_by=by,
+              gflop=f"{flops / 1e9:.1f}", tflops=f"{flops / ms / 1e9:.1f}",
+              fused_fn_ms=f"{fn_ms:.4f}", blocked_fn_ms=f"{blocked_ms:.4f}")
+        out[(vc, mc)] = (max(err, fn_err), ms, plain_ms, flops, nb)
+        del video, segs, mask, ins, got
+    err, ms, plain_ms, flops, nb = out[(EVAL_N, EVAL_N)]
+    return entry("xpool_sim_eval", "mgsv_tpu_torch/csrc/xpool_sim_train.cu",
+                 "mgsv_tpu/ops/pallas/xpool_sim.py:79", err, ms, plain_ms, flops, nb)
+
+
+def expected_fit_launches(cfg: Config, n_rows: int) -> dict:
+    """Launches of one `fit` epoch on n_rows: its steps (PER_STEP each),
+    then one evaluation (`eval_launches`)."""
+    steps = n_rows // cfg.train.batch_size_train
+    evals = eval_launches(cfg, n_rows)
+    return {name: steps * n + evals[name] for name, n in PER_STEP.items()}
+
+
+def eval_launches(cfg: Config, n_rows: int) -> dict:
+    """Launches of one evaluation of n_rows at batch_size_val: per batch the
+    encoder layers at rate 0 and the in-batch similarity's forward (#3),
+    then one corpus similarity (#4)."""
+    batches = -(-n_rows // cfg.train.batch_size_val)
+    return {"fused_encoder_layer": cfg.model.detr_enc_layers * batches,
+            "fused_encoder_layer_bwd": 0, "xpool_sim_fwd": batches, "xpool_sim_bwd": 0,
+            "xpool_sim_eval": 1}
+
+
+def check_train_cli(tmp: str) -> tuple:
+    """`cli.train` on EVAL_N generated rows, one epoch of the default
+    Config(); returns (run directory, data root, the epoch's record, the
+    run's launch counts)."""
+    out_dir = os.path.join(tmp, "train")
+    cfg = Config()
+    reset_counts()
+    t0 = time.perf_counter()
+    train_cli.main(["--synthetic", str(EVAL_N), "--train.epochs", "1",
+                    "--train.output_dir", out_dir])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    run_dir = os.path.join(out_dir, cfg.train.name)
+    with open(os.path.join(run_dir, "history.json")) as f:
+        history = json.load(f)
+    if len(history) != 1 or not np.isfinite(history[0]["train"]["loss"]):
+        raise AssertionError(f"train-cli history: {history}")
+    mgr = CheckpointManager(run_dir)
+    tags = ("best_r1", "best_iou", "best_r1iou07", "last")
+    if not all(mgr.exists(t) for t in tags):
+        raise AssertionError(f"train-cli checkpoints missing: {os.listdir(run_dir)}")
+    want = expected_fit_launches(cfg, EVAL_N)
+    if launches != want:
+        raise AssertionError(f"train-cli launches {launches}, want {want}")
+    rec = history[0]
+    phase("train-cli", rows=EVAL_N, steps=rec["train"]["steps"], loss=rec["train"]["loss"],
+          train_seconds=f"{rec['train']['seconds']:.3f}",
+          clips_per_s=f"{rec['train']['clips_per_sec']:.1f}", R1=rec["eval"]["R1"],
+          mIoU=rec["eval"]["mIoU"], checkpoints=",".join(tags),
+          seconds_with_data_and_eval=f"{seconds:.2f}")
+    phase("launches", path=f"train-cli epoch ({rec['train']['steps']} steps + 1 eval)",
+          **launches)
+    return run_dir, os.path.join(out_dir, "synthetic_data"), rec, launches
+
+
+RANK_KEYS = ("R1", "R3", "R5", "R10", "R20", "R25", "R50", "R100", "MedianR", "MeanR", "MRR")
+
+
+def check_evaluate_cli(device: torch.device, tmp: str, run_dir: str, data_root: str,
+                       record: dict) -> dict:
+    """`cli.evaluate` on the run's best_r1 checkpoint against the trainer's
+    record, then `evaluate` with and without kernel #4 on those weights;
+    returns the evaluation CLI's launch counts."""
+    cfg = Config()
+    csv = os.path.join(data_root, "data.csv")
+    reset_counts()
+    t0 = time.perf_counter()
+    results = evaluate_cli.main(["--ckpt", "best_r1", "--run-dir", run_dir, "--split", "val",
+                                 "--data.val_csv", csv, "--data.feature_root", data_root,
+                                 "--save-json", os.path.join(tmp, "results.json")])
+    cli_s = time.perf_counter() - t0
+    launches = read_counts()
+    if launches != eval_launches(cfg, EVAL_N):
+        raise AssertionError(f"evaluate-cli launches {launches}, want "
+                             f"{eval_launches(cfg, EVAL_N)}")
+    got, want = results["best_r1"], record["eval"]
+    bad = [k for k in RANK_KEYS if got[k] != want[k]]
+    if bad or not abs(got["mIoU"] - want["mIoU"]) <= MIOU_ATOL:
+        raise AssertionError(f"evaluate-cli metrics differ from the trainer's record: "
+                             f"{bad} mIoU {got['mIoU']} vs {want['mIoU']}")
+    with open(os.path.join(tmp, "results.json")) as f:
+        rows = json.load(f)
+    if len(rows) != EVAL_N:
+        raise AssertionError(f"--save-json wrote {len(rows)} rows")
+
+    model = MaDe(cfg).to(device).eval()
+    model.load_state_dict(CheckpointManager(run_dir).restore("best_r1")["params"])
+    data = open_synthetic(data_root, cfg.data)
+    runs = {}
+    for fused in (True, False):
+        t0 = time.perf_counter()
+        res = evaluate(model, data, cfg, use_fused_sim=fused)
+        torch.cuda.synchronize()
+        runs[fused] = (res, time.perf_counter() - t0)
+    (fres, fused_s), (pres, plain_s) = runs[True], runs[False]
+    sim_err = (fres["sim"] - pres["sim"]).abs().max().item()
+    if not sim_err <= KERNEL_ATOL:
+        raise AssertionError(f"fused vs plain corpus similarity: {sim_err} > {KERNEL_ATOL}")
+    if fres["localization"] != pres["localization"]:
+        raise AssertionError("fused and plain evaluations localize differently")
+    near = near_tie_rows(fres["sim"], fres["music_ids"], RANK_TIE_ATOL)
+    moved = np.flatnonzero(fres["ranks"] != pres["ranks"])
+    if not near[moved].all():
+        raise AssertionError(f"ranks moved in rows {moved[~near[moved]]} without a near tie")
+    phase("evaluate-cli", tag="best_r1", equal_to_trainer_record=True, R1=got["R1"],
+          mIoU=got["mIoU"], json_rows=len(rows), cli_seconds=f"{cli_s:.2f}")
+    phase("evaluate", rows=EVAL_N, batch=cfg.train.batch_size_val,
+          fused_seconds=f"{fused_s:.3f}", plain_seconds=f"{plain_s:.3f}",
+          sim_max_abs_err=sim_err, ranks_moved=len(moved),
+          near_tie_rows=int(near.sum()), tie_atol=RANK_TIE_ATOL)
+    phase("launches", path="evaluate-cli", **launches)
+    return launches
+
+
+def near_tie_rows(sim: torch.Tensor, music_ids, atol: float) -> np.ndarray:
+    """[N] bool: rows where some other track's similarity lies within atol
+    of the GT track's best (the similarity that ranks the GT)."""
+    codes = torch.as_tensor(np.unique(np.asarray(music_ids), return_inverse=True)[1],
+                            device=sim.device)
+    same = codes[:, None] == codes[None, :]
+    gt_best = torch.where(same, sim, torch.full_like(sim, float("-inf"))).amax(dim=1)
+    gap = torch.where(same, torch.full_like(sim, float("inf")), (sim - gt_best[:, None]).abs())
+    return (gap.amin(dim=1) <= atol).cpu().numpy()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one NVIDIA GPU",
@@ -603,6 +812,12 @@ def main() -> int:
     check_timed(device, card)
     engine, videos, vmask = check_slice(device)
     check_http(engine, videos, vmask)
+    del engine
+    entries.append(check_eval_kernel(device))
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir, data_root, record, fit_launches = check_train_cli(tmp)
+        check_evaluate_cli(device, tmp, run_dir, data_root, record)
+    launches["xpool_sim_eval"] = fit_launches["xpool_sim_eval"]      # per evaluation
     for e in entries:
         e["launches"] = launches[e["name"]]
     print(json.dumps({"kernels": entries}), flush=True)

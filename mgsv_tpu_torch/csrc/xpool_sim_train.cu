@@ -1,9 +1,13 @@
-// Training X-Pool pooled cosine similarity, forward and backward, for
-// Hopper (sm_90a).
+// X-Pool pooled cosine similarity for Hopper (sm_90a): the training
+// forward and backward, and the evaluation forward.
 //
 // Replaces the Pallas TPU kernels of mgsv_tpu/ops/pallas/xpool_sim_vjp.py:
 // _core_fwd (kernel _fwd_kernel) and _core_bwd (kernel _bwd_kernel), the
-// custom VJP of _xpool_core.  For every (music m, video v) pair the pair
+// custom VJP of _xpool_core; and of mgsv_tpu/ops/pallas/xpool_sim.py:
+// xpool_sim_fused (kernel _xpool_sim_kernel), the corpus similarity of an
+// evaluation, which is the same forward at dropout rate 0 (mgsv_xpool_sim_fwd
+// with threshold 0 launches xpool_fwd_kernel<false>, which has no dropout
+// code compiled in).  For every (music m, video v) pair the pair
 // stage (_pair_stage_fwd) computes
 //
 //   p    = softmax_s(q_v . k_m[s] / sqrt(D), masked snippets -> -1e9)   [S]
@@ -16,7 +20,9 @@
 //
 // What bounds it on the card: the pair stage is 360,448 FLOP per pair, 94.5
 // GFLOP at V = M = 512 in the forward and about twice that in the backward,
-// against inputs of a few MB: the arithmetic bounds it.  The design keeps
+// against inputs of a few MB: the arithmetic bounds it (an evaluation over
+// V = M = 2,048 is 1.5 TFLOP as this kernel does it; applying Wout to v
+// once per track instead of once per pair would make it 0.99).  The design keeps
 // everything O(M V D) out of device memory in the forward: a block takes
 // one music and 64 videos, and runs the four products of the stage (scores,
 // p v_m, Wout, Wlin) as 3xTF32 tensor-core tiles (tf32_tile.cuh) on two
@@ -80,7 +86,9 @@ __host__ __device__ constexpr int pad32(int n) { return (n + 31) & ~31; }
 // The pair stage of music m and videos v0 .. v0+63: leaves o = LN3(...) in
 // t0 and h in t1, |o|^-1 and the similarity per row in inv_n and sim.  With
 // a scratch (the backward) it also keeps p, ctx, xhat2, h, xhat3 there and
-// 1/std of LN2 and LN3 in inv2, inv3.
+// 1/std of LN2 and LN3 in inv2, inv3.  kDrop = false compiles the dropout
+// test out of the Wlin epilogue (rate 0: evaluation).
+template <bool kDrop>
 __device__ void pair_forward(const Pair& a, int m, int v0, const Smem& s, float* scratch) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int S = a.S, sp = pad32(S);
@@ -139,7 +147,9 @@ __device__ void pair_forward(const Pair& a, int m, int v0, const Smem& s, float*
   zero(acc);
   gemm(acc, s.t1, a.wlin, kCols, 0, kCols, s.ws);
   for_each_acc(acc, [&](int r, int c, float& x) {
-    s.t0[r * kLda + c] = (x + a.blin[c]) * keep(a.drop, m, v0 + r, c) + s.t1[r * kLda + c];
+    float lin = x + a.blin[c];
+    if constexpr (kDrop) lin *= keep(a.drop, m, v0 + r, c);
+    s.t0[r * kLda + c] = lin + s.t1[r * kLda + c];
   });
   __syncthreads();
   layer_norm_rows(s.t0, a.g3, a.b3, sp_x3, kCols, s.inv3);
@@ -165,11 +175,12 @@ __device__ void pair_forward(const Pair& a, int m, int v0, const Smem& s, float*
 }
 
 // sims [M, V]: grid (ceil(V / 64), M).
+template <bool kDrop>
 __global__ void __launch_bounds__(kThreads, 1) xpool_fwd_kernel(Pair a, float* __restrict__ out) {
   extern __shared__ float4 smem4[];
   const Smem s = carve(reinterpret_cast<float*>(smem4));
   const int v0 = blockIdx.x * kRows, m = blockIdx.y;
-  pair_forward(a, m, v0, s, nullptr);
+  pair_forward<kDrop>(a, m, v0, s, nullptr);
   for (int r = threadIdx.x; r < kRows; r += kThreads)
     if (v0 + r < a.V) out[(size_t)m * a.V + v0 + r] = s.sim[r];
 }
@@ -246,7 +257,7 @@ __global__ void __launch_bounds__(kThreads, 1) xpool_bwd_kernel(Pair a, Grads gr
 
   for (int v0 = 0; v0 < a.V; v0 += kRows) {
     const int nv = min(kRows, a.V - v0);
-    pair_forward(a, m, v0, s, scratch);          // t0 = o, t1 = h
+    pair_forward<true>(a, m, v0, s, scratch);    // t0 = o, t1 = h
     for (int r = threadIdx.x; r < kRows; r += kThreads)
       s.gv[r] = r < nv ? gr.g[(size_t)m * a.V + v0 + r] : 0.f;
     __syncthreads();
@@ -373,11 +384,23 @@ bool bad_shape(int V, int M, int S, int D) {
   return V < 1 || M < 1 || M > 65535 || S < 1 || S > kCols || D != kCols;
 }
 
+void launch_fwd(const Pair& a, float* out, int M, cudaStream_t stream) {
+  const dim3 grid((a.V + kRows - 1) / kRows, M);
+  if (a.drop.thresh != 0u)
+    xpool_fwd_kernel<true><<<grid, kThreads, kSmemBytes, stream>>>(a, out);
+  else
+    xpool_fwd_kernel<false><<<grid, kThreads, kSmemBytes, stream>>>(a, out);
+}
+
 }  // namespace
 
 extern "C" int mgsv_xpool_sim_init() {
   cudaError_t err;
-  if ((err = cudaFuncSetAttribute(xpool_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  if ((err = cudaFuncSetAttribute(xpool_fwd_kernel<true>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)kSmemBytes)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(xpool_fwd_kernel<false>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)kSmemBytes)) != cudaSuccess ||
       (err = cudaFuncSetAttribute(xpool_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)kSmemBytes)) != cudaSuccess)
@@ -386,8 +409,10 @@ extern "C" int mgsv_xpool_sim_init() {
 }
 
 // sims [M, V] of the pair stage on `stream`, dropout (seed, thresh, scale)
-// as in philox.cuh (thresh 0: none).  q, vhat [V, D]; k, v [M, S, D];
-// mask [M, S]; the 8 stage weights in torch layout.  Returns the CUDA error.
+// as in philox.cuh (thresh 0: none, and the <false> instantiation without
+// the mask code, as an evaluation takes it), grid (ceil(V / 64), M); the
+// caller splits M above 65,535.  q, vhat [V, D]; k, v [M, S, D]; mask
+// [M, S]; the 8 stage weights in torch layout.  Returns the CUDA error.
 extern "C" int mgsv_xpool_sim_fwd(const float* q, const float* k, const float* v,
                                   const float* mask, const float* vhat, const float* wout,
                                   const float* bout, const float* g2, const float* b2,
@@ -397,8 +422,7 @@ extern "C" int mgsv_xpool_sim_fwd(const float* q, const float* k, const float* v
   if (bad_shape(V, M, S, D)) return (int)cudaErrorInvalidValue;
   const Pair a{q, k, v, mask, vhat, wout, bout, g2, b2, wlin, blin, g3, b3, V, S,
                Dropout{seed, thresh, scale}};
-  xpool_fwd_kernel<<<dim3((V + kRows - 1) / kRows, M), kThreads, kSmemBytes,
-                     static_cast<cudaStream_t>(stream)>>>(a, out);
+  launch_fwd(a, out, M, static_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
 }
 

@@ -1,0 +1,131 @@
+"""A full evaluation: forward every batch, corpus similarity, metrics;
+ported from mgsv_tpu/eval/evaluator.py (single device, host-fed).
+
+One implementation serves the training loop and the evaluation CLI, as in
+the JAX package.  The per-batch outputs stay on the device until the one
+corpus similarity; the final partial batch is padded (repeat the last row)
+and its padding excluded from every metric; the loss of each batch is
+weighted by its valid rows.  The corpus X-Pool similarity runs on the
+evaluation kernel (ops/cuda/xpool_sim.py::xpool_sim_eval) on a CUDA device
+and blocked in plain PyTorch on the CPU, unless `use_fused_sim` says
+otherwise; the ranking runs where the similarity lies.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from mgsv_tpu_torch.config import Config
+from mgsv_tpu_torch.data.dataset import MgsvDataset
+from mgsv_tpu_torch.data.pipeline import prefetch_epoch
+from mgsv_tpu_torch.eval import metrics as M
+from mgsv_tpu_torch.eval.similarity import (dual_similarity, xpool_sim_fused,
+                                            xpool_similarity_blocked)
+from mgsv_tpu_torch.models.made import MaDe
+from mgsv_tpu_torch.train.step import make_eval_step
+
+
+@torch.no_grad()
+def evaluate(
+    model: MaDe,
+    dataset: MgsvDataset,
+    cfg: Config,
+    batch_size: Optional[int] = None,
+    eval_step=None,
+    sim_block_size: int = 256,
+    mesh=None,
+    use_fused_sim: Optional[bool] = None,
+) -> Dict[str, Any]:
+    """Returns {"loss", "retrieval", "localization", "composite", "ranks",
+    "ious", "pred_spans", "video_ids", "music_ids", "ret_results"}, as the
+    JAX evaluate does, and "sim", the [N, N] similarity on the device, for
+    the model's weights, on the model's device.  use_fused_sim None takes the
+    evaluation kernel on a CUDA device and the blocked plain path on the
+    CPU."""
+    if mesh is not None:
+        raise NotImplementedError("multi-device evaluation is not ported yet "
+                                  "(ROADMAP.md, queue 1, item 9)")
+    device = next(model.parameters()).device
+    batch_size = batch_size or cfg.train.batch_size_val
+    eval_step = eval_step or make_eval_step(model, cfg)
+    if use_fused_sim is None:
+        use_fused_sim = device.type == "cuda"
+
+    video_embs, music_embs, seg_tokens, seg_masks = [], [], [], []
+    ious, pred_spans, losses, weights = [], [], [], []
+    video_ids, music_ids = [], []
+    for batch, meta in prefetch_epoch(dataset, batch_size, shuffle=False, drop_last=False,
+                                      device=device):
+        out = eval_step(batch)
+        video_embs.append(out["video_emb"])
+        music_embs.append(out["music_emb"])
+        seg_tokens.append(out["seg_tokens"])
+        seg_masks.append(out["segment_mask"])
+        ious.append(out["iou"])
+        pred_spans.append(out["pred_spans_sec"])
+        # the padded final batch's in-batch loss still sees its padding rows
+        # as extra negatives; weighting by valid rows keeps its share small
+        losses.append(out["loss"])
+        weights.append(int(meta.valid.sum()))
+        video_ids.extend(v for v, ok in zip(meta.video_ids, meta.valid) if ok)
+        music_ids.extend(m for m, ok in zip(meta.music_ids, meta.valid) if ok)
+
+    # padding rows exist only at the tail of the final batch
+    n = len(video_ids)
+    sim = corpus_similarity(model, torch.cat(video_embs)[:n], torch.cat(music_embs)[:n],
+                            torch.cat(seg_tokens)[:n], torch.cat(seg_masks)[:n], cfg,
+                            block_size=sim_block_size, use_fused_kernel=use_fused_sim)
+    ious = torch.cat(ious)[:n].cpu().numpy()
+
+    ret_metrics, ranks, ret_results = M.recall_metrics(sim, music_ids)
+    return {
+        "loss": (float(np.average(torch.stack(losses).cpu().tolist(), weights=weights))
+                 if losses else 0.0),
+        "retrieval": ret_metrics,
+        "localization": M.iou_metrics(ious),
+        "composite": M.composite_metrics(ranks, ious),
+        "ranks": ranks,
+        "ious": ious,
+        "pred_spans": torch.cat(pred_spans)[:n].cpu().numpy(),
+        "video_ids": video_ids,
+        "music_ids": music_ids,
+        "ret_results": ret_results,
+        "sim": sim,
+    }
+
+
+@torch.no_grad()
+def corpus_similarity(
+    model: MaDe,
+    video_embs: torch.Tensor,      # [N, D]
+    music_embs: torch.Tensor,      # [N, D]
+    seg_tokens: torch.Tensor,      # [N, S, D]
+    seg_masks: torch.Tensor,       # [N, S]
+    cfg: Config,
+    block_size: int = 256,
+    use_fused_kernel: bool = False,
+) -> torch.Tensor:
+    """[N, N] similarity fusion per vmr_loss, train-MaDe.py:577-604, on the
+    device of the inputs.  use_fused_kernel takes the pooled X-Pool
+    similarity from the evaluation kernel (`xpool_sim_fused`), else from the
+    blocked plain path (`xpool_similarity_blocked`)."""
+    lc, m = cfg.loss, cfg.model
+    mask = seg_masks if m.fusion_mask else None
+
+    def pooled_sim():
+        if use_fused_kernel:
+            return xpool_sim_fused(video_embs, seg_tokens, mask, model.xpool)
+        return xpool_similarity_blocked(model.xpool, video_embs, seg_tokens, mask,
+                                        block_size=min(block_size, len(seg_tokens)))
+
+    if "XA" not in m.vmr_fusion or lc.vmr_loss == "dual":
+        return dual_similarity(video_embs, music_embs)
+    if lc.vmr_loss == "single":
+        return pooled_sim()
+    if lc.vmr_loss in ("dual_single_sim_fuse", "dual_single_loss_fuse"):
+        return pooled_sim() * 1.0 + dual_similarity(video_embs, music_embs) * 1.0
+    raise NotImplementedError(f"vmr_loss={lc.vmr_loss!r} is not ported yet "
+                              "(ROADMAP.md, queue 1, item 7: variant matrix)")

@@ -1,5 +1,7 @@
-"""Retrieval similarities, ported from mgsv_tpu/eval/similarity.py and
-mgsv_tpu/ops/losses.py::cosine_sim_matrix (single device)."""
+"""Retrieval similarities, ported from mgsv_tpu/eval/similarity.py,
+mgsv_tpu/ops/pallas/xpool_sim.py::xpool_sim_fused and
+mgsv_tpu/ops/losses.py::cosine_sim_matrix (single device; the sharded
+variants wait for the multi-GPU work, ROADMAP.md queue 1)."""
 
 from __future__ import annotations
 
@@ -9,6 +11,7 @@ import torch
 
 from mgsv_tpu_torch.models.layers import l2_normalize
 from mgsv_tpu_torch.models.xpool import XPoolTransformer, sim_matrix_music_pooling
+from mgsv_tpu_torch.ops.cuda import xpool_sim as xps
 
 
 def dual_similarity(video_embs: torch.Tensor, music_embs: torch.Tensor) -> torch.Tensor:
@@ -42,3 +45,37 @@ def xpool_similarity_blocked(
         pooled = xpool(video_embs, toks, msk)                 # [block, V, D]
         out[:, start:start + n] = sim_matrix_music_pooling(video_embs, pooled)[:, :n]
     return out
+
+
+@torch.no_grad()
+def xpool_eval_inputs(video_embs: torch.Tensor, seg_tokens: torch.Tensor,
+                      seg_mask: Optional[torch.Tensor], xpool: XPoolTransformer) -> tuple:
+    """(q, k, v, mask, vhat, weights), the evaluation kernel's inputs: LN1,
+    the q/k/v projections and the video norm, run once as plain ops (JAX's
+    xpool_sim.py:96-104 computes them outside its kernel too).  The tokens
+    are cast to float32 before LN1, as the serving engine's blocked scan
+    does; JAX takes them in their own dtype, which is float32 too in every
+    compute_dtype (the towers end in a float32 projection)."""
+    ln1, ca = xpool.layer_norm1, xpool.cross_attn
+    segs = ln1(seg_tokens.float())
+    q = ca.q_proj(ln1(video_embs)).contiguous()
+    k, v = ca.k_proj(segs).contiguous(), ca.v_proj(segs).contiguous()
+    del segs
+    vhat = l2_normalize(video_embs).contiguous()
+    mask = (torch.ones(seg_tokens.shape[:2], device=seg_tokens.device) if seg_mask is None
+            else seg_mask.float().contiguous())
+    return q, k, v, mask, vhat, tuple(w.detach() for w in xpool.stage_weights())
+
+
+def xpool_sim_fused(
+    video_embs: torch.Tensor,              # [V, D]
+    seg_tokens: torch.Tensor,              # [M, S, D] (float32 or bfloat16)
+    seg_mask: Optional[torch.Tensor],      # [M, S] or None
+    xpool: XPoolTransformer,
+) -> torch.Tensor:
+    """[V, M] pooled X-Pool similarity on the evaluation kernel
+    (ops/cuda/xpool_sim.py::xpool_sim_eval; its plain version on CPU
+    tensors), equal to `xpool_similarity_blocked`."""
+    sims = xps.xpool_sim_eval(*xpool_eval_inputs(video_embs, seg_tokens, seg_mask, xpool))
+    # [M, V] -> [V, M] in row-major order, as the rankings read it row by row
+    return sims.T.contiguous()

@@ -1,8 +1,11 @@
-"""Training X-Pool pooled similarity: the CUDA kernels and their plain version.
+"""X-Pool pooled similarity: the CUDA kernels and their plain versions.
 
 `xpool_sim` replaces the Pallas TPU kernels of
 mgsv_tpu/ops/pallas/xpool_sim_vjp.py, `_core_fwd` (forward) and `_core_bwd`
-(its full VJP), behind one autograd Function: per (music m, video v) pair
+(its full VJP), behind one autograd Function; `xpool_sim_eval` replaces
+mgsv_tpu/ops/pallas/xpool_sim.py::xpool_sim_fused, the corpus similarity of
+an evaluation (the same forward at rate 0, no autograd).  Per (music m,
+video v) pair
 
     p    = softmax_s(q_v . k_m[s] / sqrt(D), masked snippets -> -1e9)
     h    = LN2(p v_m Wout^T + bout)
@@ -10,11 +13,12 @@ mgsv_tpu/ops/pallas/xpool_sim_vjp.py, `_core_fwd` (forward) and `_core_bwd`
     sim  = <o / |o|, vhat_v>                                   -> [M, V]
 
 with the linear branch's dropout mask drawn from the Philox stream (m, v)
-of `seed` (ops/philox.py).  On a CUDA tensor it launches
+of `seed` (ops/philox.py).  On a CUDA tensor both launch
 csrc/xpool_sim_train.cu (built at first use, see runtime/kernels.py) or
-raises; on a CPU tensor it runs `xpool_sim_reference`, the plain PyTorch
-version with the same masks, and autograd differentiates that.  The kernel
-source says what bounds it on the card and how it splits the work.
+raise; on a CPU tensor they run `xpool_sim_reference`, the plain PyTorch
+version with the same masks (autograd differentiates it), and
+`xpool_sim_eval_reference`, the same a block of tracks at a time.  The
+kernel source says what bounds it on the card and how it splits the work.
 """
 
 from __future__ import annotations
@@ -33,6 +37,9 @@ from mgsv_tpu_torch.runtime import kernels
 DIM = 256          # the kernel's tiles span a full row of D = 256 (for LayerNorm)
 MAX_S = 256        # snippets: the score tile's columns
 MAX_M = 65535      # musics: grid y of the forward launch
+# tracks per evaluation launch: at most MAX_M, and a multiple of 16 so that
+# every chunk of the [M, S] mask starts 16-byte aligned
+M_CHUNK = MAX_M - MAX_M % 16
 
 
 def xpool_sim_reference(q, k, v, mask, vhat, weights, rate: float = 0.0,
@@ -52,6 +59,15 @@ def xpool_sim_reference(q, k, v, mask, vhat, weights, rate: float = 0.0,
     o = F.layer_norm(h + lin, (d,), g3, b3, 1e-5)
     ohat = o * torch.rsqrt(torch.clamp((o * o).sum(-1, keepdim=True), min=1e-24))
     return torch.einsum("mvd,vd->mv", ohat, vhat)
+
+
+def xpool_sim_eval_reference(q, k, v, mask, vhat, weights, block: int = 256) -> torch.Tensor:
+    """Plain version of the evaluation kernel: `xpool_sim_reference` at rate
+    0 over `block` tracks at a time, so [block, V, D] is the most it holds
+    -> [M, V]."""
+    return torch.cat([xpool_sim_reference(q, k[i:i + block], v[i:i + block],
+                                          mask[i:i + block], vhat, weights)
+                      for i in range(0, mask.shape[0], block)])
 
 
 def check_supported(q, k, v, mask, vhat, weights) -> None:
@@ -82,8 +98,9 @@ def _check(q, k, v, mask, vhat, weights) -> None:
 
 @functools.cache
 def _launchers(device_index: int):
-    """(forward, workspace size, backward) C entry points, with the kernels'
-    shared-memory limits set once on this device (call with it current)."""
+    """(forward, workspace size, backward) C entry points, with the
+    kernels' shared-memory limits set once on this device (call with it
+    current)."""
     lib = kernels.load("xpool_sim_train")
     lib.mgsv_xpool_sim_init.restype = ctypes.c_int
     err = lib.mgsv_xpool_sim_init()
@@ -109,7 +126,7 @@ def xpool_sim_fwd(q, k, v, mask, vhat, weights, rate: float = 0.0,
     (vc, d), (m, s) = q.shape, mask.shape
     out = q.new_empty(m, vc)
     with torch.cuda.device(q.device):
-        fwd, _, _ = _launchers(q.device.index)
+        fwd = _launchers(q.device.index)[0]
         stream = torch.cuda.current_stream(q.device).cuda_stream
         args = [t.data_ptr() for t in (q, k, v, mask, vhat) + tuple(weights) + (out,)]
         err = fwd(*args, vc, m, s, d, *philox.kernel_args(rate, seed), stream)
@@ -176,3 +193,32 @@ def xpool_sim(q, k, v, mask, vhat, weights, rate: float = 0.0, seed: int = 0) ->
     if q.device.type == "cpu":
         return xpool_sim_reference(q, k, v, mask, vhat, weights, rate, seed)
     return _XPoolSimFn.apply(q, k, v, mask, vhat, rate, seed, *weights)
+
+
+def xpool_sim_eval(q, k, v, mask, vhat, weights) -> torch.Tensor:
+    """[M, V] pooled cosine similarity at rate 0, for an evaluation's corpus
+    (no autograd).  A CPU tensor runs `xpool_sim_eval_reference`; a CUDA
+    tensor launches the forward kernel's rate-0 instantiation (no dropout
+    code), once per M_CHUNK tracks (counted in `xpool_sim_eval.launches`,
+    apart from `xpool_sim_fwd`'s), or raises."""
+    if q.device.type == "cpu":
+        return xpool_sim_eval_reference(q, k, v, mask, vhat, weights)
+    (vc, d), (m, s) = q.shape, mask.shape
+    out = q.new_empty(m, vc)
+    for start in range(0, m, M_CHUNK):
+        part = slice(start, start + M_CHUNK)
+        _check(q, k[part], v[part], mask[part], vhat, weights)
+        rows = out[part]
+        with torch.cuda.device(q.device):
+            fwd = _launchers(q.device.index)[0]
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            args = [t.data_ptr() for t in (q, k[part], v[part], mask[part], vhat)
+                    + tuple(weights) + (rows,)]
+            err = fwd(*args, vc, rows.shape[0], s, d, *philox.kernel_args(0.0, 0), stream)
+        if err != 0:
+            raise RuntimeError(f"xpool_sim_eval: CUDA error {err} at launch")
+        xpool_sim_eval.launches += 1
+    return out
+
+
+xpool_sim_eval.launches = 0

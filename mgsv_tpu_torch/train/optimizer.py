@@ -14,12 +14,16 @@ with k the update count (0 first).  Not torch.nn.utils.clip_grad_norm_,
 which adds 1e-6 to the norm, nor torch.optim.Adam, whose schedule and eps
 placement differ.  `decoder_query_embed` belongs to no reference group and
 never updates unless train_query_embed is set.  Parameter gradients are
-read, never rewritten.  Gradient accumulation is still to port (ROADMAP.md).
+read, never rewritten.  `state_dict` holds the update count and mu, nu by
+parameter name, so a checkpoint restores into a fresh optimizer and a
+resumed run replays bit for bit (the step's dropout is keyed on the
+count).  Gradient accumulation is still to port (ROADMAP.md).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+import logging
+from typing import Any, Dict, List
 
 import torch
 from torch import nn
@@ -82,9 +86,29 @@ class GroupedAdam:
                           DETECTION: sched(t.detection_lr)}
         self.groups = param_groups(model, t.train_query_embed)
         self.b1, self.b2, self.eps, self.max_norm = t.adam_b1, t.adam_b2, t.adam_eps, t.max_grad_norm
-        self.state = {id(p): (torch.zeros_like(p), torch.zeros_like(p))
-                      for g in self.schedules for _, p in self.groups[g]}
+        self.state = {name: (torch.zeros_like(p), torch.zeros_like(p))
+                      for g in self.schedules for name, p in self.groups[g]}
         self.count = 0
+
+    def state_dict(self) -> Dict[str, Any]:
+        """{"count", "mu": {name: tensor}, "nu": {name: tensor}}: the live
+        moment tensors, not copies."""
+        return {"count": self.count,
+                "mu": {name: mu for name, (mu, _) in self.state.items()},
+                "nu": {name: nu for name, (_, nu) in self.state.items()}}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Copy a `state_dict` (any device) into this optimizer's tensors;
+        the names must be this optimizer's, exactly."""
+        for key in ("mu", "nu"):
+            if state[key].keys() != self.state.keys():
+                missing = sorted(self.state.keys() ^ state[key].keys())
+                raise KeyError(f"optimizer state {key}: names differ: {missing[:5]}")
+        for name, (mu, nu) in self.state.items():
+            mu.copy_(state["mu"][name])
+            nu.copy_(state["nu"][name])
+        self.count = int(state["count"])
 
     @torch.no_grad()
     def step(self) -> None:
@@ -93,13 +117,14 @@ class GroupedAdam:
         optax's operation order."""
         k = self.count + 1
         for group, schedule in self.schedules.items():
-            params = [p for _, p in self.groups[group]]
-            if not params:
+            named = self.groups[group]
+            if not named:
                 continue
+            params = [p for _, p in named]
             device = params[0].device
             grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
-            mus = [self.state[id(p)][0] for p in params]
-            nus = [self.state[id(p)][1] for p in params]
+            mus = [self.state[name][0] for name, _ in named]
+            nus = [self.state[name][1] for name, _ in named]
             # made on the device (a copy from the host would wait for it)
             bc1, bc2 = (1.0 - torch.full((), b, dtype=torch.float32, device=device) ** k
                         for b in (self.b1, self.b2))
@@ -124,6 +149,30 @@ class GroupedAdam:
             torch._foreach_mul_(update, schedule(self.count))
             torch._foreach_sub_(params, update)
         self.count += 1
+
+
+def log_param_audit(logger: logging.Logger, model: nn.Module,
+                    train_query_embed: bool = False) -> Dict[str, Any]:
+    """Log the startup trainable/frozen audit by optimizer group
+    (count_parameters / show_model_architecture, train-MaDe.py:209-304);
+    returns {group: {"params": N, "modules": {top-level module: N}}}."""
+    audit: Dict[str, Any] = {g: {"params": 0, "modules": {}}
+                             for g in (TEMPORAL, MATCHING, DETECTION, FROZEN)}
+    for group, named in param_groups(model, train_query_embed).items():
+        for name, p in named:
+            top = name.split(".")[0]
+            audit[group]["params"] += p.numel()
+            audit[group]["modules"][top] = audit[group]["modules"].get(top, 0) + p.numel()
+    total = sum(g["params"] for g in audit.values())
+    trainable = total - audit[FROZEN]["params"]
+    logger.info("parameter audit: %.3fM total, %.3fM trainable, %.3fM frozen",
+                total / 1e6, trainable / 1e6, audit[FROZEN]["params"] / 1e6)
+    for group in (TEMPORAL, MATCHING, DETECTION, FROZEN):
+        mods = ", ".join(f"{name} {n / 1e6:.3f}M"
+                         for name, n in sorted(audit[group]["modules"].items()))
+        logger.info("  group %-9s %8.3fM  [%s]", group, audit[group]["params"] / 1e6,
+                    mods or "-")
+    return audit
 
 
 def make_optimizer(model: nn.Module, cfg: Config, total_steps: int) -> GroupedAdam:

@@ -1,9 +1,11 @@
-"""The training step, ported from mgsv_tpu/train/step.py.
+"""The training and evaluation steps, ported from mgsv_tpu/train/step.py.
 
-One step: forward (both tasks, dropout on), the dual-task loss, backward,
-the three-group clipped Adam update, and the train-time top-1 span decode
-and IoU the reference computes every batch.  The X-Pool similarity and the
-DETR encoder layers run on the CUDA kernels, forward and backward.
+One training step: forward (both tasks, dropout on), the dual-task loss,
+backward, the three-group clipped Adam update, and the train-time top-1
+span decode and IoU the reference computes every batch.  The X-Pool
+similarity and the DETR encoder layers run on the CUDA kernels, forward and
+backward.  The evaluation step is the same forward without dropout and
+without gradients, its loss, and the decoded span's IoU.
 """
 
 from __future__ import annotations
@@ -71,3 +73,32 @@ def make_train_step(model: MaDe, cfg: Config, optimizer: GroupedAdam):
         return log
 
     return train_step
+
+
+def make_eval_step(model: MaDe, cfg: Config):
+    """eval_step(batch) -> the JAX eval step's outputs as tensors on the
+    model's device: the embeddings, snippet tokens and mask the corpus
+    similarity needs, the top-1 span in seconds, its score and IoU [B], and
+    the three losses (the in-batch retrieval loss, no music codes)."""
+
+    @torch.no_grad()
+    def eval_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        out = model(batch["frame_feats"], batch["frame_mask"], batch["segment_feats"],
+                    batch["segment_mask"], v_duration=batch.get("v_duration"))
+        loss, log = total_loss(out, batch["spans_target"], cfg)
+        spans_sec, score = decode_top_span(out, cfg)
+        return {
+            "video_emb": out["video_emb"],
+            "music_emb": out["music_emb"],
+            "seg_tokens": out["seg_tokens"],
+            "segment_mask": out["segment_mask"],
+            "pred_spans_sec": spans_sec,
+            "pred_score": score,
+            "iou": eval_iou_batch(batch["gt_moment"][:, 0, :], batch["m_duration"], spans_sec,
+                                  cfg.data.max_m_duration),
+            "loss": loss,
+            "retrieval_loss": log["retrieval_loss"],
+            "localization_loss": log["localization_loss"],
+        }
+
+    return eval_step

@@ -1,6 +1,8 @@
 """The port's own copies of the JAX package's framework-free pieces agree
 with the originals: the typed Config, the `--section.key` override parser,
-the reference state-dict key map and the example batch."""
+the reference state-dict key map, the example batch, the synthetic data
+generator, the CSV index, the epoch index stream, the best-metric tracker
+and the host rankings."""
 
 import dataclasses
 
@@ -12,11 +14,21 @@ import pytest
 import __graft_entry__
 from mgsv_tpu.cli.train import parse_kv_overrides as jax_parse
 from mgsv_tpu.config import Config as JaxConfig
+from mgsv_tpu.core.checkpoint import BestMetricTracker as JaxBestMetricTracker
+from mgsv_tpu.data import synthetic as jax_synthetic
+from mgsv_tpu.data.csv_index import load_csv_index as jax_load_csv_index
+from mgsv_tpu.data.dataset import epoch_index_batches as jax_epoch_index_batches
+from mgsv_tpu.eval.metrics import dedup_rank as jax_dedup_rank, rect_rank as jax_rect_rank
 from mgsv_tpu.interop.torch_export import export_uni_state_dict
 from mgsv_tpu.models.made import MaDe as JaxMaDe
 from mgsv_tpu_torch.cli.overrides import parse_kv_overrides
 from mgsv_tpu_torch.config import Config
+from mgsv_tpu_torch.core.checkpoint import BestMetricTracker
+from mgsv_tpu_torch.data import synthetic
+from mgsv_tpu_torch.data.csv_index import load_csv_index
+from mgsv_tpu_torch.data.dataset import epoch_index_batches
 from mgsv_tpu_torch.data.example_batch import example_batch
+from mgsv_tpu_torch.eval.metrics import dedup_rank, rect_rank
 from mgsv_tpu_torch.interop.state_dict import jax_tree_to_state_dict
 
 OVERRIDES = [
@@ -89,3 +101,85 @@ def test_example_batch_equals_graft_entry_generator():
     for k in ref:
         np.testing.assert_array_equal(ours[k], ref[k], err_msg=k)
         assert ours[k].dtype == ref[k].dtype
+
+
+DATA_TINY = {"data.max_v_frames": 12, "data.stride": 20.0, "data.filter_sec": 20.0,
+             "data.vit_dim": 64, "data.ast_dim": 96}
+
+
+@pytest.mark.parametrize("seed,family_size,n_unique", [(0, 1, None), (5, 3, None), (7, 2, 9)])
+def test_synthetic_generate_equals_jax(tmp_path, seed, family_size, n_unique):
+    """The same seed writes a byte-identical CSV (pandas on the JAX side)
+    and equal stores; load_csv_index reads it (with pandas on the JAX side)
+    into equal arrays of equal dtypes; the datasets assemble equal batches."""
+    cfg, jcfg = Config.from_overrides(DATA_TINY), JaxConfig.from_overrides(DATA_TINY)
+    ours = synthetic.generate(str(tmp_path / "ours"), n_rows=40, n_unique_music=n_unique,
+                              data_cfg=cfg.data, seed=seed, family_size=family_size)
+    ref = jax_synthetic.generate(str(tmp_path / "ref"), n_rows=40, n_unique_music=n_unique,
+                                 data_cfg=jcfg.data, seed=seed, family_size=family_size)
+    with open(ours, "rb") as a, open(ref, "rb") as b:
+        assert a.read() == b.read()
+    for store in ("video_store", "music_store"):
+        for name in ("feats", "mask", "meta.json"):
+            fname = name if name.endswith(".json") else f"{name}.npy"
+            with open(tmp_path / "ours" / store / fname, "rb") as a, \
+                    open(tmp_path / "ref" / store / fname, "rb") as b:
+                assert a.read() == b.read(), (store, name)
+    got, want = load_csv_index(ours, 200.0), jax_load_csv_index(ref, 200.0)
+    assert got.video_ids == want.video_ids and got.music_ids == want.music_ids
+    for k in ("v_duration", "m_duration", "gt_moment", "spans_target", "video_start",
+              "video_end"):
+        a, b = getattr(got, k), getattr(want, k)
+        assert a.dtype == b.dtype, k
+        np.testing.assert_array_equal(a, b, err_msg=k)
+    ds, jds = synthetic.open_synthetic(str(tmp_path / "ours"), cfg.data), \
+        jax_synthetic.open_synthetic(str(tmp_path / "ref"), jcfg.data)
+    idx = np.array([3, 0, 3, 17, 39])
+    (batch, meta), (jbatch, jmeta) = ds.gather(idx), jds.gather(idx)
+    assert batch.keys() == jbatch.keys()
+    assert (meta.video_ids, meta.music_ids) == (jmeta.video_ids, jmeta.music_ids)
+    np.testing.assert_array_equal(meta.valid, jmeta.valid)
+    for k in jbatch:
+        assert batch[k].dtype == jbatch[k].dtype, k
+        np.testing.assert_array_equal(batch[k], jbatch[k], err_msg=k)
+
+
+@pytest.mark.parametrize("n,bs,shuffle,drop_last,start", [
+    (44, 16, True, True, 0), (44, 16, False, False, 0), (44, 16, True, False, 1),
+    (50, 7, True, True, 3), (5, 8, False, False, 0)])
+def test_epoch_index_batches_equal_jax(n, bs, shuffle, drop_last, start):
+    for epoch in (0, 3):
+        kw = dict(shuffle=shuffle, seed=11, epoch=epoch, drop_last=drop_last, start_batch=start)
+        got = list(epoch_index_batches(n, bs, **kw))
+        want = list(jax_epoch_index_batches(n, bs, **kw))
+        assert len(got) == len(want)
+        for (i, v), (ji, jv) in zip(got, want):
+            np.testing.assert_array_equal(i, ji)
+            np.testing.assert_array_equal(v, jv)
+
+
+def test_best_metric_tracker_equals_jax():
+    rng = np.random.default_rng(0)
+    ours, ref = BestMetricTracker(), JaxBestMetricTracker()
+    for epoch in range(1, 30):
+        # a coarse grid, so ties (>= and strict > differ) happen
+        metrics = {k: float(np.round(rng.random() * 4) / 4) for k in
+                   ("R1", "R5", "mIoU", "R1_iou0.5", "R1_iou0.7")}
+        assert ours.update(epoch, metrics) == ref.update(epoch, metrics)
+        assert ours.best == ref.best
+        assert ours.last_best_epoch() == ref.last_best_epoch()
+        assert ours.should_stop(epoch, 10, 5) == ref.should_stop(epoch, 10, 5)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_host_ranks_equal_jax(seed):
+    """The numpy dedup_rank and rect_rank copies, on similarities with
+    duplicated ids and exact ties."""
+    rng = np.random.default_rng(seed)
+    n = 30
+    ids = [f"m{j}" for j in rng.integers(0, 12, n)]
+    sim = np.round(rng.standard_normal((n, n)) * 2) / 2
+    np.testing.assert_array_equal(dedup_rank(sim, ids), jax_dedup_rank(sim, ids))
+    cols = sorted(set(ids)) + ["absent"]
+    rect = np.round(rng.standard_normal((n, len(cols))) * 2) / 2
+    np.testing.assert_array_equal(rect_rank(rect, cols, ids), jax_rect_rank(rect, cols, ids))

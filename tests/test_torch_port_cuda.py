@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from mgsv_tpu_torch.core.device import resolve_device
+from mgsv_tpu_torch.eval.similarity import xpool_sim_fused, xpool_similarity_blocked
 from mgsv_tpu_torch.models.detr import DetrEncoderLayer
 from mgsv_tpu_torch.models.xpool import XPoolTransformer
 from mgsv_tpu_torch.ops.cuda import fused_encoder_layer as fel
@@ -117,3 +118,41 @@ def test_cuda_xpool_kernels_match_plain_version(dev, vc, m, s, rate):
         before[0] + 1, before[1] + 1)
     torch.testing.assert_close(outs[0], outs[1], atol=1e-4, rtol=0)
     _assert_grads(*grads)
+
+
+@pytest.mark.parametrize("vc,m,s", [(70, 9, 96), (33, 5, 50), (64, 40, 96)])
+def test_cuda_eval_kernel_matches_plain_version(dev, vc, m, s):
+    """Kernel #4 (`xpool_sim_fused` through `xpool_sim_eval`) against the
+    blocked plain path, with ragged snippet masks and a partial 64-video
+    tile; one launch per call."""
+    rng = np.random.default_rng(vc * m)
+    xpool = _perturbed(XPoolTransformer(256), 3).to(dev)
+    video = _randn(rng, (vc, 256), dev)
+    segs, mask = _randn(rng, (m, s, 256), dev), _ragged(rng, m, s, dev)
+    before = xps.xpool_sim_eval.launches
+    with torch.no_grad():
+        got = xpool_sim_fused(video, segs, mask, xpool)
+        want = xpool_similarity_blocked(xpool, video, segs, mask, block_size=8)
+    assert xps.xpool_sim_eval.launches == before + 1
+    assert got.shape == (vc, m)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+def test_cuda_eval_kernel_splits_the_tracks(dev, monkeypatch):
+    """More tracks than one launch takes: the wrapper launches once per
+    M_CHUNK tracks (here 16, for 40 tracks: 3 launches) and the parts line
+    up with one launch over all of them."""
+    rng = np.random.default_rng(5)
+    weights = [w.detach() for w in _perturbed(XPoolTransformer(256), 4).to(dev).stage_weights()]
+    q = _randn(rng, (50, 256), dev)
+    vhat = torch.nn.functional.normalize(_randn(rng, (50, 256), dev), dim=-1)
+    k, v = _randn(rng, (40, 96, 256), dev), _randn(rng, (40, 96, 256), dev)
+    mask = _ragged(rng, 40, 96, dev)
+    whole = xps.xpool_sim_eval(q, k, v, mask, vhat, weights)
+    monkeypatch.setattr(xps, "M_CHUNK", 16)
+    before = xps.xpool_sim_eval.launches
+    parts = xps.xpool_sim_eval(q, k, v, mask, vhat, weights)
+    assert xps.xpool_sim_eval.launches == before + 3
+    torch.testing.assert_close(parts, whole, atol=0, rtol=0)
+    torch.testing.assert_close(whole, xps.xpool_sim_eval_reference(q, k, v, mask, vhat, weights),
+                               atol=1e-4, rtol=0)
