@@ -38,6 +38,19 @@ failure:
               metrics equal the trainer's record; then `evaluate` with the
               kernel and with the plain corpus similarity on the same
               weights, timed: similarities, localization and ranks compared
+ 11. flash-kernel  the attention kernel (#7) against its plain version in
+              float32 and bf16: the AST's [96, 12, 1214, 64] (one track),
+              [8, 12, 1214, 64] with ragged key masks and a fully masked
+              row, CLIP's [400, 12, 50, 64], and the extraction's
+              [384, 12, 1214, 64]; kernel, plain and SDPA timed in turns
+              beside the bound
+ 12. extract  `cli.extract_features` in-process on seeded raw media (8 frame
+              directories of 10-50 JPEGs, WAV tracks of 240/180/60/30 s, one
+              at 44.1 kHz) with full-width CLIP ViT-B/32 and AST checkpoints
+              minted in the reference layouts: store ids, shapes and masks,
+              12 kernel launches per music chunk, one video batch and one
+              track encoded again with the plain towers; videos/s, tracks/s,
+              host and device seconds
 
 then prints the kernels' JSON line and, last, {"ok": true, "device": ...}.
 It exits non-zero, without that last line, when no CUDA device is present
@@ -62,12 +75,20 @@ from unittest import mock
 import numpy as np
 import torch
 
+import torch.nn.functional as F
+
 from mgsv_tpu_torch.cli import evaluate as evaluate_cli
+from mgsv_tpu_torch.cli import extract_features as extract_cli
 from mgsv_tpu_torch.cli import train as train_cli
 from mgsv_tpu_torch.config import Config
 from mgsv_tpu_torch.core.checkpoint import CheckpointManager
 from mgsv_tpu_torch.core.device import resolve_device
+from mgsv_tpu_torch.data import synthetic_raw
+from mgsv_tpu_torch.data.audio import extract_snippets, resample_sinc
 from mgsv_tpu_torch.data.example_batch import example_batch, to_tensors
+from mgsv_tpu_torch.data.feature_store import PackedFeatureStore
+from mgsv_tpu_torch.data.frames import load_clip_frames
+from mgsv_tpu_torch.data.media import load_wav
 from mgsv_tpu_torch.data.synthetic import open_synthetic
 from mgsv_tpu_torch.eval.evaluator import evaluate
 from mgsv_tpu_torch.eval.similarity import (xpool_eval_inputs, xpool_sim_fused,
@@ -76,6 +97,7 @@ from mgsv_tpu_torch.models.detr import DetrEncoderLayer
 from mgsv_tpu_torch.models.layers import l2_normalize
 from mgsv_tpu_torch.models.made import MaDe
 from mgsv_tpu_torch.models.xpool import XPoolTransformer
+from mgsv_tpu_torch.ops.cuda import flash_attention as fa
 from mgsv_tpu_torch.ops.cuda import fused_encoder_layer as fel
 from mgsv_tpu_torch.ops.cuda import xpool_sim as xps
 from mgsv_tpu_torch.runtime import kernels
@@ -96,7 +118,20 @@ HORIZON = 1000             # schedule length the optimizers are built for
 # H100 SXM peaks (NVIDIA's data sheet, dense): the kernels compute float32
 # on the tensor cores as TF32 products, so their bound takes the TF32 rate.
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
+# The attention kernel (#7) at the frozen towers' shapes: the AST's 1,214
+# tokens (12 x 101 patches + cls + dist), 12 heads of 64; one track is 96
+# snippets; the extract phase runs the CLI at --batch 32, so each AST
+# forward takes 4 tracks (384 snippets).  CLIP ViT-B/32: 50 tokens per frame.
+AST_TOKENS, AST_HEADS, HEAD_DIM = 1214, 12, 64
+SNIPPETS = 96
+EXTRACT_BATCH = 32
+CLIP_TOKENS = 50
+# bf16 kernel vs the float32 plain version: q and p are rounded to bf16
+# (8 significant bits) before the products, outputs are means of N(0, 1)
+# values of order 1.
+BF16_ATOL = 2e-2
 
 # Tolerances of a kernel against its plain version (both float32, TF32 off).
 # Forward outputs: the kernels' GEMMs keep float32 accuracy (3xTF32 on the
@@ -134,9 +169,11 @@ COUNTERS = {"fused_encoder_layer": fel.fused_encoder_layer,
             "fused_encoder_layer_bwd": fel.fused_encoder_layer_bwd,
             "xpool_sim_fwd": xps.xpool_sim_fwd,
             "xpool_sim_bwd": xps.xpool_sim_bwd,
-            "xpool_sim_eval": xps.xpool_sim_eval}
+            "xpool_sim_eval": xps.xpool_sim_eval,
+            "flash_attention": fa.flash_attention}
 PER_STEP = {"fused_encoder_layer": 2, "fused_encoder_layer_bwd": 2,
-            "xpool_sim_fwd": 1, "xpool_sim_bwd": 1, "xpool_sim_eval": 0}
+            "xpool_sim_fwd": 1, "xpool_sim_bwd": 1, "xpool_sim_eval": 0,
+            "flash_attention": 0}
 
 
 def phase(tag: str, /, **fields) -> None:
@@ -181,25 +218,26 @@ def in_turns(kernel, plain, iters: int = 5):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def bound(flops: float, nbytes: int) -> tuple:
-    """(ms, "operations" | "bytes"): the larger of the operations at the TF32
-    peak and the bytes (inputs read once, outputs written once) at the
-    memory rate."""
-    t_ops, t_bytes = flops / PEAK_TF32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+def bound(flops: float, nbytes: int, peak_flops: float = PEAK_TF32_FLOPS) -> tuple:
+    """(ms, "operations" | "bytes"): the larger of the operations at the
+    peak rate of their type (TF32 for the float32 kernels) and the bytes
+    (inputs read once, outputs written once) at the memory rate."""
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def entry(name, source, replaces, err, ms, plain_ms, flops, nbytes) -> dict:
-    """One kernel's record.  No single PyTorch call computes any of the five
-    functions (the encoder layer adds pos to q and k only, and runs both
-    LayerNorms and the FFN after the attention; the X-Pool pair stage is a
-    softmax pooling followed by two LayerNorms, a dropped branch and a
-    cosine per pair), so library_ms is null."""
+def entry(name, source, replaces, err, ms, plain_ms, flops, nbytes,
+          library_ms=None) -> dict:
+    """One kernel's record.  No single PyTorch call computes the encoder
+    layer (it adds pos to q and k only, and runs both LayerNorms and the FFN
+    after the attention) or the X-Pool pair stage (a softmax pooling followed
+    by two LayerNorms, a dropped branch and a cosine per pair), so their
+    library_ms is null; the attention kernel's is SDPA's."""
     bound_ms, bound_by = bound(flops, nbytes)
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None, "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
+            "library_ms": library_ms, "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
 
 
 def encoder_flops(b: int, length: int, d: int, ffn: int) -> int:
@@ -690,7 +728,7 @@ def eval_launches(cfg: Config, n_rows: int) -> dict:
     batches = -(-n_rows // cfg.train.batch_size_val)
     return {"fused_encoder_layer": cfg.model.detr_enc_layers * batches,
             "fused_encoder_layer_bwd": 0, "xpool_sim_fwd": batches, "xpool_sim_bwd": 0,
-            "xpool_sim_eval": 1}
+            "xpool_sim_eval": 1, "flash_attention": 0}
 
 
 def check_train_cli(tmp: str) -> tuple:
@@ -788,6 +826,188 @@ def check_evaluate_cli(device: torch.device, tmp: str, run_dir: str, data_root: 
     return launches
 
 
+def attention_flops(b: int, h: int, lq: int, lk: int, d: int) -> int:
+    """q k^T and p v: the Pallas kernel's cost_estimate without its padding."""
+    return 4 * b * h * lq * lk * d
+
+
+def attention_plain(q, k, v, scale, mask=None, chunk: int = SNIPPETS):
+    """The plain version a batch chunk at a time, so its [B, H, L, L]
+    float32 scores (6.8 GB for one track's 96 snippets) stay bounded."""
+    return torch.cat([fa.flash_attention_reference(
+        q[i:i + chunk], k[i:i + chunk], v[i:i + chunk], scale,
+        None if mask is None else mask[i:i + chunk]) for i in range(0, q.shape[0], chunk)])
+
+
+def check_flash(device: torch.device) -> dict:
+    """Kernel #7 against its plain version at the towers' shapes, in
+    float32 and bf16; kernel, plain and SDPA (unmasked shapes: SDPA gives a
+    fully masked row the mean of v, not 0) timed in turns beside the
+    bound.  Returns the kernels-line entry, at the extraction's shape."""
+    rng = np.random.default_rng(SEED + 3)
+    scale = HEAD_DIM ** -0.5
+    cases = [(SNIPPETS, AST_TOKENS, False, torch.float32),
+             (SNIPPETS, AST_TOKENS, False, torch.bfloat16),
+             (8, AST_TOKENS, True, torch.float32), (8, AST_TOKENS, True, torch.bfloat16),
+             (400, CLIP_TOKENS, False, torch.float32),
+             (SNIPPETS * EXTRACT_BATCH // 8, AST_TOKENS, False, torch.float32)]
+    out = None
+    for b, length, masked, dtype in cases:
+        q, k, v = (randn(rng, (b, AST_HEADS, length, HEAD_DIM), device).to(dtype)
+                   for _ in range(3))
+        mask = None
+        if masked:
+            mask = torch.from_numpy(ragged_mask(rng, b, length, 1)).to(device)
+            mask[-1] = 0.0                                # a row with no valid key
+        with torch.no_grad():
+            got = fa.flash_attention(q, k, v, scale, mask)
+            want = attention_plain(q, k, v, scale, mask)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            atol = KERNEL_ATOL if dtype == torch.float32 else BF16_ATOL
+            if not torch.isfinite(got).all() or not err <= atol:
+                raise AssertionError(f"flash_attention {dtype} B={b} L={length} "
+                                     f"masked={masked}: max abs error {err} > {atol}")
+            if masked and got[-1].any():
+                raise AssertionError("flash_attention: a fully masked row is not 0")
+            del got, want
+            ms, plain_ms = in_turns(lambda: fa.flash_attention(q, k, v, scale, mask),
+                                    lambda: attention_plain(q, k, v, scale, mask), iters=3)
+            sdpa_ms = None
+            if not masked:
+                sdpa_ms, _ = in_turns(
+                    lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+                    lambda: fa.flash_attention(q, k, v, scale), iters=3)
+        flops = attention_flops(b, AST_HEADS, length, length, HEAD_DIM)
+        nb = 4 * nbytes(q)
+        peak = PEAK_TF32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+        bms, by = bound(flops, nb, peak)
+        phase("flash-kernel", name="flash_attention", dtype=str(dtype).split(".")[1], B=b,
+              H=AST_HEADS, L=length, masked=masked, max_abs_err=err, atol=atol,
+              ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+              sdpa_ms="none" if sdpa_ms is None else f"{sdpa_ms:.4f}",
+              bound_ms=f"{bms:.4f}", bound_by=by, gflop=f"{flops / 1e9:.1f}",
+              tflops=f"{flops / ms / 1e9:.1f}")
+        if b == SNIPPETS * EXTRACT_BATCH // 8:
+            out = entry("flash_attention", "mgsv_tpu_torch/csrc/flash_attention.cu",
+                        "mgsv_tpu/ops/pallas/flash_attention.py:89", err, ms, plain_ms,
+                        flops, nb, library_ms=sdpa_ms)
+        del q, k, v, mask
+    return out
+
+
+EXTRACT_FRAMES = (10, 50, 23, 37, 50, 14, 45, 31)      # JPEGs per video (1 fps)
+EXTRACT_TRACKS = ((240.0, 16000), (180.0, 44100), (60.0, 16000), (30.0, 16000))
+# A store's float16 feature against a float32 re-encoding: one float16 ulp
+# of its magnitude (the store rounds to float16) plus 1e-4 for the two
+# float32 encodings (kernel and batch against the plain towers).
+STORE_ATOL = 1e-4
+
+
+def write_raw_media(root: str, rng: np.random.Generator) -> str:
+    """Seeded frames, tracks, CSV and full-width checkpoints; returns the CSV."""
+    rows = []
+    for i, n in enumerate(EXTRACT_FRAMES):
+        synthetic_raw.write_frames(os.path.join(root, "frames", f"v{i}"), rng, n)
+        secs = EXTRACT_TRACKS[i % len(EXTRACT_TRACKS)][0]
+        rows.append({"video_id": f"v{i}", "music_id": f"m{i % len(EXTRACT_TRACKS)}",
+                     "video_start": 0.0, "video_end": n - 0.5, "music_start": secs / 4,
+                     "music_end": secs / 4 + n - 0.5, "music_total_duration": secs})
+    os.makedirs(os.path.join(root, "audio"))
+    for j, (secs, sr) in enumerate(EXTRACT_TRACKS):
+        synthetic_raw.write_wav(os.path.join(root, "audio", f"m{j}.wav"), rng, secs, sr)
+    synthetic_raw.write_csv(os.path.join(root, "data.csv"), rows)
+    synthetic_raw.mint_clip_checkpoint(os.path.join(root, "clip.pt"), rng)
+    synthetic_raw.mint_ast_checkpoint(os.path.join(root, "ast.pth"), rng)
+    return os.path.join(root, "data.csv")
+
+
+def check_store_against(what: str, stored: np.ndarray, plain: torch.Tensor) -> float:
+    plain = plain.float().cpu().numpy()
+    err = np.abs(stored.astype(np.float32) - plain)
+    ulp = np.spacing(np.abs(plain).astype(np.float16)).astype(np.float32)
+    if not np.isfinite(stored).all() or not np.all(err <= ulp + STORE_ATOL):
+        raise AssertionError(f"{what}: store vs plain towers, max abs error {err.max()}")
+    return float(err.max())
+
+
+def check_extract(device: torch.device, tmp: str) -> dict:
+    """`cli.extract_features` at full width on seeded raw media; returns
+    the run's launch counts."""
+    cfg = Config().data
+    root = os.path.join(tmp, "raw")
+    t0 = time.perf_counter()
+    csv_path = write_raw_media(root, np.random.default_rng(SEED + 4))
+    setup_s = time.perf_counter() - t0
+    out = os.path.join(tmp, "features")
+    reset_counts()
+    t0 = time.perf_counter()
+    stats = extract_cli.main(["--csv", csv_path, "--frames-root", os.path.join(root, "frames"),
+                              "--audio-root", os.path.join(root, "audio"),
+                              "--clip-ckpt", os.path.join(root, "clip.pt"),
+                              "--ast-ckpt", os.path.join(root, "ast.pth"), "--out", out,
+                              "--batch", str(EXTRACT_BATCH), "--device", "cuda"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = read_counts()
+    chunks = -(-len(EXTRACT_TRACKS) // (EXTRACT_BATCH // 8))
+    want = dict.fromkeys(COUNTERS, 0)
+    want["flash_attention"] = 12 * chunks              # one per AST block per music chunk
+    if launches != want:
+        raise AssertionError(f"extract launches {launches}, want {want}")
+
+    video = PackedFeatureStore(os.path.join(out, "video_store"))
+    music = PackedFeatureStore(os.path.join(out, "music_store"))
+    vf, vm = np.asarray(video.arrays["feats"]), np.asarray(video.arrays["mask"])
+    mf, mm = np.asarray(music.arrays["feats"]), np.asarray(music.arrays["mask"])
+    n_v, n_m = len(EXTRACT_FRAMES), len(EXTRACT_TRACKS)
+    if (video.ids != [f"v{i}" for i in range(n_v)] or music.ids != [f"m{j}" for j in range(n_m)]
+            or vf.shape != (n_v, cfg.max_v_frames, cfg.vit_dim) or vf.dtype != np.float16
+            or mf.shape != (n_m, cfg.max_snippet_num, cfg.ast_dim) or mf.dtype != np.float16
+            or vm.dtype != np.uint8 or mm.dtype != np.uint8):
+        raise AssertionError(f"stores: {video.ids} {vf.shape} {vf.dtype} / {music.ids} "
+                             f"{mf.shape} {mf.dtype}")
+    centers = np.arange(0, cfg.max_m_duration, cfg.stride)
+    want_vm = [[1] * min(n, cfg.max_v_frames) + [0] * (cfg.max_v_frames - min(n, cfg.max_v_frames))
+               for n in EXTRACT_FRAMES]
+    want_mm = [(centers <= secs).astype(np.uint8).tolist() for secs, _ in EXTRACT_TRACKS]
+    if vm.tolist() != want_vm or mm.tolist() != want_mm:
+        raise AssertionError(f"store masks: frames {vm.sum(1)}, snippets {mm.sum(1)}")
+
+    # the first video batch and the 44.1 kHz track again, through the plain towers
+    clip = extract_cli._load_clip_tower(os.path.join(root, "clip.pt")).to(device).eval()
+    ast = extract_cli._load_ast_encoder(os.path.join(root, "ast.pth"), cfg).to(device).eval()
+    frames = np.stack([load_clip_frames(os.path.join(root, "frames", f"v{i}"), 0.0, n - 0.5,
+                                        cfg.max_v_frames, cfg.image_resolution)[0]
+                       for i, n in enumerate(EXTRACT_FRAMES[:EXTRACT_BATCH])])
+    wav, sr = load_wav(os.path.join(root, "audio", "m1.wav"))
+    specs, _ = extract_snippets(resample_sinc(wav, sr, cfg.sample_rate), cfg.sample_rate,
+                                cfg.max_m_duration, cfg.stride, cfg.filter_sec, cfg.padding_sec,
+                                cfg.mel_bins, cfg.target_length)
+    with torch.inference_mode():
+        f = torch.from_numpy(frames).to(device)
+        plain_v = clip(f.reshape(-1, *f.shape[2:])).reshape(len(frames), cfg.max_v_frames, -1)
+        plain_m = ast(torch.from_numpy(specs).to(device))[1]
+    v_err = check_store_against("video_store", vf[:len(frames)], plain_v)
+    m_err = check_store_against("music_store m1", mf[1], plain_m)
+    del clip, ast, f, plain_v, plain_m
+
+    v_s = stats["video_host_seconds"] + stats["video_device_seconds"]
+    m_s = stats["music_host_seconds"] + stats["music_device_seconds"]
+    phase("extract", videos=n_v, frames=int(vm.sum()), tracks=n_m, snippets=int(mm.sum()),
+          batch=EXTRACT_BATCH, videos_per_s=f"{n_v / v_s:.2f}", tracks_per_s=f"{n_m / m_s:.3f}",
+          video_host_s=f"{stats['video_host_seconds']:.3f}",
+          video_device_s=f"{stats['video_device_seconds']:.3f}",
+          music_host_s=f"{stats['music_host_seconds']:.3f}",
+          music_device_s=f"{stats['music_device_seconds']:.3f}",
+          cli_seconds=f"{cli_s:.2f}", media_and_checkpoints_seconds=f"{setup_s:.2f}",
+          video_vs_plain_err=v_err, music_vs_plain_err=m_err,
+          tol="float16 ulp + " + str(STORE_ATOL))
+    phase("launches", path=f"extract ({chunks} music chunk(s) of {EXTRACT_BATCH // 8} tracks)",
+          **launches)
+    return launches
+
+
 def near_tie_rows(sim: torch.Tensor, music_ids, atol: float) -> np.ndarray:
     """[N] bool: rows where some other track's similarity lies within atol
     of the GT track's best (the similarity that ranks the GT)."""
@@ -817,7 +1037,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         run_dir, data_root, record, fit_launches = check_train_cli(tmp)
         check_evaluate_cli(device, tmp, run_dir, data_root, record)
+    entries.append(check_flash(device))
+    with tempfile.TemporaryDirectory() as tmp:
+        extract_launches = check_extract(device, tmp)
     launches["xpool_sim_eval"] = fit_launches["xpool_sim_eval"]      # per evaluation
+    launches["flash_attention"] = extract_launches["flash_attention"]  # per extraction
     for e in entries:
         e["launches"] = launches[e["name"]]
     print(json.dumps({"kernels": entries}), flush=True)

@@ -1,5 +1,7 @@
-"""Packed memory-mapped feature store, read side (the port's copy of the
-JAX package's `mgsv_tpu/data/feature_store.py`, same on-disk format).
+"""Packed memory-mapped feature store (the port's copy of the JAX package's
+`mgsv_tpu/data/feature_store.py`, same on-disk format), and the one-time
+converter from a reference feature directory (`vit_feature/{id}.pt` etc.)
+into a packed store.
 
 Store layout (directory):
     meta.json       {"ids": [...], "arrays": {name: {"shape": ..., "dtype": ...}}}
@@ -52,3 +54,33 @@ class PackedFeatureStore:
         with open(os.path.join(root, "meta.json"), "w") as f:
             json.dump(meta, f)
         return PackedFeatureStore(root)
+
+
+def convert_reference_features(
+    feature_dir: str,
+    mask_dir: str,
+    ids: Sequence[str],
+    out_root: str,
+    feature_name: str = "feats",
+    mask_name: str = "mask",
+    feature_dtype=np.float16,
+) -> PackedFeatureStore:
+    """One-time packer: reference per-id .pt files -> packed store.
+
+    feature_dir/{id}.pt  (e.g. features/Kuai_feature/vit_feature1/vit_feature)
+    mask_dir/{id}.pt     (e.g. .../vit_mask)
+    Deduplicates ids (multiple CSV rows share music ids).
+    """
+    import torch
+
+    uniq = list(dict.fromkeys(ids))
+    feats, masks = [], []
+    for i in uniq:
+        f = torch.load(os.path.join(feature_dir, f"{i}.pt"), map_location="cpu")
+        m = torch.load(os.path.join(mask_dir, f"{i}.pt"), map_location="cpu")
+        feats.append(f.detach().to(torch.float32).numpy().astype(feature_dtype))
+        masks.append(m.detach().to(torch.uint8).numpy())
+    return PackedFeatureStore.build(
+        out_root, uniq,
+        {feature_name: np.stack(feats), mask_name: np.stack(masks)},
+    )

@@ -26,7 +26,8 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 # spills into the build log (`build_logs`); it does not change the code.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-KERNELS = ("fused_encoder_layer", "fused_encoder_layer_bwd", "xpool_sim_train")
+KERNELS = ("fused_encoder_layer", "fused_encoder_layer_bwd", "xpool_sim_train",
+           "flash_attention")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -21,6 +21,7 @@ from mgsv_tpu_torch.core.device import resolve_device
 from mgsv_tpu_torch.eval.similarity import xpool_sim_fused, xpool_similarity_blocked
 from mgsv_tpu_torch.models.detr import DetrEncoderLayer
 from mgsv_tpu_torch.models.xpool import XPoolTransformer
+from mgsv_tpu_torch.ops.cuda import flash_attention as fa
 from mgsv_tpu_torch.ops.cuda import fused_encoder_layer as fel
 from mgsv_tpu_torch.ops.cuda import xpool_sim as xps
 
@@ -156,3 +157,36 @@ def test_cuda_eval_kernel_splits_the_tracks(dev, monkeypatch):
     torch.testing.assert_close(parts, whole, atol=0, rtol=0)
     torch.testing.assert_close(whole, xps.xpool_sim_eval_reference(q, k, v, mask, vhat, weights),
                                atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,h,lq,lk,masked", [(2, 3, 130, 200, True), (3, 2, 64, 64, False),
+                                              (2, 12, 1214, 1214, False), (5, 4, 50, 50, True),
+                                              (1, 2, 7, 300, True)])
+def test_cuda_flash_attention_matches_plain_version(dev, dtype, atol, b, h, lq, lk, masked):
+    """Kernel #7 against its plain version: ragged key masks with a fully
+    masked batch row (output 0), Lq != Lk, lengths off the 64-row tiles, and
+    q, k, v as strided views of one packed [B, L, 3, H, 64] tensor, as the
+    towers hand them over.  float32 1e-4 (3xTF32 products), bf16 2e-2."""
+    rng = np.random.default_rng(b * lq + lk)
+    qkv = _randn(rng, (b, max(lq, lk), 3, h, 64), dev).to(dtype).permute(2, 0, 3, 1, 4)
+    q, k, v = qkv[0][:, :, :lq], qkv[1][:, :, :lk], qkv[2][:, :, :lk]
+    mask = None
+    if masked:
+        mask = _ragged(rng, b, lk, dev)
+        mask[-1] = 0.0
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, 0.125, mask)
+    assert fa.flash_attention.launches == before + 1
+    want = fa.flash_attention_reference(q, k, v, 0.125, mask)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (b, h, lq, 64)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    if masked:
+        assert not got[-1].any()
+
+
+def test_cuda_flash_attention_refuses_other_head_dims(dev):
+    q = torch.zeros(1, 2, 8, 32, device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q, q, q, 0.125)
