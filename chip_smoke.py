@@ -15,36 +15,46 @@ failure:
               the configuration's dropout rate: the forward output and every
               gradient; kernel and plain times in turns; the encoder layer
               also at the serving shapes, timed beside its bound
-  4. train    one float32 training step of MaDe (Config() widths, dropout
+  4. temporal-kernel  the temporal-tower layer's kernels (#5, forward and
+              backward) against their plain version at B=512 for the audio
+              (L=96) and video (L=50) towers, rates 0 and 0.8, a row with no
+              valid key included; two identical backward calls bit-identical;
+              kernel and plain times in turns beside the bound; the forward
+              also at the evaluation's B=40, rate 0
+  5. train    one float32 training step of MaDe (Config() widths, dropout
               on) through the kernels and one through the plain versions,
               from the same weights, batch and seed: the loss and every
-              parameter's gradient compared; launches per step read
-  5. timed    a few steps of the default bf16 Config() at B=512: clips/s
-              and peak memory
-  6. slice    serving: a 4,096-track index built through build_music_index,
+              parameter's gradient compared; launches per step read; then
+              the same for Config(fused_temporal=True) (temporal-train)
+  6. timed    a few steps of the default bf16 Config() at B=512 and of the
+              same with fused_temporal, in turns: clips/s and peak memory
+  7. slice    serving: a 4,096-track index built through build_music_index,
               queries at B=1 and B=32 through RetrievalEngine with the
               kernel, held against the same engine without it; launches read
-  7. http     RetrievalServer on 127.0.0.1: /healthz and three /query
+  8. http     RetrievalServer on 127.0.0.1: /healthz and three /query
               replies equal to direct engine.query calls
-  8. eval-kernel  the evaluation X-Pool kernel (#4) against its plain
+  9. eval-kernel  the evaluation X-Pool kernel (#4) against its plain
               version at V = M = 2,048, S = 96 (the corpus of an MGSV-EC
               split), timed in turns beside its bound; one line at the
               serving scan's shape (V = 32, M = 4,096) for information
-  9. train-cli  `cli.train` in-process on 2,048 generated rows of the
+ 10. train-cli  `cli.train` in-process on 2,048 generated rows of the
               default bf16 Config(): 4 steps at B=512, then an evaluation
               at B=40 (52 batches, one corpus similarity); history.json,
               the best_* and last checkpoints and every launch count read
- 10. evaluate-cli  `cli.evaluate` on that run's best_r1 checkpoint: its
+ 11. train-cli-fused  `cli.train --model.fused_temporal true` on the same
+              rows: 4 steps and one evaluation, #5's launches per step and
+              per evaluation read
+ 12. evaluate-cli  `cli.evaluate` on that run's best_r1 checkpoint: its
               metrics equal the trainer's record; then `evaluate` with the
               kernel and with the plain corpus similarity on the same
               weights, timed: similarities, localization and ranks compared
- 11. flash-kernel  the attention kernel (#7) against its plain version in
+ 13. flash-kernel  the attention kernel (#7) against its plain version in
               float32 and bf16: the AST's [96, 12, 1214, 64] (one track),
               [8, 12, 1214, 64] with ragged key masks and a fully masked
               row, CLIP's [400, 12, 50, 64], and the extraction's
               [384, 12, 1214, 64]; kernel, plain and SDPA timed in turns
               beside the bound
- 12. extract  `cli.extract_features` in-process on seeded raw media (8 frame
+ 14. extract  `cli.extract_features` in-process on seeded raw media (8 frame
               directories of 10-50 JPEGs, WAV tracks of 240/180/60/30 s, one
               at 44.1 kHz) with full-width CLIP ViT-B/32 and AST checkpoints
               minted in the reference layouts: store ids, shapes and masks,
@@ -70,6 +80,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from unittest import mock
 
 import numpy as np
@@ -96,9 +107,11 @@ from mgsv_tpu_torch.eval.similarity import (xpool_eval_inputs, xpool_sim_fused,
 from mgsv_tpu_torch.models.detr import DetrEncoderLayer
 from mgsv_tpu_torch.models.layers import l2_normalize
 from mgsv_tpu_torch.models.made import MaDe
+from mgsv_tpu_torch.models.temporal import TemporalTransformer
 from mgsv_tpu_torch.models.xpool import XPoolTransformer
 from mgsv_tpu_torch.ops.cuda import flash_attention as fa
 from mgsv_tpu_torch.ops.cuda import fused_encoder_layer as fel
+from mgsv_tpu_torch.ops.cuda import fused_temporal_layer as ftl
 from mgsv_tpu_torch.ops.cuda import xpool_sim as xps
 from mgsv_tpu_torch.runtime import kernels
 from mgsv_tpu_torch.serve.engine import RetrievalEngine, build_music_index
@@ -170,10 +183,21 @@ COUNTERS = {"fused_encoder_layer": fel.fused_encoder_layer,
             "xpool_sim_fwd": xps.xpool_sim_fwd,
             "xpool_sim_bwd": xps.xpool_sim_bwd,
             "xpool_sim_eval": xps.xpool_sim_eval,
-            "flash_attention": fa.flash_attention}
-PER_STEP = {"fused_encoder_layer": 2, "fused_encoder_layer_bwd": 2,
+            "flash_attention": fa.flash_attention,
+            "fused_temporal_layer": ftl.fused_temporal_layer,
+            "fused_temporal_layer_bwd": ftl.fused_temporal_layer_bwd}
+EVAL_B = Config().train.batch_size_val     # the paper's evaluation batch (40)
+
+
+def per_step(cfg: Config) -> dict:
+    """Launches of one training step: two encoder layers, one X-Pool
+    similarity, and with fused_temporal each tower's temporal layers."""
+    temporal = 2 * cfg.model.temporal_depth if cfg.model.fused_temporal else 0
+    return {"fused_encoder_layer": cfg.model.detr_enc_layers,
+            "fused_encoder_layer_bwd": cfg.model.detr_enc_layers,
             "xpool_sim_fwd": 1, "xpool_sim_bwd": 1, "xpool_sim_eval": 0,
-            "flash_attention": 0}
+            "flash_attention": 0, "fused_temporal_layer": temporal,
+            "fused_temporal_layer_bwd": temporal}
 
 
 def phase(tag: str, /, **fields) -> None:
@@ -186,7 +210,8 @@ def plain_kernels():
     (the model looks them up at each call), so a step runs autograd through
     the plain versions on the card."""
     with mock.patch.object(fel, "fused_encoder_layer", fel.fused_encoder_layer_reference), \
-            mock.patch.object(xps, "xpool_sim", xps.xpool_sim_reference):
+            mock.patch.object(xps, "xpool_sim", xps.xpool_sim_reference), \
+            mock.patch.object(ftl, "fused_temporal_layer", ftl.fused_temporal_layer_reference):
         yield
 
 
@@ -230,9 +255,12 @@ def entry(name, source, replaces, err, ms, plain_ms, flops, nbytes,
           library_ms=None) -> dict:
     """One kernel's record.  No single PyTorch call computes the encoder
     layer (it adds pos to q and k only, and runs both LayerNorms and the FFN
-    after the attention) or the X-Pool pair stage (a softmax pooling followed
-    by two LayerNorms, a dropped branch and a cosine per pair), so their
-    library_ms is null; the attention kernel's is SDPA's."""
+    after the attention), the temporal layer (nn.TransformerEncoderLayer
+    with norm_first adds each residual to x, not to LN(x)) or the X-Pool
+    pair stage
+    (a softmax pooling followed by two LayerNorms, a dropped branch and a
+    cosine per pair), so their library_ms is null; the attention kernel's is
+    SDPA's."""
     bound_ms, bound_by = bound(flops, nbytes)
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -245,6 +273,12 @@ def encoder_flops(b: int, length: int, d: int, ffn: int) -> int:
     rows = b * length
     return (2 * rows * d * 3 * d + 4 * b * length * length * d + 2 * rows * d * d
             + 4 * rows * d * ffn)
+
+
+def temporal_flops(b: int, length: int, d: int, ffn: int) -> int:
+    """One temporal layer's forward per batch row: QKV and out-projection
+    (8 L D^2), scores and P.V (4 L^2 D), FFN (4 L D F)."""
+    return b * (8 * length * d * d + 4 * length * length * d + 4 * length * d * ffn)
 
 
 def nbytes(*tensors) -> int:
@@ -460,6 +494,106 @@ def check_xpool(device: torch.device) -> list:
     ]
 
 
+def check_temporal(device: torch.device) -> list:
+    """Kernel #5 (forward and backward) against autograd through the plain
+    version at B=512 for each tower's L, rates 0 and the configuration's,
+    the last row with no valid key; the backward twice, bit for bit; the
+    forward at the evaluation's B=40, rate 0.  Returns the kernels-line
+    entries at the audio tower's shape (the larger)."""
+    cfg = Config()
+    m = cfg.model
+    d, heads, ffn, rate = m.dim_input, m.temporal_heads, m.temporal_mlp_dim, m.temporal_dropout
+    gen = torch.Generator().manual_seed(SEED + 5)
+    trm = TemporalTransformer(d, 1, heads, ffn, d)
+    trm.reset_parameters(gen)
+    layer = perturb_(trm.layers[0], gen).to(device)
+    layer64 = copy.deepcopy(layer).double()
+    params = list(layer.parameters())
+    names = ["x"] + [n for n, _ in layer.named_parameters()]
+    rng = np.random.default_rng(SEED + 5)
+    out_entries = None
+    for tower, length in (("audio", cfg.data.max_snippet_num), ("video", cfg.data.max_v_frames)):
+        x, g = (randn(rng, (TRAIN_B, length, d), device) for _ in range(2))
+        mask = torch.from_numpy(ragged_mask(rng, TRAIN_B, length, 1)).to(device)
+        mask[-1] = 0.0                          # uniform weights, as the plain version
+        fwd_err = bwd_err = 0.0
+        for r in (0.0, rate):
+            outs, grads = {}, {}
+            for kind, fn, lay, dt in (
+                    ("kernel", ftl.fused_temporal_layer, layer, torch.float32),
+                    ("plain", ftl.fused_temporal_layer_reference, layer, torch.float32),
+                    ("exact", ftl.fused_temporal_layer_reference, layer64, torch.float64)):
+                xi = x.detach().to(dt).requires_grad_()
+                out = fn(xi, mask.to(dt), lay, r, DROPOUT_SEED)
+                grads[kind] = torch.autograd.grad(out, [xi, *lay.parameters()], g.to(dt))
+                outs[kind] = out.detach()
+                del out
+            torch.cuda.synchronize()
+            err = check_close(f"fused_temporal_layer {tower} rate {r}", outs["kernel"],
+                              outs["plain"])
+            gerr, perr, gname, gmax = check_grads(
+                f"fused_temporal_layer_bwd {tower} rate {r}", names, grads["kernel"],
+                grads["plain"], grads["exact"])
+            phase("temporal-kernel", name="fused_temporal_layer", tower=tower, B=TRAIN_B, L=length,
+                  rate=r, max_abs_err=err, atol=KERNEL_ATOL)
+            phase("temporal-kernel", name="fused_temporal_layer_bwd", tower=tower, B=TRAIN_B,
+                  L=length, rate=r, grads=len(names), max_abs_err=gerr, at=gname, its_max=gmax,
+                  plain_f32_err=perr, rtol_of_max=GRAD_RTOL)
+            fwd_err, bwd_err = max(fwd_err, err), max(bwd_err, gerr)
+            del outs, grads
+        first, second = (ftl.fused_temporal_layer_bwd(x, mask, g, layer, rate, DROPOUT_SEED)
+                         for _ in range(2))
+        if not all(torch.equal(a, b) for a, b in zip([first[0], *first[1]],
+                                                     [second[0], *second[1]])):
+            raise AssertionError(f"fused_temporal_layer_bwd {tower}: two calls differ")
+        del first, second
+
+        with torch.no_grad():
+            ms, plain_ms = in_turns(
+                lambda: ftl.fused_temporal_layer(x, mask, layer, rate, DROPOUT_SEED),
+                lambda: ftl.fused_temporal_layer_reference(x, mask, layer, rate, DROPOUT_SEED))
+        xi = x.clone().requires_grad_()
+        out = ftl.fused_temporal_layer_reference(xi, mask, layer, rate, DROPOUT_SEED)
+        bms, plain_bms = in_turns(
+            lambda: ftl.fused_temporal_layer_bwd(x, mask, g, layer, rate, DROPOUT_SEED),
+            lambda: torch.autograd.grad(out, [xi, *params], g, retain_graph=True))
+        del out
+        flops = temporal_flops(TRAIN_B, length, d, ffn)
+        fwd_bytes, bwd_bytes = nbytes(x, mask, x, *params), nbytes(x, mask, g, *params, x, *params)
+        for name, t, pt, fl, nb in (("fused_temporal_layer", ms, plain_ms, flops, fwd_bytes),
+                                    ("fused_temporal_layer_bwd", bms, plain_bms, 2 * flops,
+                                     bwd_bytes)):
+            b_ms, by = bound(fl, nb)
+            phase("temporal-kernel-time", name=name, tower=tower, B=TRAIN_B, L=length, rate=rate,
+                  ms=f"{t:.4f}", plain_ms=f"{pt:.4f}", bound_ms=f"{b_ms:.4f}", bound_by=by,
+                  gflop=f"{fl / 1e9:.1f}", tflops=f"{fl / t / 1e9:.1f}")
+
+        xs = randn(rng, (EVAL_B, length, d), device)             # the evaluation's shape
+        ms_ = torch.from_numpy(ragged_mask(rng, EVAL_B, length, 1)).to(device)
+        with torch.no_grad():
+            err = check_close(f"fused_temporal_layer {tower} B={EVAL_B}",
+                              ftl.fused_temporal_layer(xs, ms_, layer),
+                              ftl.fused_temporal_layer_reference(xs, ms_, layer))
+            kms, pms = in_turns(lambda: ftl.fused_temporal_layer(xs, ms_, layer),
+                                lambda: ftl.fused_temporal_layer_reference(xs, ms_, layer))
+        e_ms, by = bound(temporal_flops(EVAL_B, length, d, ffn), nbytes(xs, ms_, xs, *params))
+        phase("temporal-kernel", name="fused_temporal_layer", tower=tower, B=EVAL_B, L=length,
+              rate=0.0, max_abs_err=err, atol=KERNEL_ATOL, ms=f"{kms:.4f}", plain_ms=f"{pms:.4f}",
+              bound_ms=f"{e_ms:.4f}", bound_by=by)
+        fwd_err = max(fwd_err, err)
+        if tower == "audio":
+            src = "mgsv_tpu_torch/csrc/fused_temporal_layer"
+            out_entries = [
+                entry("fused_temporal_layer", f"{src}.cu",
+                      "mgsv_tpu/ops/pallas/fused_temporal_layer.py:349", fwd_err, ms, plain_ms,
+                      flops, fwd_bytes),
+                entry("fused_temporal_layer_bwd", f"{src}_bwd.cu",
+                      "mgsv_tpu/ops/pallas/fused_temporal_layer.py:381", bwd_err, bms, plain_bms,
+                      2 * flops, bwd_bytes)]
+        del x, g, mask, xs, ms_
+    return out_entries
+
+
 def train_setup(cfg: Config, device: torch.device, model=None):
     model = model if model is not None else MaDe(
         cfg, torch.Generator().manual_seed(SEED)).to(device)
@@ -467,12 +601,13 @@ def train_setup(cfg: Config, device: torch.device, model=None):
     return model, make_train_step(model, cfg, optimizer)
 
 
-def check_train(device: torch.device) -> dict:
+def check_train(device: torch.device, fused_temporal: bool = False) -> dict:
     """One float32 step through the kernels, one through the plain versions
     and one through the plain versions in float64, from the same weights,
     batch and seed; returns the kernel step's launch counts."""
     base = Config()
-    cfg = base.replace(model=dataclasses.replace(base.model, compute_dtype="float32"))
+    cfg = base.replace(model=dataclasses.replace(base.model, compute_dtype="float32",
+                                                 fused_temporal=fused_temporal))
     batch = to_tensors(example_batch(np.random.RandomState(SEED), cfg, TRAIN_B), device)
     model, _ = train_setup(cfg, device)
     runs = {"kernel": (model, batch, False),
@@ -491,8 +626,8 @@ def check_train(device: torch.device) -> dict:
         logs[kind] = {k: float(v.double().mean()) for k, v in log.items()}
         grads[kind] = {n: p.grad for n, p in mdl.named_parameters() if p.grad is not None}
         del log, step
-    if launches["kernel"] != PER_STEP:
-        raise AssertionError(f"kernel step launches {launches['kernel']}, want {PER_STEP}")
+    if launches["kernel"] != per_step(cfg):
+        raise AssertionError(f"kernel step launches {launches['kernel']}, want {per_step(cfg)}")
     if any(launches["plain"].values()) or any(launches["exact"].values()):
         raise AssertionError(f"a plain step launched kernels: {launches}")
     for kind, log in logs.items():
@@ -507,35 +642,49 @@ def check_train(device: torch.device) -> dict:
         raise AssertionError("the steps gave gradients to different parameters")
     worst, worst_plain, _, _ = check_grads(
         "train step", names, *([grads[k][n] for n in names] for k in ("kernel", "plain", "exact")))
-    phase("train", dtype="float32", B=TRAIN_B, loss=loss["kernel"], plain_loss=loss["plain"],
+    phase("temporal-train" if fused_temporal else "train", dtype="float32", B=TRAIN_B,
+          fused_temporal=fused_temporal, loss=loss["kernel"], plain_loss=loss["plain"],
           float64_loss=loss["exact"], params=len(names), grad_max_abs_err=worst,
           plain_f32_grad_err=worst_plain,
           train_iou=logs["kernel"]["train_iou"], grad_norm=logs["kernel"]["grad_norm"])
-    phase("launches", path="train step", **launches["kernel"])
+    phase("launches", path="train step" + (" fused_temporal" if fused_temporal else ""),
+          **launches["kernel"])
     return launches["kernel"]
 
 
 def check_timed(device: torch.device, card: str) -> None:
-    """A few steps of the default bf16 configuration at B=512."""
-    cfg = Config()
-    batch = to_tensors(example_batch(np.random.RandomState(SEED), cfg, TRAIN_B), device)
-    _, step = train_setup(cfg, device)
-    step(batch)                                    # first use: allocator, cuBLAS
+    """A few steps of the default bf16 configuration at B=512 and of the same
+    with fused_temporal (its towers in float32), timed in turns: default,
+    fused, fused, default."""
+    base = Config()
+    cfgs = {"default": base,
+            "fused_temporal": base.replace(model=dataclasses.replace(base.model,
+                                                                     fused_temporal=True))}
+    batch = to_tensors(example_batch(np.random.RandomState(SEED), base, TRAIN_B), device)
+    steps = {}
+    for name, cfg in cfgs.items():
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")       # the fused towers ignore bf16 by design
+            _, steps[name] = train_setup(cfg, device)
+        steps[name](batch)                        # first use: allocator, cuBLAS
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(device)
-    t0 = time.perf_counter()
-    for _ in range(TIMED_STEPS):
-        log = step(batch)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    loss = float(log["loss"])
-    if not np.isfinite(loss):
-        raise AssertionError(f"bf16 step loss {loss}")
-    phase("timed", dtype="bfloat16", B=TRAIN_B, steps=TIMED_STEPS,
-          step_ms=f"{dt / TIMED_STEPS * 1e3:.2f}",
-          clips_per_s=f"{TRAIN_B * TIMED_STEPS / dt:.1f}",
-          peak_mem_gb=f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f}",
-          loss=loss, card=json.dumps(card))
+    seconds, peak = dict.fromkeys(cfgs, 0.0), dict.fromkeys(cfgs, 0)
+    for name in ("default", "fused_temporal", "fused_temporal", "default"):
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        for _ in range(TIMED_STEPS):
+            log = steps[name](batch)
+        torch.cuda.synchronize()
+        seconds[name] += time.perf_counter() - t0
+        peak[name] = max(peak[name], torch.cuda.max_memory_allocated(device))
+        loss = float(log["loss"])
+        if not np.isfinite(loss):
+            raise AssertionError(f"bf16 step loss {loss} ({name})")
+    for name, dt in seconds.items():
+        n = 2 * TIMED_STEPS
+        phase("timed", config=name, dtype="bfloat16", B=TRAIN_B, steps=n,
+              step_ms=f"{dt / n * 1e3:.2f}", clips_per_s=f"{TRAIN_B * n / dt:.1f}",
+              peak_mem_gb=f"{peak[name] / 1e9:.2f}", card=json.dumps(card))
 
 
 def timed_query(engine: RetrievalEngine, feats, mask, top_k: int = 5):
@@ -714,21 +863,24 @@ def check_eval_kernel(device: torch.device) -> dict:
 
 
 def expected_fit_launches(cfg: Config, n_rows: int) -> dict:
-    """Launches of one `fit` epoch on n_rows: its steps (PER_STEP each),
+    """Launches of one `fit` epoch on n_rows: its steps (`per_step` each),
     then one evaluation (`eval_launches`)."""
     steps = n_rows // cfg.train.batch_size_train
     evals = eval_launches(cfg, n_rows)
-    return {name: steps * n + evals[name] for name, n in PER_STEP.items()}
+    return {name: steps * n + evals[name] for name, n in per_step(cfg).items()}
 
 
 def eval_launches(cfg: Config, n_rows: int) -> dict:
     """Launches of one evaluation of n_rows at batch_size_val: per batch the
-    encoder layers at rate 0 and the in-batch similarity's forward (#3),
-    then one corpus similarity (#4)."""
+    encoder layers at rate 0, the in-batch similarity's forward (#3) and,
+    with fused_temporal, the towers' temporal layers at rate 0 (#5), then
+    one corpus similarity (#4)."""
     batches = -(-n_rows // cfg.train.batch_size_val)
     return {"fused_encoder_layer": cfg.model.detr_enc_layers * batches,
             "fused_encoder_layer_bwd": 0, "xpool_sim_fwd": batches, "xpool_sim_bwd": 0,
-            "xpool_sim_eval": 1, "flash_attention": 0}
+            "xpool_sim_eval": 1, "flash_attention": 0,
+            "fused_temporal_layer": per_step(cfg)["fused_temporal_layer"] * batches,
+            "fused_temporal_layer_bwd": 0}
 
 
 def check_train_cli(tmp: str) -> tuple:
@@ -765,6 +917,41 @@ def check_train_cli(tmp: str) -> tuple:
     phase("launches", path=f"train-cli epoch ({rec['train']['steps']} steps + 1 eval)",
           **launches)
     return run_dir, os.path.join(out_dir, "synthetic_data"), rec, launches
+
+
+def check_train_cli_fused(tmp: str, data_root: str) -> dict:
+    """`cli.train --model.fused_temporal true` for one epoch on the rows the
+    train-cli phase generated (read as a CSV and stores: no new data);
+    returns the run's launch counts."""
+    base = Config()
+    cfg = base.replace(model=dataclasses.replace(base.model, fused_temporal=True))
+    out_dir, csv = os.path.join(tmp, "train_fused"), os.path.join(data_root, "data.csv")
+    reset_counts()
+    t0 = time.perf_counter()
+    result = train_cli.main(["--train.epochs", "1", "--train.output_dir", out_dir,
+                             "--model.fused_temporal", "true", "--data.train_csv", csv,
+                             "--data.val_csv", csv, "--data.feature_root", data_root])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    rec = result["history"][0]
+    if len(result["history"]) != 1 or not np.isfinite(rec["train"]["loss"]):
+        raise AssertionError(f"train-cli-fused history: {result['history']}")
+    want = expected_fit_launches(cfg, EVAL_N)
+    if launches != want:
+        raise AssertionError(f"train-cli-fused launches {launches}, want {want}")
+    steps, evals = rec["train"]["steps"], eval_launches(cfg, EVAL_N)
+    phase("train-cli-fused", rows=EVAL_N, steps=steps, loss=rec["train"]["loss"],
+          train_seconds=f"{rec['train']['seconds']:.3f}",
+          clips_per_s=f"{rec['train']['clips_per_sec']:.1f}", R1=rec["eval"]["R1"],
+          mIoU=rec["eval"]["mIoU"], seconds_with_eval=f"{seconds:.2f}",
+          temporal_per_step=(launches["fused_temporal_layer"]
+                             - evals["fused_temporal_layer"]) // steps,
+          temporal_bwd_per_step=launches["fused_temporal_layer_bwd"] // steps,
+          temporal_per_eval=evals["fused_temporal_layer"])
+    phase("launches", path=f"train-cli fused_temporal epoch ({steps} steps + 1 eval)",
+          **launches)
+    return launches
 
 
 RANK_KEYS = ("R1", "R3", "R5", "R10", "R20", "R25", "R50", "R100", "MedianR", "MeanR", "MRR")
@@ -1027,8 +1214,9 @@ def main() -> int:
     device = resolve_device("cuda")
     name, card = check_device()
     build_kernels()
-    entries = check_encoder(device) + check_xpool(device)
+    entries = check_encoder(device) + check_xpool(device) + check_temporal(device)
     launches = check_train(device)
+    fused_launches = check_train(device, fused_temporal=True)
     check_timed(device, card)
     engine, videos, vmask = check_slice(device)
     check_http(engine, videos, vmask)
@@ -1036,12 +1224,15 @@ def main() -> int:
     entries.append(check_eval_kernel(device))
     with tempfile.TemporaryDirectory() as tmp:
         run_dir, data_root, record, fit_launches = check_train_cli(tmp)
+        check_train_cli_fused(tmp, data_root)
         check_evaluate_cli(device, tmp, run_dir, data_root, record)
     entries.append(check_flash(device))
     with tempfile.TemporaryDirectory() as tmp:
         extract_launches = check_extract(device, tmp)
     launches["xpool_sim_eval"] = fit_launches["xpool_sim_eval"]      # per evaluation
     launches["flash_attention"] = extract_launches["flash_attention"]  # per extraction
+    for kernel in ("fused_temporal_layer", "fused_temporal_layer_bwd"):  # per fused_temporal step
+        launches[kernel] = fused_launches[kernel]
     for e in entries:
         e["launches"] = launches[e["name"]]
     print(json.dumps({"kernels": entries}), flush=True)

@@ -208,9 +208,9 @@ ffn_kernel(const float* __restrict__ x, const float* __restrict__ ctx,
   store_rows(out, kCols, 0, A, r0, rows);
 }
 
-// Both instantiations of (b): dynamic shared memory for the longest L.
-inline cudaError_t attention_init() {
-  const int bytes = (int)attention_smem_bytes(kMaxL);
+// Both instantiations of (b): dynamic shared memory for sequences up to max_l.
+inline cudaError_t attention_init(int max_l = kMaxL) {
+  const int bytes = (int)attention_smem_bytes(max_l);
   const cudaError_t err = cudaFuncSetAttribute(
       attention_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;

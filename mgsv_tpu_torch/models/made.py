@@ -7,7 +7,9 @@ Uni_model's state-dict names, so JAX parameter trees (through
 `strict=True`.  The serving engine drives the towers, X-Pool, DETR and heads
 one by one; `MaDe.forward` is the training forward of the JAX `MaDe` on the
 paper branch, with the X-Pool similarity and the DETR encoder layers on the
-CUDA kernels (their plain versions on CPU tensors).
+CUDA kernels (their plain versions on CPU tensors), and with
+`fused_temporal` the temporal towers' layers too (FusedTemporalTransformer,
+float32, as in JAX).
 """
 
 from __future__ import annotations
@@ -21,17 +23,18 @@ from torch import nn
 from mgsv_tpu_torch.config import Config
 from mgsv_tpu_torch.models import layers as L
 from mgsv_tpu_torch.models.detr import DetrTransformer
-from mgsv_tpu_torch.models.temporal import TemporalTransformer
+from mgsv_tpu_torch.models.temporal import FusedTemporalTransformer, TemporalTransformer
 from mgsv_tpu_torch.models.xpool import XPoolTransformer
 
 
 def tower(proj: nn.Linear, temporal: Optional[TemporalTransformer],
           pe: torch.Tensor, feats: torch.Tensor, mask: torch.Tensor,
-          act_after_proj: bool = False, generator: Optional[torch.Generator] = None
-          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+          act_after_proj: bool = False, generator: Optional[torch.Generator] = None,
+          plain_temporal: bool = False) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Frame/snippet tower (the JAX `Tower`): mask, project, add the
-    sinusoidal table, temporal transformer (dropout only with a generator),
-    mask, masked mean, L2.
+    sinusoidal table, temporal transformer (dropout only with a generator;
+    its plain layers with `plain_temporal`, as a JAX `Tower` without
+    `fused`), mask, masked mean, L2.
 
     feats [B, L, D_in], mask [B, L] -> (tokens [B, L, D], emb [B, D], mask)."""
     mask = mask.to(feats.dtype)
@@ -39,7 +42,8 @@ def tower(proj: nn.Linear, temporal: Optional[TemporalTransformer],
     if act_after_proj:
         x = L.quick_gelu(x)
     if temporal is not None:
-        x = temporal(x + pe[None, : x.shape[1]], mask, generator)
+        run = temporal.plain_forward if plain_temporal else temporal
+        x = run(x + pe[None, : x.shape[1]], mask, generator)
         x = x * mask[..., None]
     return x, L.l2_normalize(L.masked_mean(x, mask)), mask
 
@@ -81,9 +85,13 @@ class MaDe(nn.Module):
         self.use_fused_sim = m.fused_xpool_sim and cfg.loss.vmr_loss in (
             "single", "dual_single_loss_fuse", "dual_single_sim_fuse")
 
+        # fused_temporal: both towers on the fused temporal-layer kernel
+        # (JAX made.py: Tower(fused=m.fused_temporal))
+        trm = FusedTemporalTransformer if m.fused_temporal else TemporalTransformer
+
         def temporal(depth):
-            return (TemporalTransformer(d, depth, m.temporal_heads, m.temporal_mlp_dim,
-                                        d, compute_dtype=cdtype, dropout=m.temporal_dropout)
+            return (trm(d, depth, m.temporal_heads, m.temporal_mlp_dim, d,
+                        compute_dtype=cdtype, dropout=m.temporal_dropout)
                     if depth > 0 else None)
 
         self.vit_proj = nn.Linear(data.vit_dim, d)
@@ -131,14 +139,14 @@ class MaDe(nn.Module):
         self.logit_scale.fill_(math.log(1.0 / self.cfg.model.temperature_init_value))
 
     def video_tower(self, feats: torch.Tensor, mask: torch.Tensor,
-                    generator: Optional[torch.Generator] = None):
+                    generator: Optional[torch.Generator] = None, plain_temporal: bool = False):
         return tower(self.vit_proj, self.video_transformer, self.video_pe, feats,
-                     mask, self.cfg.model.with_act_after_proj, generator)
+                     mask, self.cfg.model.with_act_after_proj, generator, plain_temporal)
 
     def music_tower(self, feats: torch.Tensor, mask: torch.Tensor,
-                    generator: Optional[torch.Generator] = None):
+                    generator: Optional[torch.Generator] = None, plain_temporal: bool = False):
         return tower(self.ast_proj, self.audio_transformer, self.audio_pe, feats,
-                     mask, self.cfg.model.with_act_after_proj, generator)
+                     mask, self.cfg.model.with_act_after_proj, generator, plain_temporal)
 
     def forward(self, frame_feats: torch.Tensor, frame_mask: torch.Tensor,
                 segment_feats: torch.Tensor, segment_mask: torch.Tensor,

@@ -13,6 +13,10 @@ e & 3, where (a, b) is the stream and e the element index within it:
                   each head [L, L], H the attention output [L, D], H+1 after
                   the ReLU [L, F], H+2 the FFN output [L, D]), e row-major
                   within the site's [L, *] block
+  temporal layer  a = batch row, b = site (0..H-1 the attention weights of
+                  each head [L, L], H after the GELU [L, F], H+1 the FFN
+                  output [L, D]; no dropout on the attention output), e
+                  row-major within the site's [L, *] block
   X-Pool          a = music m, b = video v, e = channel d
 
 Keep when bits >= threshold(rate), scale kept values by 1 / (1 - rate):
@@ -110,6 +114,24 @@ def encoder_masks(seed: int, batch: int, length: int, dim: int, ffn: int,
                           rate).reshape(batch, length, ffn),
         "ffn2": keep_mask(seed, rows[:, 0], site(heads + 2)[0], length * dim,
                           rate).reshape(batch, length, dim),
+    }
+
+
+def temporal_masks(seed: int, batch: int, length: int, dim: int, ffn: int,
+                   heads: int, rate: float, device=None) -> dict:
+    """The three dropout masks of one temporal-layer call, keyed as the JAX
+    package's `jax_temporal_dropout_masks`: attn [B, H, L, L], ffn1
+    [B, L, F], ffn2 [B, L, D]."""
+    rows = torch.arange(batch, dtype=torch.int64, device=device)
+    site = lambda s: torch.tensor([s], dtype=torch.int64, device=device)
+    heads_ = torch.arange(heads, dtype=torch.int64, device=device)[None, :]
+    return {
+        "attn": keep_mask(seed, rows[:, None], heads_, length * length, rate).reshape(
+            batch, heads, length, length),
+        "ffn1": keep_mask(seed, rows, site(heads), length * ffn, rate).reshape(
+            batch, length, ffn),
+        "ffn2": keep_mask(seed, rows, site(heads + 1), length * dim, rate).reshape(
+            batch, length, dim),
     }
 
 

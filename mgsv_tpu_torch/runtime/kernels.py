@@ -27,7 +27,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 KERNELS = ("fused_encoder_layer", "fused_encoder_layer_bwd", "xpool_sim_train",
-           "flash_attention")
+           "flash_attention", "fused_temporal_layer", "fused_temporal_layer_bwd")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

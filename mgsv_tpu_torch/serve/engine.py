@@ -67,7 +67,8 @@ def build_music_index(model: MaDe, music_ids: Sequence[str],
                                 device=device)
         masks = torch.as_tensor(segment_masks[i:i + batch_size], dtype=torch.float32,
                                 device=device)
-        tokens, emb, masks = model.music_tower(feats, masks)
+        # plain temporal layers, as the JAX engine's Tower (no `fused`)
+        tokens, emb, masks = model.music_tower(feats, masks, plain_temporal=True)
         tokens_all.append(tokens.cpu().numpy())
         embs_all.append(emb.cpu().numpy())
         masks_all.append(masks.cpu().numpy())
@@ -147,7 +148,9 @@ class RetrievalEngine:
     @torch.no_grad()
     def _run(self, frame_feats, frame_mask, top_k):
         model = self.model
-        tokens, video_emb, fmask = model.video_tower(frame_feats, frame_mask)
+        # plain temporal layers, as the JAX engine's Tower (no `fused`)
+        tokens, video_emb, fmask = model.video_tower(frame_feats, frame_mask,
+                                                     plain_temporal=True)
         sims = dual_similarity(video_emb, self._music_embs.float())
         sims = sims + xpool_similarity_blocked(
             model.xpool, video_emb, self._seg_tokens,

@@ -1,6 +1,6 @@
 """Where the time goes in the PyTorch port's training step, on one CUDA GPU.
 
-    python3 scripts/profile_train_cuda.py [--steps 10]
+    python3 scripts/profile_train_cuda.py [--steps 10] [--fused-temporal]
 
 Builds MaDe(Config()) (the paper widths, seeded random weights) and a
 seeded batch of B=512 precomputed features, warms up, and times the step
@@ -11,7 +11,10 @@ it traces one bf16 step with torch.profiler and prints the device time by
 kernel, the step's wall time and the device's busy share of it, and
 the host's time by operator and its kernel launches, then traces the two
 backward kernels alone at the step's shapes, so their launches can be read
-apart.  Prints the card's name and power limit first.
+apart.  With --fused-temporal the configurations set fused_temporal (both
+temporal towers on the temporal-layer kernels, float32), and the temporal
+backward at the audio tower's shape is traced too.  Prints the card's name
+and power limit first.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 from unittest import mock
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -36,8 +40,10 @@ from mgsv_tpu_torch.core.device import resolve_device
 from mgsv_tpu_torch.data.example_batch import example_batch, to_tensors
 from mgsv_tpu_torch.models.detr import DetrEncoderLayer
 from mgsv_tpu_torch.models.made import MaDe
+from mgsv_tpu_torch.models.temporal import TemporalTransformer
 from mgsv_tpu_torch.models.xpool import XPoolTransformer
 from mgsv_tpu_torch.ops.cuda import fused_encoder_layer as fel
+from mgsv_tpu_torch.ops.cuda import fused_temporal_layer as ftl
 from mgsv_tpu_torch.ops.cuda import xpool_sim as xps
 from mgsv_tpu_torch.runtime import kernels
 from mgsv_tpu_torch.train.optimizer import make_optimizer
@@ -74,7 +80,8 @@ def plain_kernels():
     """The training step's kernel wrappers replaced by their plain versions
     (the model looks them up at each call)."""
     with mock.patch.object(fel, "fused_encoder_layer", fel.fused_encoder_layer_reference), \
-            mock.patch.object(xps, "xpool_sim", xps.xpool_sim_reference):
+            mock.patch.object(xps, "xpool_sim", xps.xpool_sim_reference), \
+            mock.patch.object(ftl, "fused_temporal_layer", ftl.fused_temporal_layer_reference):
         yield
 
 
@@ -97,6 +104,8 @@ def steps_ms(step, batch, n: int) -> float:
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--steps", type=int, default=10, help="timed steps per turn")
+    parser.add_argument("--fused-temporal", action="store_true",
+                        help="the temporal towers on the temporal-layer kernels")
     args = parser.parse_args()
     device = resolve_device("cuda")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -105,6 +114,10 @@ def main() -> int:
     kernels.build_all()
 
     base = Config()
+    base = dataclasses.replace(base, model=dataclasses.replace(
+        base.model, fused_temporal=args.fused_temporal))
+    print(f"fused_temporal={args.fused_temporal}")
+    warnings.simplefilter("ignore")   # the fused towers ignore bf16 by design
     batch = None
     for dtype in ("bfloat16", "float32"):
         cfg = dataclasses.replace(base, model=dataclasses.replace(base.model,
@@ -170,6 +183,13 @@ def main() -> int:
         f"xpool_sim_bwd V=M={BATCH} S={s} rate={m.xpool_dropout}":
             lambda: xps.xpool_sim_bwd(q, k, v, smask, vhat, weights, gsim, m.xpool_dropout, 1),
     }
+    if args.fused_temporal:
+        trm = TemporalTransformer(d, 1, m.temporal_heads, m.temporal_mlp_dim, d)
+        trm.reset_parameters(torch.Generator().manual_seed(0))
+        tlayer = trm.layers[0].to(device)
+        tx, tg = (torch.randn(BATCH, s, d, device=device) for _ in range(2))
+        calls[f"fused_temporal_layer_bwd B={BATCH} L={s} rate={m.temporal_dropout}"] = (
+            lambda: ftl.fused_temporal_layer_bwd(tx, smask, tg, tlayer, m.temporal_dropout, 1))
     for name, fn in calls.items():
         fn()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:

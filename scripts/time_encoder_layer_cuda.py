@@ -1,6 +1,7 @@
 """Times the encoder-layer kernel at the serving shapes, on one CUDA GPU.
 
     python3 scripts/time_encoder_layer_cuda.py [--rows 8 256] [--iters 50] [--rounds 3]
+        [--backward 512]
 
 Builds csrc/fused_encoder_layer.cu from the checkout this script lies in and
 times `fused_encoder_layer` (rate 0, as the serving engine calls it) against
@@ -11,7 +12,10 @@ card's name and power limit, one line per row count (each round's kernel
 and plain ms, their medians, the kernel's max abs error against the plain
 version), and the kernel's registers per thread where the build log has
 them.  Run from two checkouts in one call to compare two versions of the
-kernel on the same card.
+kernel on the same card.  With --backward B it also times the backward
+kernel (`fused_encoder_layer_bwd`) at B batch rows of L=152, dropout 0.1
+(the training step's shape and rate), in `--rounds` turns of `--iters`
+calls, and checks that two calls give the same gradients bit for bit.
 """
 
 from __future__ import annotations
@@ -51,6 +55,8 @@ def main() -> int:
                         help="fused rows B*k (8: a B=1 query; 256: B=32 x k-bucket 8)")
     parser.add_argument("--iters", type=int, default=50, help="calls per timed turn")
     parser.add_argument("--rounds", type=int, default=3, help="plain-kernel-kernel-plain rounds")
+    parser.add_argument("--backward", type=int, default=0,
+                        help="also time the backward kernel at this many batch rows")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("time_encoder_layer_cuda: needs a CUDA device", file=sys.stderr)
@@ -103,6 +109,22 @@ def main() -> int:
                   f"({' '.join(f'{t:.4f}' for t in k_ms)}), plain median "
                   f"{statistics.median(p_ms):.4f} ms ({' '.join(f'{t:.4f}' for t in p_ms)}), "
                   f"max abs err {err:.3e}", flush=True)
+    if args.backward:
+        b = args.backward
+        x, pos, g = (torch.from_numpy(rng.standard_normal((b, L, D), dtype=np.float32)
+                                      ).to(device) for _ in range(3))
+        lens = rng.integers(1, L + 1, b)
+        mask = torch.from_numpy((np.arange(L)[None] < lens[:, None]).astype(np.float32)
+                                ).to(device)
+        bwd = lambda: fel.fused_encoder_layer_bwd(x, mask, pos, g, layer, 0.1, 1234)
+        first, second = bwd(), bwd()
+        same = all(torch.equal(a, c) for a, c in zip([*first[:2], *first[2]],
+                                                     [*second[:2], *second[2]]))
+        cuda_ms(bwd, 2)
+        b_ms = [cuda_ms(bwd, args.iters) for _ in range(args.rounds)]
+        print(f"backward B={b} L={L} rate=0.1: kernel median {statistics.median(b_ms):.4f} ms "
+              f"({' '.join(f'{t:.4f}' for t in b_ms)}), two calls bit-identical {same}",
+              flush=True)
     return 0
 
 

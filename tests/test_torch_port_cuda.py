@@ -22,7 +22,9 @@ from mgsv_tpu_torch.eval.similarity import xpool_sim_fused, xpool_similarity_blo
 from mgsv_tpu_torch.models.detr import DetrEncoderLayer
 from mgsv_tpu_torch.models.xpool import XPoolTransformer
 from mgsv_tpu_torch.ops.cuda import flash_attention as fa
+from mgsv_tpu_torch.models.temporal import TemporalLayer
 from mgsv_tpu_torch.ops.cuda import fused_encoder_layer as fel
+from mgsv_tpu_torch.ops.cuda import fused_temporal_layer as ftl
 from mgsv_tpu_torch.ops.cuda import xpool_sim as xps
 
 pytestmark = pytest.mark.cuda
@@ -190,3 +192,51 @@ def test_cuda_flash_attention_refuses_other_head_dims(dev):
     q = torch.zeros(1, 2, 8, 32, device=dev)
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention(q, q, q, 0.125)
+
+
+def _temporal_layer(dev):
+    layer = TemporalLayer(256, 8, 1024, 0.0)
+    gen = torch.Generator().manual_seed(5)
+    for lin in (layer[3][0], layer[3][3]):
+        torch.nn.init.normal_(lin.weight, 0.0, 256 ** -0.5, generator=gen)
+    layer[1].reset_parameters(gen)
+    return _perturbed(layer, 6).to(dev)
+
+
+@pytest.mark.parametrize("b,L", [(4, 96), (12, 50), (3, 21), (2, 300)])
+@pytest.mark.parametrize("rate", [0.0, 0.8])
+def test_cuda_temporal_kernels_match_plain_version(dev, rate, b, L):
+    """The temporal layer's forward and backward kernels (#5) against
+    autograd through the plain version: the towers' L = 96 and 50 (B*L of
+    384 and 600 rows, a ragged last 64-row tile), fewer rows than one tile,
+    and the longest L; ragged key masks with a row that keeps no key."""
+    rng = np.random.default_rng(b * L)
+    x, g = _randn(rng, (b, L, 256), dev), _randn(rng, (b, L, 256), dev)
+    mask = _ragged(rng, b, L, dev)
+    mask[-1] = 0.0
+    layer = _temporal_layer(dev)
+    before = ftl.fused_temporal_layer.launches, ftl.fused_temporal_layer_bwd.launches
+    outs, grads = [], []
+    for fn in (ftl.fused_temporal_layer, ftl.fused_temporal_layer_reference):
+        xi = x.clone().requires_grad_()
+        out = fn(xi, mask, layer, rate, 7)
+        grads.append(torch.autograd.grad(out, [xi, *layer.parameters()], g))
+        outs.append(out.detach())
+    assert (ftl.fused_temporal_layer.launches, ftl.fused_temporal_layer_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.isfinite(outs[0]).all()
+    torch.testing.assert_close(outs[0], outs[1], atol=1e-4, rtol=0)
+    _assert_grads(*grads)
+
+
+def test_cuda_temporal_backward_is_bit_reproducible(dev):
+    """Two identical backward launches give bit-identical gradients (the
+    weight gradients are summed in a fixed order, no atomics)."""
+    rng = np.random.default_rng(8)
+    x, g = _randn(rng, (40, 96, 256), dev), _randn(rng, (40, 96, 256), dev)
+    mask = _ragged(rng, 40, 96, dev)
+    layer = _temporal_layer(dev)
+    first = ftl.fused_temporal_layer_bwd(x, mask, g, layer, 0.8, 3)
+    second = ftl.fused_temporal_layer_bwd(x, mask, g, layer, 0.8, 3)
+    for a, b in zip([first[0], *first[1]], [second[0], *second[1]]):
+        assert torch.equal(a, b)
