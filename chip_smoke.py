@@ -14,47 +14,63 @@ failure:
               (float32, TF32 off) at the training shapes, at rate 0 and at
               the configuration's dropout rate: the forward output and every
               gradient; kernel and plain times in turns; the encoder layer
-              also at the serving shapes, timed beside its bound
+              also at the serving shapes, timed beside its bound, and at
+              precision "bf16" (the bf16 Config()'s: bf16 operands, float32
+              sums) against its bf16 plain version, forward and every
+              gradient, timed in turns with the float32 instantiation
+              beside the bf16 bound
   4. temporal-kernel  the temporal-tower layer's kernels (#5, forward and
               backward) against their plain version at B=512 for the audio
               (L=96) and video (L=50) towers, rates 0 and 0.8, a row with no
               valid key included; two identical backward calls bit-identical;
               kernel and plain times in turns beside the bound; the forward
               also at the evaluation's B=40, rate 0
-  5. train    one float32 training step of MaDe (Config() widths, dropout
+  5. decoder-kernel  the DETR decoder layer's kernels (#6, forward and
+              backward) against their plain version at B=512, L=152 for
+              Q=1 and Q=10 queries, self-attention on, ragged key masks with
+              a row of one valid key; two identical backward calls
+              bit-identical; kernel and plain times in turns beside the bound
+  6. train    one float32 training step of MaDe (Config() widths, dropout
               on) through the kernels and one through the plain versions,
               from the same weights, batch and seed: the loss and every
               parameter's gradient compared; launches per step read; then
-              the same for Config(fused_temporal=True) (temporal-train)
-  6. timed    a few steps of the default bf16 Config() at B=512 and of the
-              same with fused_temporal, in turns: clips/s and peak memory
-  7. slice    serving: a 4,096-track index built through build_music_index,
+              the same for Config(fused_temporal=True) (temporal-train) and
+              for ten moment queries with fused_decoder=True (train-q: the
+              decoder on #6, detr_dropout 0, every LSAP solve of the step
+              held against SciPy); with detr_dropout 0.1 that step raises
+  7. timed    a few steps of the default bf16 Config() at B=512, of the
+              same with fused_temporal, and of ten moment queries with and
+              without fused_decoder, in turns: clips/s and peak memory
+  8. slice    serving: a 4,096-track index built through build_music_index,
               queries at B=1 and B=32 through RetrievalEngine with the
               kernel, held against the same engine without it; launches read
-  8. http     RetrievalServer on 127.0.0.1: /healthz and three /query
+  9. http     RetrievalServer on 127.0.0.1: /healthz and three /query
               replies equal to direct engine.query calls
-  9. eval-kernel  the evaluation X-Pool kernel (#4) against its plain
+ 10. eval-kernel  the evaluation X-Pool kernel (#4) against its plain
               version at V = M = 2,048, S = 96 (the corpus of an MGSV-EC
               split), timed in turns beside its bound; one line at the
               serving scan's shape (V = 32, M = 4,096) for information
- 10. train-cli  `cli.train` in-process on 2,048 generated rows of the
+ 11. train-cli  `cli.train` in-process on 2,048 generated rows of the
               default bf16 Config(): 4 steps at B=512, then an evaluation
               at B=40 (52 batches, one corpus similarity); history.json,
               the best_* and last checkpoints and every launch count read
- 11. train-cli-fused  `cli.train --model.fused_temporal true` on the same
+ 12. train-cli-fused  `cli.train --model.fused_temporal true` on the same
               rows: 4 steps and one evaluation, #5's launches per step and
               per evaluation read
- 12. evaluate-cli  `cli.evaluate` on that run's best_r1 checkpoint: its
+ 13. evaluate-cli  `cli.evaluate` on that run's best_r1 checkpoint: its
               metrics equal the trainer's record; then `evaluate` with the
               kernel and with the plain corpus similarity on the same
               weights, timed: similarities, localization and ranks compared
- 13. flash-kernel  the attention kernel (#7) against its plain version in
+ 14. eval-q   `evaluate` of the same rows at ten moment queries (float32),
+              with the decoder on #6 and without: the same ranks, moments
+              within 1e-4 of max_m_duration, six #6 launches per batch
+ 15. flash-kernel  the attention kernel (#7) against its plain version in
               float32 and bf16: the AST's [96, 12, 1214, 64] (one track),
               [8, 12, 1214, 64] with ragged key masks and a fully masked
               row, CLIP's [400, 12, 50, 64], and the extraction's
               [384, 12, 1214, 64]; kernel, plain and SDPA timed in turns
               beside the bound
- 14. extract  `cli.extract_features` in-process on seeded raw media (8 frame
+ 16. extract  `cli.extract_features` in-process on seeded raw media (8 frame
               directories of 10-50 JPEGs, WAV tracks of 240/180/60/30 s, one
               at 44.1 kHz) with full-width CLIP ViT-B/32 and AST checkpoints
               minted in the reference layouts: store ids, shapes and masks,
@@ -104,12 +120,14 @@ from mgsv_tpu_torch.data.synthetic import open_synthetic
 from mgsv_tpu_torch.eval.evaluator import evaluate
 from mgsv_tpu_torch.eval.similarity import (xpool_eval_inputs, xpool_sim_fused,
                                             xpool_similarity_blocked)
-from mgsv_tpu_torch.models.detr import DetrEncoderLayer
+from mgsv_tpu_torch.models.detr import DetrDecoderLayer, DetrEncoderLayer
 from mgsv_tpu_torch.models.layers import l2_normalize
 from mgsv_tpu_torch.models.made import MaDe
 from mgsv_tpu_torch.models.temporal import TemporalTransformer
 from mgsv_tpu_torch.models.xpool import XPoolTransformer
+from mgsv_tpu_torch.ops import lsap
 from mgsv_tpu_torch.ops.cuda import flash_attention as fa
+from mgsv_tpu_torch.ops.cuda import fused_decoder_layer as fdl
 from mgsv_tpu_torch.ops.cuda import fused_encoder_layer as fel
 from mgsv_tpu_torch.ops.cuda import fused_temporal_layer as ftl
 from mgsv_tpu_torch.ops.cuda import xpool_sim as xps
@@ -127,6 +145,7 @@ EVAL_N = 2048              # corpus of the eval phases: about an MGSV-EC split (
 SERVE_V = 32               # videos of a B=32 serving scan over the N_TRACKS index
 SERVE_ROWS = (8, 256)      # fused rows B*k: a B=1 query, and B=32 x k-bucket 8
 TIMED_STEPS = 5
+Q_MULTI = 10               # moment queries of the multi-query phases
 HORIZON = 1000             # schedule length the optimizers are built for
 # H100 SXM peaks (NVIDIA's data sheet, dense): the kernels compute float32
 # on the tensor cores as TF32 products, so their bound takes the TF32 rate.
@@ -143,8 +162,15 @@ EXTRACT_BATCH = 32
 CLIP_TOKENS = 50
 # bf16 kernel vs the float32 plain version: q and p are rounded to bf16
 # (8 significant bits) before the products, outputs are means of N(0, 1)
-# values of order 1.
+# values of order 1.  The encoder layer at precision "bf16" against its bf16
+# plain version: both round the same operands, but one float32 rounding
+# step apart can put an operand on the other side of a bf16 rounding
+# boundary, and that moves a product by 2^-8 of itself; outputs of order 1
+# after LayerNorm.
 BF16_ATOL = 2e-2
+# Its gradients, as GRAD_RTOL below but with 1e-2 of each tensor's largest
+# magnitude: the same flips, summed over 77,824 rows.
+BF16_GRAD_RTOL = 1e-2
 
 # Tolerances of a kernel against its plain version (both float32, TF32 off).
 # Forward outputs: the kernels' GEMMs keep float32 accuracy (3xTF32 on the
@@ -165,6 +191,15 @@ KERNEL_ATOL = 1e-4
 # that are zero in exact arithmetic (key biases: a softmax ignores a
 # constant shift).  A wrong index or mask moves a gradient by O(its size).
 GRAD_RTOL, GRAD_FLOOR = 1e-3, 1e-6
+# The decoder layer at B=512 has 0.5M (Q=1) to 5M (Q=10) FFN gates, few
+# enough that the float32 plain run may happen to flip none while the
+# kernel flips one, and twice the plain run's error then covers nothing.
+# A float32 pre-activation (order 1, 256 products at float32 accuracy) is
+# off by well under FLIP_EPS, so only a gate whose float64 pre-activation
+# lies within FLIP_EPS of zero can fall the other way: the decoder's
+# gradients are allowed, element by element, the sum of what flipping each
+# of those gates does to the float64 run (gate_flip_slack).
+FLIP_EPS = 1e-5
 # The training loss: InfoNCE over 512 x 512 logits scaled by 1/0.03 and the
 # set criterion; against float64 within 1e-4 relative plus twice the float32
 # plain step's own error.
@@ -185,19 +220,24 @@ COUNTERS = {"fused_encoder_layer": fel.fused_encoder_layer,
             "xpool_sim_eval": xps.xpool_sim_eval,
             "flash_attention": fa.flash_attention,
             "fused_temporal_layer": ftl.fused_temporal_layer,
-            "fused_temporal_layer_bwd": ftl.fused_temporal_layer_bwd}
+            "fused_temporal_layer_bwd": ftl.fused_temporal_layer_bwd,
+            "fused_decoder_layer": fdl.fused_decoder_layer,
+            "fused_decoder_layer_bwd": fdl.fused_decoder_layer_bwd}
 EVAL_B = Config().train.batch_size_val     # the paper's evaluation batch (40)
 
 
-def per_step(cfg: Config) -> dict:
+def per_step(cfg: Config, fused_decoder: bool = False) -> dict:
     """Launches of one training step: two encoder layers, one X-Pool
-    similarity, and with fused_temporal each tower's temporal layers."""
+    similarity, with fused_temporal each tower's temporal layers, and with
+    fused_decoder each decoder layer."""
     temporal = 2 * cfg.model.temporal_depth if cfg.model.fused_temporal else 0
+    decoder = cfg.model.detr_dec_layers if fused_decoder else 0
     return {"fused_encoder_layer": cfg.model.detr_enc_layers,
             "fused_encoder_layer_bwd": cfg.model.detr_enc_layers,
             "xpool_sim_fwd": 1, "xpool_sim_bwd": 1, "xpool_sim_eval": 0,
             "flash_attention": 0, "fused_temporal_layer": temporal,
-            "fused_temporal_layer_bwd": temporal}
+            "fused_temporal_layer_bwd": temporal, "fused_decoder_layer": decoder,
+            "fused_decoder_layer_bwd": decoder}
 
 
 def phase(tag: str, /, **fields) -> None:
@@ -211,7 +251,8 @@ def plain_kernels():
     the plain versions on the card."""
     with mock.patch.object(fel, "fused_encoder_layer", fel.fused_encoder_layer_reference), \
             mock.patch.object(xps, "xpool_sim", xps.xpool_sim_reference), \
-            mock.patch.object(ftl, "fused_temporal_layer", ftl.fused_temporal_layer_reference):
+            mock.patch.object(ftl, "fused_temporal_layer", ftl.fused_temporal_layer_reference), \
+            mock.patch.object(fdl, "fused_decoder_layer", fdl.fused_decoder_layer_reference):
         yield
 
 
@@ -255,12 +296,12 @@ def entry(name, source, replaces, err, ms, plain_ms, flops, nbytes,
           library_ms=None) -> dict:
     """One kernel's record.  No single PyTorch call computes the encoder
     layer (it adds pos to q and k only, and runs both LayerNorms and the FFN
-    after the attention), the temporal layer (nn.TransformerEncoderLayer
-    with norm_first adds each residual to x, not to LN(x)) or the X-Pool
-    pair stage
-    (a softmax pooling followed by two LayerNorms, a dropped branch and a
-    cosine per pair), so their library_ms is null; the attention kernel's is
-    SDPA's."""
+    after the attention), the decoder layer (pos and query_pos enter q and k
+    only, so nn.TransformerDecoderLayer does not apply), the temporal layer
+    (nn.TransformerEncoderLayer with norm_first adds each residual to x, not
+    to LN(x)) or the X-Pool pair stage (a softmax pooling followed by two
+    LayerNorms, a dropped branch and a cosine per pair), so their library_ms
+    is null; the attention kernel's is SDPA's."""
     bound_ms, bound_by = bound(flops, nbytes)
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -273,6 +314,16 @@ def encoder_flops(b: int, length: int, d: int, ffn: int) -> int:
     rows = b * length
     return (2 * rows * d * 3 * d + 4 * b * length * length * d + 2 * rows * d * d
             + 4 * rows * d * ffn)
+
+
+def decoder_flops(b: int, q: int, length: int, d: int, ffn: int) -> int:
+    """One decoder layer's forward with self-attention: the cross-attention's
+    k and v of the B*L memory rows (the same at any Q), the self-attention's
+    QKV, scores, P.V and out-projection over the Q queries, the
+    cross-attention's q, scores and P.V over L keys and out-projection, FFN."""
+    rows, mem = b * q, b * length
+    return (2 * mem * d * 2 * d + 2 * rows * d * 3 * d + 4 * b * q * q * d + 2 * rows * d * d
+            + 2 * rows * d * d + 4 * b * q * length * d + 2 * rows * d * d + 4 * rows * d * ffn)
 
 
 def temporal_flops(b: int, length: int, d: int, ffn: int) -> int:
@@ -311,18 +362,24 @@ def check_close(what: str, got: torch.Tensor, want: torch.Tensor) -> float:
     return err
 
 
-def check_grads(what: str, names, kernel, plain, exact) -> tuple:
+def check_grads(what: str, names, kernel, plain, exact, rtol: float = GRAD_RTOL,
+                slack=None) -> tuple:
     """The kernel's gradients against the float64 plain run `exact`, with
-    the float32 plain run's error as the allowance (see GRAD_RTOL); returns
+    the float32 plain run's error as the allowance (see GRAD_RTOL; `rtol`
+    in its place) and, per element, `slack` (one tensor per gradient, see
+    FLIP_EPS) when given; returns
     (the kernel's largest max abs error, the float32 plain run's largest,
     the name of the tensor where the kernel's is largest, that tensor's
     largest magnitude)."""
     worst, worst_plain, worst_name, worst_max = 0.0, 0.0, "", 0.0
-    for name, k, p, e in zip(names, kernel, plain, exact):
-        err, plain_err = (k.double() - e).abs().max().item(), (p.double() - e).abs().max().item()
-        tol = GRAD_RTOL * e.abs().max().item() + 2 * plain_err + GRAD_FLOOR
-        if not torch.isfinite(k).all() or not err <= tol:
-            raise AssertionError(f"{what} d{name}: max abs error {err} > {tol}")
+    for i, (name, k, p, e) in enumerate(zip(names, kernel, plain, exact)):
+        diff = (k.double() - e).abs()
+        err, plain_err = diff.max().item(), (p.double() - e).abs().max().item()
+        tol = rtol * e.abs().max().item() + 2 * plain_err + GRAD_FLOOR
+        beyond = err if slack is None else (diff - slack[i]).max().item()
+        if not torch.isfinite(k).all() or not beyond <= tol:
+            raise AssertionError(f"{what} d{name}: max abs error {err} ({beyond} beyond the "
+                                 f"gate-flip slack) > {tol}")
         if err >= worst:
             worst, worst_name, worst_max = err, name, e.abs().max().item()
         worst_plain = max(worst_plain, plain_err)
@@ -353,7 +410,8 @@ def build_kernels() -> None:
 
 def check_encoder(device: torch.device) -> list:
     """Kernels #1 (forward) and #2 (backward) against autograd through the
-    plain version, at B=512, L=152, rates 0 and the configuration's."""
+    plain version, at B=512, L=152, rates 0 and the configuration's; then
+    both at precision "bf16" (check_encoder_bf16)."""
     m = Config().model
     d, heads, ffn, rate = m.dim_input, m.detr_heads, m.detr_ffn_dim, m.detr_dropout
     gen = torch.Generator().manual_seed(SEED)
@@ -421,14 +479,84 @@ def check_encoder(device: torch.device) -> list:
     phase("kernel-time", name="fused_encoder_layer_bwd", B=TRAIN_B, L=TRAIN_L, rate=rate,
           ms=f"{bms:.4f}", plain_ms=f"{plain_bms:.4f}")
     flops = encoder_flops(TRAIN_B, TRAIN_L, d, ffn)
-    return [
+    fwd_bytes = nbytes(x, pos, mask, x, *params)
+    bwd_bytes = nbytes(x, pos, mask, g, *params, x, pos, *params)
+    entries = [
         entry("fused_encoder_layer", "mgsv_tpu_torch/csrc/fused_encoder_layer.cu",
               "mgsv_tpu/ops/pallas/fused_encoder_layer.py:193", fwd_err, ms, plain_ms,
-              flops, nbytes(x, pos, mask, x, *params)),
+              flops, fwd_bytes),
         entry("fused_encoder_layer_bwd", "mgsv_tpu_torch/csrc/fused_encoder_layer_bwd.cu",
               "mgsv_tpu/ops/pallas/fused_encoder_layer_vjp.py:256", bwd_err, bms, plain_bms,
-              2 * flops, nbytes(x, pos, mask, g, *params, x, pos, *params)),
+              2 * flops, bwd_bytes),
     ]
+    bf16 = check_encoder_bf16(layer, layer64, names, x, pos, mask, g, rate)
+    for e, fl, nb in zip(entries, (flops, 2 * flops), (fwd_bytes, bwd_bytes)):
+        err16, ms16, plain16, ms32 = bf16[e["name"]]
+        b16, by16 = bound(fl, nb, PEAK_BF16_FLOPS)
+        e.update(bf16_max_abs_err=err16, bf16_ms=ms16, bf16_plain_ms=plain16,
+                 bf16_bound_ms=b16, bf16_bound_by=by16, f32_ms_in_turns=ms32)
+        phase("kernel-time", name=e["name"], precision="bf16", B=TRAIN_B, L=TRAIN_L,
+              rate=rate, ms=f"{ms16:.4f}", f32_ms=f"{ms32:.4f}", plain_ms=f"{plain16:.4f}",
+              bound_ms=f"{b16:.4f}", bound_by=by16, gflop=f"{fl / 1e9:.1f}",
+              tflops=f"{fl / ms16 / 1e9:.1f}")
+    return entries
+
+
+def check_encoder_bf16(layer, layer64, names, x, pos, mask, g, rate) -> dict:
+    """Kernels #1 and #2 at precision "bf16" against the bf16 plain version
+    (every product's operands rounded to bf16, float32 sums) at rates 0 and
+    `rate`: the forward within BF16_ATOL and nearer the bf16 plain output
+    than the float32 kernel's, every gradient against the float64 run of the
+    same bf16 rounding (BF16_GRAD_RTOL); then each timed in turns with the
+    bf16 plain version and with the float32 instantiation.  Returns {name:
+    (max abs error, ms, plain ms, float32 ms)}."""
+    params = list(layer.parameters())
+    fwd_err = bwd_err = 0.0
+    for r in (0.0, rate):
+        outs, grads = {}, {}
+        for kind, fn, lay, dt in (("kernel", fel.fused_encoder_layer, layer, torch.float32),
+                                  ("plain", fel.fused_encoder_layer_reference, layer,
+                                   torch.float32),
+                                  ("exact", fel.fused_encoder_layer_reference, layer64,
+                                   torch.float64)):
+            xi, pi = (t.detach().to(dt).requires_grad_() for t in (x, pos))
+            out = fn(xi, mask.to(dt), pi, lay, r, DROPOUT_SEED, "bf16")
+            grads[kind] = torch.autograd.grad(out, [xi, pi, *lay.parameters()], g.to(dt))
+            outs[kind] = out.detach()
+            del out
+        with torch.no_grad():
+            f32_gap = (fel.fused_encoder_layer(x, mask, pos, layer, r, DROPOUT_SEED)
+                       - outs["plain"]).abs().max().item()
+        err = (outs["kernel"] - outs["plain"]).abs().max().item()
+        if not (torch.isfinite(outs["kernel"]).all() and err <= BF16_ATOL and err < f32_gap):
+            raise AssertionError(f"fused_encoder_layer bf16 rate {r}: max abs error {err} "
+                                 f"(tolerance {BF16_ATOL}; the float32 kernel's {f32_gap})")
+        gerr, perr, gname, gmax = check_grads(f"fused_encoder_layer_bwd bf16 rate {r}", names,
+                                              grads["kernel"], grads["plain"], grads["exact"],
+                                              BF16_GRAD_RTOL)
+        phase("kernel", name="fused_encoder_layer", precision="bf16", B=TRAIN_B, L=TRAIN_L,
+              rate=r, max_abs_err=err, atol=BF16_ATOL, f32_kernel_vs_bf16_plain=f32_gap)
+        phase("kernel", name="fused_encoder_layer_bwd", precision="bf16", B=TRAIN_B, L=TRAIN_L,
+              rate=r, grads=len(names), max_abs_err=gerr, at=gname, its_max=gmax,
+              plain_f32_err=perr, rtol_of_max=BF16_GRAD_RTOL)
+        fwd_err, bwd_err = max(fwd_err, err), max(bwd_err, gerr)
+        del outs, grads
+    fwd = lambda prec: lambda: fel.fused_encoder_layer(x, mask, pos, layer, rate, DROPOUT_SEED,
+                                                       prec)
+    bwd = lambda prec: lambda: fel.fused_encoder_layer_bwd(x, mask, pos, g, layer, rate,
+                                                           DROPOUT_SEED, prec)
+    with torch.no_grad():
+        ms, plain_ms = in_turns(fwd("bf16"), lambda: fel.fused_encoder_layer_reference(
+            x, mask, pos, layer, rate, DROPOUT_SEED, "bf16"))
+        ms_b, ms32 = in_turns(fwd("bf16"), fwd("f32"))
+    xi, pi = x.clone().requires_grad_(), pos.clone().requires_grad_()
+    out = fel.fused_encoder_layer_reference(xi, mask, pi, layer, rate, DROPOUT_SEED, "bf16")
+    bms, plain_bms = in_turns(bwd("bf16"), lambda: torch.autograd.grad(
+        out, [xi, pi, *params], g, retain_graph=True))
+    bms_b, bms32 = in_turns(bwd("bf16"), bwd("f32"))
+    del out
+    return {"fused_encoder_layer": (fwd_err, (ms + ms_b) / 2, plain_ms, ms32),
+            "fused_encoder_layer_bwd": (bwd_err, (bms + bms_b) / 2, plain_bms, bms32)}
 
 
 def check_xpool(device: torch.device) -> list:
@@ -594,20 +722,69 @@ def check_temporal(device: torch.device) -> list:
     return out_entries
 
 
-def train_setup(cfg: Config, device: torch.device, model=None):
+def train_setup(cfg: Config, device: torch.device, model=None, fused_decoder: bool = False):
     model = model if model is not None else MaDe(
         cfg, torch.Generator().manual_seed(SEED)).to(device)
     optimizer = make_optimizer(model, cfg, total_steps=HORIZON)
-    return model, make_train_step(model, cfg, optimizer)
+    return model, make_train_step(model, cfg, optimizer, fused_decoder)
 
 
-def check_train(device: torch.device, fused_temporal: bool = False) -> dict:
+def multi_query(cfg: Config, dtype: str = None, detr_dropout: float = 0.0) -> Config:
+    """cfg with Q_MULTI moment queries and the DETR dropout rate (0 for the
+    fused decoder, which has none); dtype, when given, the compute dtype."""
+    over = dict(num_moment_queries=Q_MULTI, detr_dropout=detr_dropout)
+    if dtype:
+        over["compute_dtype"] = dtype
+    return cfg.replace(model=dataclasses.replace(cfg.model, **over))
+
+
+@contextlib.contextmanager
+def recording_lsap(solves: list):
+    """lsap.solve_batch recording each (cost, col_to_row) it returns."""
+    solve = lsap.solve_batch
+
+    def record(cost):
+        out = solve(cost)
+        solves.append((cost.detach().clone(), out.clone()))
+        return out
+
+    with mock.patch.object(lsap, "solve_batch", record):
+        yield
+
+
+def check_lsap(solves: list) -> int:
+    """Every recorded assignment against SciPy's on the same cost: a
+    matching whose total over the real pairs is SciPy's optimum.  Returns
+    the number of problems checked."""
+    from scipy.optimize import linear_sum_assignment
+
+    n = 0
+    for cost, c2r in solves:
+        cost, c2r = cost.double().cpu().numpy(), c2r.cpu().numpy()
+        rows = cost.shape[1]
+        for c, a in zip(cost, c2r):
+            real = a < rows
+            ri, ci = linear_sum_assignment(c)
+            if len(set(a[real])) != real.sum() or real.sum() != len(ri) or not abs(
+                    c[a[real], np.flatnonzero(real)].sum() - c[ri, ci].sum()) <= 1e-4:
+                raise AssertionError(f"LSAP {a} is not SciPy's optimum ({ri}, {ci}) on {c}")
+            n += 1
+    return n
+
+
+def check_train(device: torch.device, fused_temporal: bool = False,
+                fused_decoder: bool = False) -> dict:
     """One float32 step through the kernels, one through the plain versions
     and one through the plain versions in float64, from the same weights,
-    batch and seed; returns the kernel step's launch counts."""
+    batch and seed; returns the kernel step's launch counts.  fused_decoder:
+    Q_MULTI moment queries, the decoder on #6 (detr_dropout 0), the step's
+    LSAP solves held against SciPy, and then the refusal of the same step
+    at detr_dropout 0.1."""
     base = Config()
     cfg = base.replace(model=dataclasses.replace(base.model, compute_dtype="float32",
                                                  fused_temporal=fused_temporal))
+    if fused_decoder:
+        cfg = multi_query(cfg)
     batch = to_tensors(example_batch(np.random.RandomState(SEED), cfg, TRAIN_B), device)
     model, _ = train_setup(cfg, device)
     runs = {"kernel": (model, batch, False),
@@ -615,19 +792,20 @@ def check_train(device: torch.device, fused_temporal: bool = False) -> dict:
             "exact": (copy.deepcopy(model).double(),
                       {k: v.double() if v.is_floating_point() else v for k, v in batch.items()},
                       True)}
-    logs, grads, launches = {}, {}, {}
+    logs, grads, launches, solves = {}, {}, {}, []
     for kind, (mdl, b, plain) in runs.items():
-        _, step = train_setup(cfg, device, model=mdl)
+        _, step = train_setup(cfg, device, model=mdl, fused_decoder=fused_decoder)
         reset_counts()
-        with plain_kernels() if plain else contextlib.nullcontext():
+        with plain_kernels() if plain else recording_lsap(solves):
             log = step(b)
         torch.cuda.synchronize()
         launches[kind] = read_counts()
         logs[kind] = {k: float(v.double().mean()) for k, v in log.items()}
         grads[kind] = {n: p.grad for n, p in mdl.named_parameters() if p.grad is not None}
         del log, step
-    if launches["kernel"] != per_step(cfg):
-        raise AssertionError(f"kernel step launches {launches['kernel']}, want {per_step(cfg)}")
+    want = per_step(cfg, fused_decoder)
+    if launches["kernel"] != want:
+        raise AssertionError(f"kernel step launches {launches['kernel']}, want {want}")
     if any(launches["plain"].values()) or any(launches["exact"].values()):
         raise AssertionError(f"a plain step launched kernels: {launches}")
     for kind, log in logs.items():
@@ -642,34 +820,51 @@ def check_train(device: torch.device, fused_temporal: bool = False) -> dict:
         raise AssertionError("the steps gave gradients to different parameters")
     worst, worst_plain, _, _ = check_grads(
         "train step", names, *([grads[k][n] for n in names] for k in ("kernel", "plain", "exact")))
-    phase("temporal-train" if fused_temporal else "train", dtype="float32", B=TRAIN_B,
-          fused_temporal=fused_temporal, loss=loss["kernel"], plain_loss=loss["plain"],
-          float64_loss=loss["exact"], params=len(names), grad_max_abs_err=worst,
-          plain_f32_grad_err=worst_plain,
+    tag = "train-q" if fused_decoder else "temporal-train" if fused_temporal else "train"
+    extra = {}
+    if fused_decoder:
+        extra = dict(queries=Q_MULTI, fused_decoder=True, lsap_solves=len(solves),
+                     lsap_problems_vs_scipy=check_lsap(solves))
+    phase(tag, dtype="float32", B=TRAIN_B, fused_temporal=fused_temporal, **extra,
+          loss=loss["kernel"], plain_loss=loss["plain"], float64_loss=loss["exact"],
+          params=len(names), grad_max_abs_err=worst, plain_f32_grad_err=worst_plain,
           train_iou=logs["kernel"]["train_iou"], grad_norm=logs["kernel"]["grad_norm"])
-    phase("launches", path="train step" + (" fused_temporal" if fused_temporal else ""),
-          **launches["kernel"])
+    phase("launches", path="train step" + (" fused_temporal" if fused_temporal else "")
+          + (f" Q={Q_MULTI} fused_decoder" if fused_decoder else ""), **launches["kernel"])
+    if fused_decoder:
+        _, step = train_setup(multi_query(cfg, detr_dropout=0.1), device, fused_decoder=True)
+        try:
+            step(batch)
+        except ValueError as err:
+            phase("train-q", detr_dropout=0.1, fused_decoder=True, raised=json.dumps(str(err)))
+        else:
+            raise AssertionError("fused_decoder=True trained with detr_dropout 0.1")
     return launches["kernel"]
 
 
 def check_timed(device: torch.device, card: str) -> None:
-    """A few steps of the default bf16 configuration at B=512 and of the same
-    with fused_temporal (its towers in float32), timed in turns: default,
-    fused, fused, default."""
+    """A few steps of the default bf16 configuration at B=512 (its encoder
+    layers on #1/#2 at precision "bf16"), of the same with fused_temporal
+    (its towers in float32), and of Q_MULTI moment queries (detr_dropout 0)
+    with the plain decoder and with fused_decoder (its decoder in float32
+    on #6), timed in turns: each configuration, then all in reverse."""
     base = Config()
-    cfgs = {"default": base,
-            "fused_temporal": base.replace(model=dataclasses.replace(base.model,
-                                                                     fused_temporal=True))}
+    q_cfg = multi_query(base)
+    cfgs = {"default": (base, False),
+            "fused_temporal": (base.replace(model=dataclasses.replace(base.model,
+                                                                      fused_temporal=True)),
+                               False),
+            f"q{Q_MULTI}": (q_cfg, False), f"q{Q_MULTI}_fused_decoder": (q_cfg, True)}
     batch = to_tensors(example_batch(np.random.RandomState(SEED), base, TRAIN_B), device)
     steps = {}
-    for name, cfg in cfgs.items():
+    for name, (cfg, fused_decoder) in cfgs.items():
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")       # the fused towers ignore bf16 by design
-            _, steps[name] = train_setup(cfg, device)
+            _, steps[name] = train_setup(cfg, device, fused_decoder=fused_decoder)
         steps[name](batch)                        # first use: allocator, cuBLAS
     torch.cuda.synchronize()
     seconds, peak = dict.fromkeys(cfgs, 0.0), dict.fromkeys(cfgs, 0)
-    for name in ("default", "fused_temporal", "fused_temporal", "default"):
+    for name in [*cfgs, *reversed(cfgs)]:
         torch.cuda.reset_peak_memory_stats(device)
         t0 = time.perf_counter()
         for _ in range(TIMED_STEPS):
@@ -870,17 +1065,20 @@ def expected_fit_launches(cfg: Config, n_rows: int) -> dict:
     return {name: steps * n + evals[name] for name, n in per_step(cfg).items()}
 
 
-def eval_launches(cfg: Config, n_rows: int) -> dict:
+def eval_launches(cfg: Config, n_rows: int, fused_decoder: bool = False) -> dict:
     """Launches of one evaluation of n_rows at batch_size_val: per batch the
-    encoder layers at rate 0, the in-batch similarity's forward (#3) and,
-    with fused_temporal, the towers' temporal layers at rate 0 (#5), then
-    one corpus similarity (#4)."""
+    encoder layers at rate 0, the in-batch similarity's forward (#3), with
+    fused_temporal the towers' temporal layers at rate 0 (#5) and with
+    fused_decoder the decoder layers (#6), then one corpus similarity (#4)."""
     batches = -(-n_rows // cfg.train.batch_size_val)
+    one = per_step(cfg, fused_decoder)
     return {"fused_encoder_layer": cfg.model.detr_enc_layers * batches,
             "fused_encoder_layer_bwd": 0, "xpool_sim_fwd": batches, "xpool_sim_bwd": 0,
             "xpool_sim_eval": 1, "flash_attention": 0,
-            "fused_temporal_layer": per_step(cfg)["fused_temporal_layer"] * batches,
-            "fused_temporal_layer_bwd": 0}
+            "fused_temporal_layer": one["fused_temporal_layer"] * batches,
+            "fused_temporal_layer_bwd": 0,
+            "fused_decoder_layer": one["fused_decoder_layer"] * batches,
+            "fused_decoder_layer_bwd": 0}
 
 
 def check_train_cli(tmp: str) -> tuple:
@@ -1011,6 +1209,151 @@ def check_evaluate_cli(device: torch.device, tmp: str, run_dir: str, data_root: 
           near_tie_rows=int(near.sum()), tie_atol=RANK_TIE_ATOL)
     phase("launches", path="evaluate-cli", **launches)
     return launches
+
+
+def check_eval_q(device: torch.device, data_root: str) -> dict:
+    """`evaluate` of the generated rows at Q_MULTI moment queries in float32
+    (weights from SEED), with the decoder on #6 and with the plain decoder:
+    the same ranks and moments within 1e-4 of max_m_duration (the scale they
+    are decoded on), the launches of eval_launches; returns the fused run's
+    launch counts."""
+    base = Config()
+    cfg = multi_query(base, dtype="float32")
+    model = MaDe(cfg, torch.Generator().manual_seed(SEED)).to(device).eval()
+    data = open_synthetic(data_root, cfg.data)
+    runs = {}
+    for fused in (True, False):
+        reset_counts()
+        t0 = time.perf_counter()
+        res = evaluate(model, data, cfg, fused_decoder=fused)
+        torch.cuda.synchronize()
+        runs[fused] = (res, time.perf_counter() - t0, read_counts())
+        want = eval_launches(cfg, EVAL_N, fused)
+        if runs[fused][2] != want:
+            raise AssertionError(f"eval-q launches {runs[fused][2]}, want {want}")
+    (fres, fused_s, launches), (pres, plain_s, _) = runs[True], runs[False]
+    if not np.array_equal(fres["ranks"], pres["ranks"]):
+        raise AssertionError("eval-q: ranks differ between the fused and plain decoder")
+    span_err = float(np.abs(fres["pred_spans"] - pres["pred_spans"]).max()
+                     / cfg.data.max_m_duration)
+    if not span_err <= KERNEL_ATOL:
+        raise AssertionError(f"eval-q: moments differ by {span_err} of max_m_duration")
+    batches = -(-EVAL_N // cfg.train.batch_size_val)
+    phase("eval-q", rows=EVAL_N, batch=cfg.train.batch_size_val, queries=Q_MULTI,
+          dtype="float32", fused_seconds=f"{fused_s:.3f}", plain_seconds=f"{plain_s:.3f}",
+          moment_max_err_of_duration=span_err, atol=KERNEL_ATOL, R1=fres["retrieval"]["R1"],
+          mIoU=fres["localization"]["mIoU"], plain_mIoU=pres["localization"]["mIoU"],
+          decoder_per_batch=launches["fused_decoder_layer"] // batches)
+    phase("launches", path=f"eval-q fused_decoder ({batches} batches)", **launches)
+    return launches
+
+
+def gate_flip_slack(layer64, grads_of) -> tuple:
+    """(the float64 gradients grads_of() returns; per gradient tensor the
+    sum over every FFN gate of layer64 within FLIP_EPS of zero of |the
+    gradient with that gate flipped - the gradient|; the number of such
+    gates).  Past the gate the backward is linear, so the effects of any
+    set of flips add up to at most that sum.  A gate is flipped by a
+    forward hook that negates linear1's output there with a gradient of 1,
+    so the ReLU's gate turns while its value moves by under FLIP_EPS."""
+    seen = {}
+    hook = layer64.linear1.register_forward_hook(lambda m, i, o: seen.update(z=o.detach()))
+    exact = grads_of()
+    hook.remove()
+    near = torch.nonzero(seen["z"].abs() < FLIP_EPS)
+    slack = [torch.zeros_like(e) for e in exact]
+    for idx in near:                   # one gate at a time: their effects add
+        flip = torch.zeros_like(seen["z"], dtype=torch.bool)
+        flip[tuple(idx)] = True
+        hook = layer64.linear1.register_forward_hook(
+            lambda m, i, o: torch.where(flip, o - 2 * o.detach(), o))
+        for s_, a, b in zip(slack, grads_of(), exact):
+            s_ += (a - b).abs()
+        hook.remove()
+    return exact, slack, len(near)
+
+
+def check_decoder(device: torch.device) -> list:
+    """Kernel #6 (forward and backward) against autograd through the plain
+    version at B=512, L=152, Q=1 and Q_MULTI queries, self-attention on,
+    ragged key masks with a row of one valid key; the backward twice, bit
+    for bit; kernel and plain timed in turns.  Returns the kernels-line
+    entries at Q_MULTI."""
+    m = Config().model
+    d, heads, ffn = m.dim_input, m.detr_heads, m.detr_ffn_dim
+    gen = torch.Generator().manual_seed(SEED + 6)
+    layer = DetrDecoderLayer(d, heads, ffn, self_attn=True)
+    layer.reset_parameters(gen)
+    layer = perturb_(layer, gen).to(device)
+    layer64 = copy.deepcopy(layer).double()
+    params = list(layer.parameters())
+    names = ["tgt", "memory", "pos", "query_pos"] + [n for n, _ in layer.named_parameters()]
+    rng = np.random.default_rng(SEED + 6)
+    mem, pos = (randn(rng, (TRAIN_B, TRAIN_L, d), device) for _ in range(2))
+    mask = torch.from_numpy(ragged_mask(rng, TRAIN_B, TRAIN_L, 1)).to(device)
+    mask[-1] = 0.0
+    mask[-1, 0] = 1.0                              # one valid key
+    entries = None
+    for q in (1, Q_MULTI):
+        tgt, qpos, g = (randn(rng, (TRAIN_B, q, d), device) for _ in range(3))
+
+        def run(fn, lay, dt):
+            ins = [t.detach().to(dt).requires_grad_() for t in (tgt, mem, pos, qpos)]
+            out = fn(ins[0], ins[1], mask.to(dt), ins[2], ins[3], lay)
+            return out.detach(), torch.autograd.grad(out, [*ins, *lay.parameters()], g.to(dt))
+
+        out_k, grads_k = run(fdl.fused_decoder_layer, layer, torch.float32)
+        out_p, grads_p = run(fdl.fused_decoder_layer_reference, layer, torch.float32)
+        exact, slack, flips = gate_flip_slack(
+            layer64, lambda: run(fdl.fused_decoder_layer_reference, layer64, torch.float64)[1])
+        torch.cuda.synchronize()
+        err = check_close(f"fused_decoder_layer Q={q}", out_k, out_p)
+        gerr, perr, gname, gmax = check_grads(f"fused_decoder_layer_bwd Q={q}", names,
+                                              grads_k, grads_p, exact, slack=slack)
+        phase("decoder-kernel", name="fused_decoder_layer", B=TRAIN_B, Q=q, L=TRAIN_L,
+              max_abs_err=err, atol=KERNEL_ATOL)
+        phase("decoder-kernel", name="fused_decoder_layer_bwd", B=TRAIN_B, Q=q, L=TRAIN_L,
+              grads=len(names), max_abs_err=gerr, at=gname, its_max=gmax, plain_f32_err=perr,
+              rtol_of_max=GRAD_RTOL, gates_within_flip_eps=flips, flip_eps=FLIP_EPS)
+        del out_k, out_p, grads_k, grads_p, exact, slack
+        first, second = (fdl.fused_decoder_layer_bwd(tgt, mem, mask, pos, qpos, g, layer)
+                         for _ in range(2))
+        if not all(torch.equal(a, b) for a, b in zip([*first[:4], *first[4]],
+                                                     [*second[:4], *second[4]])):
+            raise AssertionError(f"fused_decoder_layer_bwd Q={q}: two calls differ")
+        del first, second
+        with torch.no_grad():
+            ms, plain_ms = in_turns(
+                lambda: fdl.fused_decoder_layer(tgt, mem, mask, pos, qpos, layer),
+                lambda: fdl.fused_decoder_layer_reference(tgt, mem, mask, pos, qpos, layer))
+        ins = [t.clone().requires_grad_() for t in (tgt, mem, pos, qpos)]
+        out = fdl.fused_decoder_layer_reference(ins[0], ins[1], mask, ins[2], ins[3], layer)
+        bms, plain_bms = in_turns(
+            lambda: fdl.fused_decoder_layer_bwd(tgt, mem, mask, pos, qpos, g, layer),
+            lambda: torch.autograd.grad(out, [*ins, *params], g, retain_graph=True))
+        del out, ins
+        flops = decoder_flops(TRAIN_B, q, TRAIN_L, d, ffn)
+        fwd_bytes = nbytes(tgt, qpos, mem, pos, mask, *params, tgt)
+        bwd_bytes = nbytes(tgt, qpos, mem, pos, mask, g, *params, tgt, qpos, mem, pos, *params)
+        for name, t, pt, fl, nb in (("fused_decoder_layer", ms, plain_ms, flops, fwd_bytes),
+                                    ("fused_decoder_layer_bwd", bms, plain_bms, 2 * flops,
+                                     bwd_bytes)):
+            b_ms, by = bound(fl, nb)
+            phase("decoder-kernel-time", name=name, B=TRAIN_B, Q=q, L=TRAIN_L, ms=f"{t:.4f}",
+                  plain_ms=f"{pt:.4f}", bound_ms=f"{b_ms:.4f}", bound_by=by,
+                  gflop=f"{fl / 1e9:.2f}", mbytes=f"{nb / 1e6:.1f}",
+                  tflops=f"{fl / t / 1e9:.1f}")
+        if q == Q_MULTI:
+            src = "mgsv_tpu_torch/csrc/fused_decoder_layer"
+            entries = [
+                entry("fused_decoder_layer", f"{src}.cu",
+                      "mgsv_tpu/ops/pallas/fused_decoder_layer.py:294", err, ms, plain_ms, flops,
+                      fwd_bytes),
+                entry("fused_decoder_layer_bwd", f"{src}_bwd.cu",
+                      "mgsv_tpu/ops/pallas/fused_decoder_layer.py:329", gerr, bms, plain_bms,
+                      2 * flops, bwd_bytes)]
+        del tgt, qpos, g
+    return entries
 
 
 def attention_flops(b: int, h: int, lq: int, lk: int, d: int) -> int:
@@ -1214,9 +1557,11 @@ def main() -> int:
     device = resolve_device("cuda")
     name, card = check_device()
     build_kernels()
-    entries = check_encoder(device) + check_xpool(device) + check_temporal(device)
+    entries = (check_encoder(device) + check_xpool(device) + check_temporal(device)
+               + check_decoder(device))
     launches = check_train(device)
     fused_launches = check_train(device, fused_temporal=True)
+    q_launches = check_train(device, fused_decoder=True)
     check_timed(device, card)
     engine, videos, vmask = check_slice(device)
     check_http(engine, videos, vmask)
@@ -1226,6 +1571,7 @@ def main() -> int:
         run_dir, data_root, record, fit_launches = check_train_cli(tmp)
         check_train_cli_fused(tmp, data_root)
         check_evaluate_cli(device, tmp, run_dir, data_root, record)
+        check_eval_q(device, data_root)
     entries.append(check_flash(device))
     with tempfile.TemporaryDirectory() as tmp:
         extract_launches = check_extract(device, tmp)
@@ -1233,6 +1579,8 @@ def main() -> int:
     launches["flash_attention"] = extract_launches["flash_attention"]  # per extraction
     for kernel in ("fused_temporal_layer", "fused_temporal_layer_bwd"):  # per fused_temporal step
         launches[kernel] = fused_launches[kernel]
+    for kernel in ("fused_decoder_layer", "fused_decoder_layer_bwd"):    # per Q=10 fused step
+        launches[kernel] = q_launches[kernel]
     for e in entries:
         e["launches"] = launches[e["name"]]
     print(json.dumps({"kernels": entries}), flush=True)

@@ -90,13 +90,14 @@ def main(argv=None):
     known, rest = parser.parse_known_args(argv if argv is not None else sys.argv[1:])
     cfg = Config.from_overrides(parse_kv_overrides(rest))
 
-    from mgsv_tpu_torch.core.device import resolve_device
+    from mgsv_tpu_torch.core.device import check_mesh_shape, resolve_device
     from mgsv_tpu_torch.data.dataset import MgsvDataset
     from mgsv_tpu_torch.eval.evaluator import evaluate
     from mgsv_tpu_torch.eval.metrics import save_results_json
     from mgsv_tpu_torch.models.made import MaDe
     from mgsv_tpu_torch.train.step import make_eval_step
 
+    check_mesh_shape(cfg.train.mesh_shape)
     device = resolve_device(known.device)
     model = MaDe(cfg).to(device).eval()
     init_state = {k: v.clone() for k, v in model.state_dict().items()}

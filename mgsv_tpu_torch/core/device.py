@@ -22,3 +22,14 @@ def resolve_device(name: str | torch.device = "cuda") -> torch.device:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return device
+
+
+def check_mesh_shape(mesh_shape) -> None:
+    """Raise for a `train.mesh_shape` other than (1, 1): the JAX package
+    builds its device mesh from it (train/loop.py, cli/evaluate.py), and
+    the port runs on one device until multi-GPU lands, so a larger mesh
+    must not train or evaluate on one device without a word."""
+    if tuple(mesh_shape) != (1, 1):
+        raise NotImplementedError(
+            f"train.mesh_shape={tuple(mesh_shape)}: the port runs on one device; "
+            "multi-GPU is not ported yet (ROADMAP.md, queue 1, item 4: multi-GPU)")

@@ -4,8 +4,12 @@
 // rows q|k|v).  Dropout sites, drawn from philox.cuh with stream (batch
 // row b, site): heads 0..H-1 the attention weights (element i L + j),
 // H the attention output (l D + c), H+1 after the ReLU (l F + f), H+2 the
-// FFN output (l D + c).
+// FFN output (l D + c).  Each launch takes a template parameter kBf16: the
+// GEMMs and the attention products with bf16 operands and float32 sums
+// (precision "bf16", see tf32_tile.cuh), else float32 (3xTF32).
 #pragma once
+
+#include <initializer_list>
 
 #include "philox.cuh"
 #include "tf32_tile.cuh"
@@ -20,24 +24,29 @@ constexpr int kMaxB = 65535;          // batch rows: grid y of the attention lau
 constexpr size_t kGemmSmem = sizeof(float) * (size_t)(kTileFloats + 2 * kWsFloats);
 constexpr size_t kFfnSmem = sizeof(float) * (size_t)(2 * kTileFloats + 2 * kWsFloats);
 
-// (a) [64 rows x 256 cols] tiles of the packed projection over the
-// flattened B*L rows, x+pos for q and k, x for v, into a [B*L, 3D] buffer.
+// (a) [64 rows x 256 cols] tiles of a packed projection over the
+// flattened B*L rows: part p = blockIdx.y of the output (weight rows
+// [p D, p D + D)) from x+pos for p < pos_parts and from x after, into
+// column p D of a [B*L, ld_out] buffer.  The encoder takes q|k|v
+// (pos_parts 2, ld_out 3D); the decoder's cross-attention k|v of its
+// memory (pos_parts 1) and its q (one part).
+template <bool kBf16 = false>
 __global__ void __launch_bounds__(kThreads, 1)
 qkv_kernel(const float* __restrict__ x, const float* __restrict__ pos,
            const float* __restrict__ w_in, const float* __restrict__ b_in,
-           float* __restrict__ qkv, int rows) {
+           float* __restrict__ qkv, int rows, int pos_parts = 2, int ld_out = 3 * kCols) {
   extern __shared__ float4 smem4[];
   float* A = reinterpret_cast<float*>(smem4);   // [kRows][kLda]: input, then output
   float* Ws = A + kTileFloats;                   // [2][kCols][kLdws]
-  const int r0 = blockIdx.x * kRows, part = blockIdx.y;   // 0 q, 1 k, 2 v
-  load_rows(A, x, part < 2 ? pos : nullptr, r0, rows);
+  const int r0 = blockIdx.x * kRows, part = blockIdx.y;   // encoder: 0 q, 1 k, 2 v
+  load_rows(A, x, part < pos_parts ? pos : nullptr, r0, rows);
   Acc acc;
   zero(acc);
-  gemm(acc, A, w_in, kCols, part * kCols, kCols, Ws);
+  gemm<kBf16>(acc, A, w_in, kCols, part * kCols, kCols, Ws);
   const float* bias = b_in + part * kCols;
   for_each_acc(acc, [&](int r, int c, float& v) { A[r * kLda + c] = v + bias[c]; });
   __syncthreads();
-  store_rows(qkv, 3 * kCols, part * kCols, A, r0, rows);
+  store_rows(qkv, ld_out, part * kCols, A, r0, rows);
 }
 
 // Softmax rows start 16-byte aligned and hold L rounded up to 4 floats.
@@ -53,8 +62,11 @@ __host__ __device__ constexpr size_t attention_smem_bytes(int L) {
 // sit in shared memory; each warp takes two query rows at a time, their
 // scores one key per lane, and writes ctx [B, L, D].  Dropout multiplies
 // the normalized weights (after the softmax sum), as torch does.  kDrop
-// false (rate 0, the serving path) compiles the mask code out.
-template <bool kDrop>
+// false (rate 0, the serving path) compiles the mask code out.  A null mask
+// means every key is valid.  kBf16: q, k, v and the (dropped) weights are
+// rounded to bf16 before their products, q unscaled (JAX scales the
+// scores), and the weights are normalized before p v.
+template <bool kDrop, bool kBf16 = false>
 __global__ void __launch_bounds__(kThreads)
 attention_kernel(const float* __restrict__ qkv, const float* __restrict__ mask,
                  float* __restrict__ ctx, int L, Dropout drop) {
@@ -75,11 +87,18 @@ attention_kernel(const float* __restrict__ qkv, const float* __restrict__ mask,
   for (int e = threadIdx.x; e < L * kHeadDim; e += kThreads) {
     const int r = e / kHeadDim, c = e % kHeadDim;
     const float* row = base + (size_t)r * 3 * kCols + c;
-    q_s[r * kPad + c] = row[0] * scale;
-    k_s[r * kPad + c] = row[kCols];
-    v_s[r * kPad + c] = row[2 * kCols];
+    if constexpr (kBf16) {
+      q_s[r * kPad + c] = round_bf16(row[0]);
+      k_s[r * kPad + c] = round_bf16(row[kCols]);
+      v_s[r * kPad + c] = round_bf16(row[2 * kCols]);
+    } else {
+      q_s[r * kPad + c] = row[0] * scale;
+      k_s[r * kPad + c] = row[kCols];
+      v_s[r * kPad + c] = row[2 * kCols];
+    }
   }
-  for (int j = threadIdx.x; j < L; j += kThreads) m_s[j] = mask[(size_t)b * L + j];
+  for (int j = threadIdx.x; j < L; j += kThreads)
+    m_s[j] = mask != nullptr ? mask[(size_t)b * L + j] : 1.f;
   __syncthreads();
 
   for (int i0 = 2 * warp; i0 < L; i0 += 2 * kWarps) {
@@ -99,6 +118,10 @@ attention_kernel(const float* __restrict__ qkv, const float* __restrict__ mask,
         s0 = fmaf(qa[c], kv, s0);
         s1 = fmaf(qb[c], kv, s1);
       }
+      if constexpr (kBf16) {
+        s0 *= scale;
+        s1 *= scale;
+      }
       if (m_s[j] == 0.f) s0 = s1 = kBigNeg;
       p0[j] = s0;
       p1[j] = s1;
@@ -112,12 +135,22 @@ attention_kernel(const float* __restrict__ qkv, const float* __restrict__ mask,
       const float e0 = expf(p0[j] - mx0), e1 = expf(p1[j] - mx1);
       sum0 += e0;
       sum1 += e1;
-      p0[j] = kDrop ? e0 * keep(drop, b, h, i0 * L + j) : e0;
-      p1[j] = kDrop ? e1 * keep(drop, b, h, i1 * L + j) : e1;
+      p0[j] = kDrop && !kBf16 ? e0 * keep(drop, b, h, i0 * L + j) : e0;
+      p1[j] = kDrop && !kBf16 ? e1 * keep(drop, b, h, i1 * L + j) : e1;
     }
     sum0 = warp_sum(sum0);
     sum1 = warp_sum(sum1);
     __syncwarp();
+    if constexpr (kBf16) {
+      // JAX's order: p / sum, then the mask, then the bf16 operand of p v
+      for (int j = lane; j < L; j += 32) {
+        const float a0 = p0[j] / sum0, a1 = p1[j] / sum1;
+        p0[j] = round_bf16(kDrop ? a0 * keep(drop, b, h, i0 * L + j) : a0);
+        p1[j] = round_bf16(kDrop ? a1 * keep(drop, b, h, i1 * L + j) : a1);
+      }
+      sum0 = sum1 = 1.f;
+      __syncwarp();
+    }
     float acc0 = 0.f, acc1 = 0.f;
     int j = 0;
     for (; j + 4 <= L; j += 4) {           // four keys per broadcast 16-byte read
@@ -148,8 +181,8 @@ attention_kernel(const float* __restrict__ qkv, const float* __restrict__ mask,
 // (c) One block per 64 rows.  Out-proj, dropout, residual and LN1; the FFN
 // in 256-wide slices of the hidden dimension, each ReLU slice (dropped out)
 // kept in shared memory and folded straight into the second GEMM's register
-// accumulators; dropout, residual and LN2.  kDrop as in (b).
-template <bool kDrop>
+// accumulators; dropout, residual and LN2.  kDrop and kBf16 as in (b).
+template <bool kDrop, bool kBf16 = false>
 __global__ void __launch_bounds__(kThreads, 1)
 ffn_kernel(const float* __restrict__ x, const float* __restrict__ ctx,
            const float* __restrict__ w_out, const float* __restrict__ b_out,
@@ -173,7 +206,7 @@ ffn_kernel(const float* __restrict__ x, const float* __restrict__ ctx,
   load_rows(A, ctx, nullptr, r0, rows);
   Acc acc;
   zero(acc);
-  gemm(acc, A, w_out, kCols, 0, kCols, Ws);
+  gemm<kBf16>(acc, A, w_out, kCols, 0, kCols, Ws);
   for_each_acc(acc, [&](int r, int c, float& v) {
     Y[r * kLda + c] = (v + b_out[c]) * site_keep(r, H, kCols, c);
   });
@@ -193,12 +226,12 @@ ffn_kernel(const float* __restrict__ x, const float* __restrict__ ctx,
   zero(acc2);
   for (int f0 = 0; f0 < F; f0 += kCols) {
     zero(acc);
-    gemm(acc, Y, w1, kCols, f0, kCols, Ws);
+    gemm<kBf16>(acc, Y, w1, kCols, f0, kCols, Ws);
     for_each_acc(acc, [&](int r, int c, float& v) {
       A[r * kLda + c] = fmaxf(v + b1[f0 + c], 0.f) * site_keep(r, H + 1, F, f0 + c);
     });
     __syncthreads();
-    gemm(acc2, A, w2 + f0, F, 0, kCols, Ws);
+    gemm<kBf16>(acc2, A, w2 + f0, F, 0, kCols, Ws);
   }
   for_each_acc(acc2, [&](int r, int c, float& v) {
     A[r * kLda + c] = (v + b2[c]) * site_keep(r, H + 2, kCols, c) + Y[r * kLda + c];
@@ -208,26 +241,43 @@ ffn_kernel(const float* __restrict__ x, const float* __restrict__ ctx,
   store_rows(out, kCols, 0, A, r0, rows);
 }
 
-// Both instantiations of (b): dynamic shared memory for sequences up to max_l.
+// Every instantiation of (b): dynamic shared memory for sequences up to max_l.
 inline cudaError_t attention_init(int max_l = kMaxL) {
   const int bytes = (int)attention_smem_bytes(max_l);
-  const cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(attention_kernel<true>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  cudaError_t err = cudaSuccess;
+  for (auto* kernel : {attention_kernel<false, false>, attention_kernel<true, false>,
+                       attention_kernel<false, true>, attention_kernel<true, true>})
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  return err;
 }
 
 // Launches (b) over B rows on `s`; rate 0 takes the instantiation without
-// mask code.
+// mask code, bf16 the one with bf16 operands.
 inline void launch_attention(const float* qkv, const float* mask, float* ctx, int B, int H,
-                             int L, const Dropout& drop, cudaStream_t s) {
+                             int L, const Dropout& drop, cudaStream_t s, bool bf16 = false) {
   const dim3 grid(H, B);
   const size_t smem = attention_smem_bytes(L);
-  if (drop.thresh != 0u)
-    attention_kernel<true><<<grid, kThreads, smem, s>>>(qkv, mask, ctx, L, drop);
-  else
-    attention_kernel<false><<<grid, kThreads, smem, s>>>(qkv, mask, ctx, L, drop);
+  auto* kernel = drop.thresh != 0u ? (bf16 ? attention_kernel<true, true>
+                                           : attention_kernel<true, false>)
+                                   : (bf16 ? attention_kernel<false, true>
+                                           : attention_kernel<false, false>);
+  kernel<<<grid, kThreads, smem, s>>>(qkv, mask, ctx, L, drop);
+}
+
+// The forward's GEMM launches at both precisions: dynamic shared memory.
+inline cudaError_t gemm_launches_init() {
+  cudaError_t err = cudaSuccess;
+  for (auto* kernel : {qkv_kernel<false>, qkv_kernel<true>})
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)kGemmSmem);
+  for (auto* kernel : {ffn_kernel<false, false>, ffn_kernel<true, false>,
+                       ffn_kernel<false, true>, ffn_kernel<true, true>})
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)kFfnSmem);
+  return err;
 }
 
 }  // namespace

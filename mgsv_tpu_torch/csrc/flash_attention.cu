@@ -93,20 +93,6 @@ struct Args {
   float qscale;        // softmax scale times log2(e), folded into q by the caller
 };
 
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&p);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // Four 8 x 8 bf16 matrices, transposed: lane l gives the address of one
 // 16-byte row (lanes 8 m .. 8 m + 7 the rows of matrix m).
 __device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const bf16* row) {

@@ -38,6 +38,15 @@
 //      (dropped) ReLU slice kept in shared memory and folded straight into
 //      the second GEMM's register accumulators; dropout, residual and LN2.
 //
+// With bf16 set (the JAX kernel's precision="bf16", which the model takes
+// under a bf16 compute dtype) every product takes bf16 operands with float32
+// sums: the GEMM tiles on mma.sync m16n8k16 (operands rounded as they are
+// read from shared memory), the attention's q k^T and p v on the CUDA cores
+// from operands rounded to bf16.  Inputs, outputs, LayerNorm, softmax and
+// the dropout masks stay float32, as in JAX.  At that precision the bound
+// is the bf16 tensor-core rate, twice TF32's, and the GEMMs do one product
+// per tile in place of three.
+//
 // Weights stream from L2 through double-buffered shared-memory tiles filled
 // with cp.async.  wgmma, TMA and a single fused launch are later work.  The
 // launches live in encoder_layer_kernels.cuh, the tile machinery in
@@ -50,14 +59,7 @@
 // Returns the first CUDA error (0 = ok).
 extern "C" int mgsv_fused_encoder_layer_init() {
   cudaError_t err;
-  if ((err = cudaFuncSetAttribute(qkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)kGemmSmem)) != cudaSuccess ||
-      (err = attention_init()) != cudaSuccess ||
-      (err = cudaFuncSetAttribute(ffn_kernel<false>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)kFfnSmem)) != cudaSuccess ||
-      (err = cudaFuncSetAttribute(ffn_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)kFfnSmem)) != cudaSuccess)
+  if ((err = gemm_launches_init()) != cudaSuccess || (err = attention_init()) != cudaSuccess)
     return (int)err;
   return 0;
 }
@@ -67,14 +69,14 @@ extern "C" int mgsv_fused_encoder_layer_init() {
 // on that device.  qkv ([B, L, 3D]) and ctx ([B, L, D]) are scratch
 // buffers, out the [B, L, D] result; every pointer 16-byte aligned.  The
 // shapes must be ones the Python wrapper accepts (its check_supported).
-// Returns cudaGetLastError() (0 = ok).
+// bf16 != 0: bf16 operands, float32 sums.  Returns cudaGetLastError() (0 = ok).
 extern "C" int mgsv_fused_encoder_layer_fwd(
     const float* x, const float* pos, const float* mask,
     const float* w_in, const float* b_in, const float* w_out, const float* b_out,
     const float* g1, const float* be1, const float* w1, const float* b1,
     const float* w2, const float* b2, const float* g2, const float* be2,
     float* qkv, float* ctx, float* out, int B, int L, int D, int H, int F,
-    unsigned seed, unsigned thresh, float scale, void* stream) {
+    unsigned seed, unsigned thresh, float scale, int bf16, void* stream) {
   if (B < 1 || B > kMaxB || L < 1 || L > kMaxL || D != kCols || H * kHeadDim != D ||
       F < kCols || F % kCols != 0)
     return (int)cudaErrorInvalidValue;
@@ -82,12 +84,15 @@ extern "C" int mgsv_fused_encoder_layer_fwd(
   const Dropout drop{seed, thresh, scale};
   const int rows = B * L, row_tiles = (rows + kRows - 1) / kRows;
   cudaError_t err;
-  qkv_kernel<<<dim3(row_tiles, 3), kThreads, kGemmSmem, s>>>(x, pos, w_in, b_in, qkv, rows);
+  auto* qkv_k = bf16 ? qkv_kernel<true> : qkv_kernel<false>;
+  qkv_k<<<dim3(row_tiles, 3), kThreads, kGemmSmem, s>>>(x, pos, w_in, b_in, qkv, rows, 2,
+                                                        3 * kCols);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  launch_attention(qkv, mask, ctx, B, H, L, drop, s);
+  launch_attention(qkv, mask, ctx, B, H, L, drop, s, bf16 != 0);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   // rate 0 (the serving path) takes the instantiation without mask code
-  auto* ffn = thresh != 0u ? ffn_kernel<true> : ffn_kernel<false>;
+  auto* ffn = thresh != 0u ? (bf16 ? ffn_kernel<true, true> : ffn_kernel<true, false>)
+                           : (bf16 ? ffn_kernel<false, true> : ffn_kernel<false, false>);
   ffn<<<row_tiles, kThreads, kFfnSmem, s>>>(x, ctx, w_out, b_out, g1, be1, w1, b1, w2, b2, g2,
                                             be2, out, rows, L, H, F, drop);
   return (int)cudaGetLastError();

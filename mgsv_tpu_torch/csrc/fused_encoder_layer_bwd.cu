@@ -32,19 +32,13 @@
 //    partials reduce_kernel then sums in chunk order; bias and LayerNorm
 //    gradients (column sums, 32 columns per block) take the same two
 //    passes.  No float atomics: a step is reproducible from run to run.
+//
+// With bf16 set (JAX's precision="bf16" of this VJP) every product, the
+// recompute's and the backward's, the weight gradients' included, takes
+// bf16 operands with float32 sums; LayerNorm, softmax, the dropout masks,
+// the column sums and the split-K order stay float32 and unchanged.
 
 #include "layer_bwd_kernels.cuh"
-
-namespace {
-
-__global__ void add_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                           float* __restrict__ out, size_t n) {
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x)
-    out[i] = a[i] + b[i];
-}
-
-}  // namespace
 
 // Floats of device workspace mgsv_fused_encoder_layer_bwd needs at B*L rows
 // and FFN width F (D = 256).
@@ -58,9 +52,7 @@ extern "C" size_t mgsv_fused_encoder_layer_bwd_workspace(int rows, int F) {
 // Once per device, before the first launch on it: dynamic shared memory.
 extern "C" int mgsv_fused_encoder_layer_bwd_init() {
   cudaError_t err;
-  if ((err = cudaFuncSetAttribute(qkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)kGemmSmem)) != cudaSuccess ||
-      (err = layer_bwd_init(kMaxL)) != cudaSuccess)
+  if ((err = gemm_launches_init()) != cudaSuccess || (err = layer_bwd_init(kMaxL)) != cudaSuccess)
     return (int)err;
   return 0;
 }
@@ -69,7 +61,8 @@ extern "C" int mgsv_fused_encoder_layer_bwd_init() {
 // x, pos, mask and the dropout (seed, thresh, scale), then writes dx, dpos
 // ([B, L, D]) and the parameter gradients, in the layout of the weights
 // (torch [out, in]).  ws: mgsv_fused_encoder_layer_bwd_workspace floats.
-// Every pointer 16-byte aligned.  Returns the first CUDA error (0 = ok).
+// bf16 != 0: bf16 operands, float32 sums.  Every pointer 16-byte aligned.
+// Returns the first CUDA error (0 = ok).
 extern "C" int mgsv_fused_encoder_layer_bwd(
     const float* x, const float* pos, const float* mask, const float* g_out,
     const float* w_in, const float* b_in, const float* w_out, const float* b_out,
@@ -78,7 +71,7 @@ extern "C" int mgsv_fused_encoder_layer_bwd(
     float* dx, float* dpos, float* dw_in, float* db_in, float* dw_out, float* db_out,
     float* dg1, float* dbe1, float* dw1, float* db1, float* dw2, float* db2,
     float* dg2, float* dbe2, float* ws, int B, int L, int D, int H, int F,
-    unsigned seed, unsigned thresh, float scale, void* stream) {
+    unsigned seed, unsigned thresh, float scale, int bf16, void* stream) {
   if (B < 1 || B > kMaxB || L < 1 || L > kMaxL || D != kCols || H * kHeadDim != D ||
       F < kCols || F % kCols != 0)
     return (int)cudaErrorInvalidValue;
@@ -96,12 +89,14 @@ extern "C" int mgsv_fused_encoder_layer_bwd(
   float* h1 = take(n * F);
   float* dz1 = take(n * F);
   Launcher k{static_cast<cudaStream_t>(stream), rows, L, Dropout{seed, thresh, scale}, cur};
+  k.bf16 = bf16 != 0;
 
   // ---- recompute the forward
-  qkv_kernel<<<dim3((rows + kRows - 1) / kRows, 3), kThreads, kGemmSmem, k.s>>>(
-      x, pos, w_in, b_in, qkv, rows);
+  auto* qkv_k = bf16 ? qkv_kernel<true> : qkv_kernel<false>;
+  qkv_k<<<dim3((rows + kRows - 1) / kRows, 3), kThreads, kGemmSmem, k.s>>>(
+      x, pos, w_in, b_in, qkv, rows, 2, 3 * kCols);
   if (!k.check()) return (int)k.err;
-  launch_attention(qkv, mask, ctx, B, H, L, k.drop, k.s);
+  launch_attention(qkv, mask, ctx, B, H, L, k.drop, k.s, k.bf16);
   k.rowgemm({ctx, D, D, w_out, D, 0, b_out, 0, H, D, nullptr, 0, x, D, r, D}, D);
   k.ln_fwd(r, g1, be1, y1, xh1, inv1);
   k.rowgemm({y1, D, D, w1, D, 0, b1, 1, H + 1, F, nullptr, 0, nullptr, 0, h1, F}, F);
@@ -130,12 +125,9 @@ extern "C" int mgsv_fused_encoder_layer_bwd(
   k.rowgemm({dout, D, D, w_out, D, 1, nullptr, 0, -1, D, nullptr, 0, nullptr, 0, dctx, D}, D);
 
   // ---- attention and the input projections
-  if (!k.check()) return (int)k.err;
-  attention_bwd_kernel<<<dim3(H, B), kThreads, attention_bwd_smem_bytes(L), k.s>>>(
-      qkv, dctx, mask, dqkv, L, k.drop);
+  k.attention_bwd(qkv, dctx, mask, dqkv, B, H, L);
   k.colsum(dqkv, nullptr, 3 * D, 3 * D, db_in);
-  if (!k.check()) return (int)k.err;
-  add_kernel<<<k.grid1d(n * d), kThreads, 0, k.s>>>(x, pos, a, n * d);
+  k.add(x, pos, a, n * d);
   k.wgrad(dqkv, 3 * D, 2 * D, a, D, D, dw_in);
   k.wgrad(dqkv + 2 * D, 3 * D, D, x, D, D, dw_in + (size_t)2 * D * D);
   k.rowgemm({dqkv, 3 * D, 3 * D, w_in, D, 1, nullptr, 0, -1, D, nullptr, 0, dr1, D, dx, D}, D);

@@ -108,9 +108,7 @@ extern "C" int mgsv_fused_temporal_layer_bwd(
   k.rowgemm({du, D, D, w_out, D, 1, nullptr, 0, -1, D, nullptr, 0, nullptr, 0, dctx, D}, D);
 
   // ---- attention, the input projection and LN1
-  if (!k.check()) return (int)k.err;
-  attention_bwd_kernel<<<dim3(H, B), kThreads, attention_bwd_smem_bytes(L), k.s>>>(
-      qkv, dctx, mask, dqkv, L, k.drop);
+  k.attention_bwd(qkv, dctx, mask, dqkv, B, H, L);
   k.colsum(dqkv, nullptr, 3 * D, 3 * D, db_in);
   k.wgrad(dqkv, 3 * D, 3 * D, y, D, D, dw_in);
   k.rowgemm({dqkv, 3 * D, 3 * D, w_in, D, 1, nullptr, 0, -1, D, nullptr, 0, du, D, dy, D}, D);

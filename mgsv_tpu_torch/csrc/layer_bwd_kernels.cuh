@@ -17,7 +17,10 @@
 //    shared memory, in two sweeps (query rows, then key rows) so every sum
 //    has one owner.
 //
-// Launcher strings them on one stream and keeps the first CUDA error.
+// Launcher strings them on one stream and keeps the first CUDA error.  Its
+// bf16 flag takes every product with bf16 operands and float32 sums
+// (precision "bf16", tf32_tile.cuh); LayerNorm, the column sums and the
+// epilogues stay float32.
 #pragma once
 
 #include <algorithm>
@@ -46,7 +49,7 @@ struct RowGemm {
   int gelu_gate;
 };
 
-template <bool kGeluGate>
+template <bool kGeluGate, bool kBf16 = false>
 __global__ void __launch_bounds__(kThreads, 1)
 rowgemm_kernel(RowGemm p, int rows, int L, Dropout drop) {
   extern __shared__ float4 smem4[];
@@ -58,9 +61,9 @@ rowgemm_kernel(RowGemm p, int rows, int L, Dropout drop) {
   for (int k0 = 0; k0 < p.K; k0 += kCols) {
     load_rows(A, p.A + k0, nullptr, r0, rows, p.lda);
     if (p.wt)
-      gemm_t(acc, A, p.W + (size_t)k0 * p.ldw, p.ldw, n0, kCols, kCols, Ws);
+      gemm_t<kBf16>(acc, A, p.W + (size_t)k0 * p.ldw, p.ldw, n0, kCols, kCols, Ws);
     else
-      gemm(acc, A, p.W + k0, p.ldw, n0, kCols, Ws);
+      gemm<kBf16>(acc, A, p.W + k0, p.ldw, n0, kCols, Ws);
   }
   for_each_acc(acc, [&](int r, int c, float& v) {
     const int gr = r0 + r, n = n0 + c;
@@ -149,6 +152,13 @@ __global__ void dropout_kernel(const float* __restrict__ in, float* __restrict__
   }
 }
 
+__global__ void add_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                           float* __restrict__ out, size_t n) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x)
+    out[i] = a[i] + b[i];
+}
+
 // P[z][c] = sum over rows of chunk z of G[r][c] (* H[r][c] when given): a
 // block takes 32 columns and its warps every kWarps-th row of the chunk
 // (one row of 32 columns is one 128-byte read), then adds the warps'
@@ -174,6 +184,7 @@ __global__ void colsum_kernel(const float* __restrict__ G, const float* __restri
 
 // P[z][n][k] = sum over rows r of chunk z of G[r][n] H[r][k]; block tile
 // 64 (n) x 256 (k).  P is [Z][Nout][K].
+template <bool kBf16 = false>
 __global__ void __launch_bounds__(kThreads)
 wgrad_kernel(const float* __restrict__ G, int ldg, const float* __restrict__ H, int ldh,
              int rows, int nout, int K, float* __restrict__ P) {
@@ -183,8 +194,8 @@ wgrad_kernel(const float* __restrict__ G, int ldg, const float* __restrict__ H, 
   const int n0 = blockIdx.x * kRows, k0 = blockIdx.y * kCols, z = blockIdx.z;
   Acc acc;
   zero(acc);
-  gemm_tn<true>(acc, G, ldg, n0, H + k0, ldh, z * kChunk, min(rows, (z + 1) * kChunk), Ga,
-                Ws);
+  gemm_tn<true, kBf16>(acc, G, ldg, n0, H + k0, ldh, z * kChunk, min(rows, (z + 1) * kChunk),
+                       Ga, Ws);
   float* out = P + (size_t)z * nout * K;
   for_each_acc(acc, [&](int r, int c, float& v) {
     out[(size_t)(n0 + r) * K + k0 + c] = v;
@@ -211,6 +222,10 @@ __host__ __device__ constexpr size_t attention_bwd_smem_bytes(int L) {
 // softmax statistics, D_i = sum_j p_ij m_ij dp_ij and dq_i.  Sweep 2, a warp
 // per key row j (lanes over queries i): dv_j = sum_i p_ij m_ij dctx_i and
 // dk_j = scale sum_i ds_ij q_i.  Writes dq | dk | dv into dqkv [B, L, 3D].
+// A null mask means every key is valid.  kBf16: q, k, v and dctx are
+// rounded to bf16 as they are staged, and so are the dropped weights and
+// ds before their products (JAX's cast of each operand).
+template <bool kBf16 = false>
 __global__ void __launch_bounds__(kThreads)
 attention_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ dctx,
                      const float* __restrict__ mask, float* __restrict__ dqkv, int L,
@@ -236,12 +251,13 @@ attention_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ dc
   for (int e = threadIdx.x; e < L * kHeadDim; e += kThreads) {
     const int r = e / kHeadDim, c = e % kHeadDim;
     const float* row = qkv + (row0 + r) * 3 * kCols + h * kHeadDim + c;
-    q_s[r * kPad + c] = row[0];
-    k_s[r * kPad + c] = row[kCols];
-    v_s[r * kPad + c] = row[2 * kCols];
-    d_s[r * kPad + c] = dctx[(row0 + r) * kCols + h * kHeadDim + c];
+    const float dc = dctx[(row0 + r) * kCols + h * kHeadDim + c];
+    q_s[r * kPad + c] = kBf16 ? round_bf16(row[0]) : row[0];
+    k_s[r * kPad + c] = kBf16 ? round_bf16(row[kCols]) : row[kCols];
+    v_s[r * kPad + c] = kBf16 ? round_bf16(row[2 * kCols]) : row[2 * kCols];
+    d_s[r * kPad + c] = kBf16 ? round_bf16(dc) : dc;
   }
-  for (int j = threadIdx.x; j < L; j += kThreads) m_s[j] = mask[row0 + j];
+  for (int j = threadIdx.x; j < L; j += kThreads) m_s[j] = mask != nullptr ? mask[row0 + j] : 1.f;
   __syncthreads();
 
   for (int i = warp; i < L; i += kWarps) {          // sweep 1: query rows
@@ -282,7 +298,10 @@ attention_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ dc
     __syncwarp();
     float dq = 0.f;                  // masked keys' scores are constants: no gradient
     for (int j = 0; j < L; ++j)
-      if (m_s[j] != 0.f) dq = fmaf(pa[j] * (pb[j] - dsum), k_s[j * kPad + lane], dq);
+      if (m_s[j] != 0.f) {
+        const float ds = pa[j] * (pb[j] - dsum);
+        dq = fmaf(kBf16 ? round_bf16(ds) : ds, k_s[j * kPad + lane], dq);
+      }
     dqkv[(row0 + i) * 3 * kCols + h * kHeadDim + lane] = dq * scale;
     if (lane == 0) {
       mx_s[i] = mx;
@@ -311,8 +330,9 @@ attention_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ dc
       s = valid ? s * scale : kBigNeg;
       const float p = expf(s - mx_s[i]) / sum_s[i];
       const float m = keep(drop, b, h, i * L + j);
-      pa[i] = p * m;                                 // dropped weight: feeds dv
-      pb[i] = valid ? p * (dp * m - dd_s[i]) : 0.f;  // ds: feeds dk
+      const float pd = p * m, ds = valid ? p * (dp * m - dd_s[i]) : 0.f;
+      pa[i] = kBf16 ? round_bf16(pd) : pd;           // dropped weight: feeds dv
+      pb[i] = kBf16 ? round_bf16(ds) : ds;           // ds: feeds dk
     }
     __syncwarp();
     float dk = 0.f, dv = 0.f;
@@ -337,6 +357,7 @@ struct Launcher {
   Dropout drop;
   float* partial;
   cudaError_t err = cudaSuccess;
+  bool bf16 = false;
 
   bool check() {
     if (err == cudaSuccess) err = cudaGetLastError();
@@ -349,7 +370,9 @@ struct Launcher {
 
   void rowgemm(const RowGemm& p, int nout) {
     if (!check()) return;
-    auto* kernel = p.gelu_gate ? rowgemm_kernel<true> : rowgemm_kernel<false>;
+    auto* kernel = p.gelu_gate ? (bf16 ? rowgemm_kernel<true, true> : rowgemm_kernel<true, false>)
+                               : (bf16 ? rowgemm_kernel<false, true>
+                                       : rowgemm_kernel<false, false>);
     kernel<<<dim3((rows + kRows - 1) / kRows, nout / kCols), kThreads, kGemmSmem, s>>>(
         p, rows, L, drop);
   }
@@ -369,6 +392,11 @@ struct Launcher {
     dropout_kernel<<<grid1d((size_t)rows * width), kThreads, 0, s>>>(in, out, rows, width, L,
                                                                      site, drop, gelu_in);
   }
+  // out = a + b over n floats
+  void add(const float* a, const float* b, float* out, size_t n) {
+    if (!check()) return;
+    add_kernel<<<grid1d(n), kThreads, 0, s>>>(a, b, out, n);
+  }
   void reduce(int Z, size_t n, float* out) {
     if (!check()) return;
     reduce_kernel<<<grid1d(n), kThreads, 0, s>>>(partial, Z, n, out);
@@ -383,30 +411,40 @@ struct Launcher {
   // out[n][k] = sum over all rows of G[r][n] H[r][k]  (out [nout][K])
   void wgrad(const float* G, int ldg, int nout, const float* H, int ldh, int K, float* out) {
     if (!check()) return;
-    wgrad_kernel<<<dim3(nout / kRows, K / kCols, zs()), kThreads, kWgradSmem, s>>>(
-        G, ldg, H, ldh, rows, nout, K, partial);
+    auto* kernel = bf16 ? wgrad_kernel<true> : wgrad_kernel<false>;
+    kernel<<<dim3(nout / kRows, K / kCols, zs()), kThreads, kWgradSmem, s>>>(G, ldg, H, ldh,
+                                                                              rows, nout, K,
+                                                                              partial);
     reduce(zs(), (size_t)nout * K, out);
+  }
+  // the attention backward of (b) over B sequences of L rows
+  void attention_bwd(const float* qkv, const float* dctx, const float* mask, float* dqkv, int B,
+                     int H, int len) {
+    if (!check()) return;
+    auto* kernel = bf16 ? attention_bwd_kernel<true> : attention_bwd_kernel<false>;
+    kernel<<<dim3(H, B), kThreads, attention_bwd_smem_bytes(len), s>>>(qkv, dctx, mask, dqkv,
+                                                                      len, drop);
   }
 };
 
 // The dynamic shared memory of the launches above (and of the forward
 // attention the recompute runs), for sequences up to max_l.
 inline cudaError_t layer_bwd_init(int max_l) {
-  cudaError_t err;
-  if ((err = attention_init(max_l)) != cudaSuccess ||
-      (err = cudaFuncSetAttribute(rowgemm_kernel<false>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)kGemmSmem)) != cudaSuccess ||
-      (err = cudaFuncSetAttribute(rowgemm_kernel<true>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)kGemmSmem)) != cudaSuccess ||
-      (err = cudaFuncSetAttribute(attention_bwd_kernel,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)attention_bwd_smem_bytes(max_l))) != cudaSuccess ||
-      (err = cudaFuncSetAttribute(wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)kWgradSmem)) != cudaSuccess)
-    return err;
-  return cudaSuccess;
+  cudaError_t err = attention_init(max_l);
+  for (auto* kernel : {rowgemm_kernel<false, false>, rowgemm_kernel<true, false>,
+                       rowgemm_kernel<false, true>, rowgemm_kernel<true, true>})
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)kGemmSmem);
+  for (auto* kernel : {attention_bwd_kernel<false>, attention_bwd_kernel<true>})
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)attention_bwd_smem_bytes(max_l));
+  for (auto* kernel : {wgrad_kernel<false>, wgrad_kernel<true>})
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)kWgradSmem);
+  return err;
 }
 
 }  // namespace

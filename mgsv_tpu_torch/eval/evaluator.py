@@ -38,19 +38,21 @@ def evaluate(
     sim_block_size: int = 256,
     mesh=None,
     use_fused_sim: Optional[bool] = None,
+    fused_decoder: bool = False,
 ) -> Dict[str, Any]:
     """Returns {"loss", "retrieval", "localization", "composite", "ranks",
     "ious", "pred_spans", "video_ids", "music_ids", "ret_results"}, as the
     JAX evaluate does, and "sim", the [N, N] similarity on the device, for
     the model's weights, on the model's device.  use_fused_sim None takes the
     evaluation kernel on a CUDA device and the blocked plain path on the
-    CPU."""
+    CPU.  fused_decoder: the eval step's DETR decoder on the decoder-layer
+    kernel (when no eval_step is given)."""
     if mesh is not None:
         raise NotImplementedError("multi-device evaluation is not ported yet "
                                   "(ROADMAP.md, queue 1, item 9)")
     device = next(model.parameters()).device
     batch_size = batch_size or cfg.train.batch_size_val
-    eval_step = eval_step or make_eval_step(model, cfg)
+    eval_step = eval_step or make_eval_step(model, cfg, fused_decoder)
     if use_fused_sim is None:
         use_fused_sim = device.type == "cuda"
 

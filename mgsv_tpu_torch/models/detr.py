@@ -10,12 +10,18 @@ Dropout (rate `dropout` of each layer, 0.1 in the paper configuration) sits
 where the JAX layers have it: the attention weights, the attention output,
 after the FFN's ReLU and after the FFN.  Each encoder layer runs through the
 encoder-layer kernel's autograd Function (ops/cuda/fused_encoder_layer.py:
-forward kernel, backward kernel; its plain version on CPU tensors or, for
-the serving engine without kernels, with `plain=True`), in training and in
-serving, with its four Philox masks keyed on one int seed per layer call
-drawn from the step's generator.  Decoder
-masks come from that `torch.Generator` directly.  Without a generator every
-layer is deterministic.
+forward kernel, backward kernel; its plain version on CPU tensors), in
+training and in serving, in float32 outside autocast, at the precision the
+caller names ("bf16" under a bf16 model, as JAX's FusedDetrEncoderLayer),
+with its four Philox masks keyed on one int seed per layer call drawn from
+the step's generator.  With `plain=True` (JAX's fused_detr_encoder=False,
+and the serving engine without kernels) the plain layers run under the
+caller's autocast, their masks drawn from that `torch.Generator`, as the
+decoder's are.  With `fused_decoder=True` each decoder layer runs through
+the decoder-layer kernel's autograd Function
+(ops/cuda/fused_decoder_layer.py) in float32, as JAX's
+FusedDetrDecoderLayer: it has no dropout.  Without a generator every layer
+is deterministic.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from torch import nn
 
 from mgsv_tpu_torch.models.layers import (MultiHeadAttention, draw_seed, dropout, widen,
                                           xavier_uniform_)
+from mgsv_tpu_torch.ops.cuda import fused_decoder_layer as fdl
 from mgsv_tpu_torch.ops.cuda import fused_encoder_layer as fel
 
 _PRE_NORM_MSG = ("pre-norm DETR layers are not ported yet "
@@ -62,15 +69,21 @@ class DetrEncoderLayer(nn.Module):
         self.norm2.reset_parameters()
 
     def forward(self, src: torch.Tensor, mask: torch.Tensor, pos: torch.Tensor,
-                masks: Optional[dict] = None) -> torch.Tensor:
+                masks: Optional[dict] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """The plain layer.  masks: the four multiplicative dropout masks
         ("attn" [B, H, L, L], "attn_out" [B, L, D], "ffn1" [B, L, F],
         "ffn2" [B, L, D]), as the JAX package's layer_fwd_with_masks takes
-        them; None: no dropout."""
+        them; without masks, dropout at the layer's rate drawn from
+        `generator`; neither: no dropout."""
         masks = masks or {}
-        site = lambda t, name: t * masks[name] if name in masks else t
+
+        def site(t, name):
+            return t * masks[name] if name in masks else dropout(t, self.dropout, generator)
+
         qk = src + pos
-        attn = self.self_attn(qk, qk, src, key_mask=mask, attn_mask=masks.get("attn"))
+        attn = self.self_attn(qk, qk, src, key_mask=mask, generator=generator,
+                              attn_mask=masks.get("attn"))
         src = self.norm1(src + site(attn, "attn_out"))
         h = site(F.relu(self.linear1(src)), "ffn1")
         return self.norm2(src + site(self.linear2(h), "ffn2"))
@@ -128,14 +141,21 @@ class DetrEncoder(nn.Module):
             DetrEncoderLayer(dim, heads, ffn_dim, dropout=dropout) for _ in range(num_layers))
 
     def forward(self, src, mask, pos, generator: Optional[torch.Generator] = None,
-                plain: bool = False) -> torch.Tensor:
-        """Each layer through the kernel's wrapper (`plain`: its plain
-        version), dropout at the layer's rate only with a generator."""
-        layer_fn = fel.fused_encoder_layer_reference if plain else fel.fused_encoder_layer
-        for layer in self.layers:
-            rate = layer.dropout if generator is not None else 0.0
-            seed = draw_seed(generator) if rate > 0.0 else 0
-            src = layer_fn(src, mask, pos, layer, rate, seed)
+                plain: bool = False, precision: str = "f32") -> torch.Tensor:
+        """Each layer through the kernel's wrapper at `precision`, in
+        float32 outside autocast (`plain`: the plain layers under the
+        caller's autocast, JAX's fused_detr_encoder=False); dropout at the
+        layer's rate only with a generator."""
+        if plain:
+            for layer in self.layers:
+                src = layer(src, mask, pos, generator=generator)
+            return src
+        src, mask, pos = widen(src), widen(mask), widen(pos)
+        with torch.autocast(src.device.type, enabled=False):
+            for layer in self.layers:
+                rate = layer.dropout if generator is not None else 0.0
+                seed = draw_seed(generator) if rate > 0.0 else 0
+                src = fel.fused_encoder_layer(src, mask, pos, layer, rate, seed, precision)
         return src
 
 
@@ -149,9 +169,20 @@ class DetrDecoder(nn.Module):
         self.norm = nn.LayerNorm(dim, eps=1e-5)
 
     def forward(self, tgt, memory, mem_mask, pos, query_pos,
-                generator=None) -> torch.Tensor:
-        """-> [num_layers, B, Q, D], each layer's output through `norm`."""
+                generator=None, fused: bool = False) -> torch.Tensor:
+        """-> [num_layers, B, Q, D], each layer's output through `norm`.
+        `fused`: each layer through the decoder-layer kernel's wrapper, in
+        float32 outside autocast and without dropout (the caller refuses a
+        training call with a dropout rate)."""
         intermediate = []
+        if fused:
+            tgt, memory, mem_mask, pos, query_pos = map(widen, (tgt, memory, mem_mask, pos,
+                                                                query_pos))
+            with torch.autocast(tgt.device.type, enabled=False):
+                for layer in self.layers:
+                    tgt = fdl.fused_decoder_layer(tgt, memory, mem_mask, pos, query_pos, layer)
+                    intermediate.append(self.norm(tgt))
+            return torch.stack(intermediate, dim=0)
         for layer in self.layers:
             tgt = layer(tgt, memory, mem_mask, pos, query_pos, generator)
             intermediate.append(self.norm(widen(tgt)))
@@ -178,14 +209,19 @@ class DetrTransformer(nn.Module):
 
     def forward(self, src, mask, pos, query_embed,
                 target: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None, plain: bool = False
+                generator: Optional[torch.Generator] = None, plain: bool = False,
+                precision: str = "f32", fused_decoder: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        memory = self.encoder(src, mask, pos, generator, plain)
-        return self.decode(memory, mask, pos, query_embed, target, generator), memory
+        """`plain` and `precision` pick the encoder's route (DetrEncoder),
+        `fused_decoder` the decoder's (DetrDecoder)."""
+        memory = self.encoder(src, mask, pos, generator, plain, precision)
+        return self.decode(memory, mask, pos, query_embed, target, generator,
+                           fused_decoder), memory
 
     def decode(self, memory, mask, pos, query_embed,
                target: Optional[torch.Tensor],
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+               generator: Optional[torch.Generator] = None,
+               fused_decoder: bool = False) -> torch.Tensor:
         query_pos = query_embed[None].expand(memory.shape[0], *query_embed.shape)
         tgt = torch.zeros_like(query_pos) if target is None else target
-        return self.decoder(tgt, memory, mask, pos, query_pos, generator)
+        return self.decoder(tgt, memory, mask, pos, query_pos, generator, fused_decoder)

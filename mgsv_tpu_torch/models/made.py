@@ -7,9 +7,12 @@ Uni_model's state-dict names, so JAX parameter trees (through
 `strict=True`.  The serving engine drives the towers, X-Pool, DETR and heads
 one by one; `MaDe.forward` is the training forward of the JAX `MaDe` on the
 paper branch, with the X-Pool similarity and the DETR encoder layers on the
-CUDA kernels (their plain versions on CPU tensors), and with
-`fused_temporal` the temporal towers' layers too (FusedTemporalTransformer,
-float32, as in JAX).
+CUDA kernels (their plain versions on CPU tensors; the encoder at bf16
+precision under a bf16 compute dtype, and its plain layers under autocast
+with `fused_detr_encoder=False`, as in JAX), with `fused_temporal` the
+temporal towers' layers too (FusedTemporalTransformer, float32, as in JAX),
+and with the call argument `fused_decoder` the DETR decoder's layers
+(float32, no dropout, as JAX's FusedDetrDecoderLayer).
 """
 
 from __future__ import annotations
@@ -151,7 +154,8 @@ class MaDe(nn.Module):
     def forward(self, frame_feats: torch.Tensor, frame_mask: torch.Tensor,
                 segment_feats: torch.Tensor, segment_mask: torch.Tensor,
                 v_duration: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+                generator: Optional[torch.Generator] = None,
+                fused_decoder: bool = False) -> Dict[str, Any]:
         """The training forward (JAX made.py:112-311, paper branch).
 
         frame_feats [B, F, vit_dim], segment_feats [B, S, ast_dim], masks
@@ -161,9 +165,19 @@ class MaDe(nn.Module):
         music_emb, frame/seg tokens and masks, logit_scale, single_sim [V, M]
         (fused path) or music_pooled [M, V, D], memory, pred_logits_layers,
         pred_spans_layers [layers, B, Q, 2] and, with the contrastive-align
-        loss, proj_queries_layers and proj_vid_mem."""
+        loss, proj_queries_layers and proj_vid_mem.
+
+        fused_decoder: the DETR decoder's layers on the decoder-layer kernel
+        (float32 whatever the compute dtype).  That layer has no dropout, so
+        a training call (a generator) with detr_dropout > 0 raises rather
+        than train another model."""
         m = self.cfg.model
         d = m.dim_input
+        if fused_decoder and generator is not None and m.detr_dropout > 0.0:
+            raise ValueError(
+                f"fused_decoder=True has no dropout, but model.detr_dropout="
+                f"{m.detr_dropout} in a training call: set detr_dropout=0.0 or run "
+                "the plain decoder")
         frame_tokens, video_emb, frame_mask = self.video_tower(frame_feats, frame_mask,
                                                                generator)
         seg_tokens, music_emb, segment_mask = self.music_tower(segment_feats, segment_mask,
@@ -193,7 +207,9 @@ class MaDe(nn.Module):
                             enabled=self.compute_dtype is not None):
             hidden, memory = self.detr_transformer(
                 fused, fused_mask, pos, self.decoder_query_embed.weight, target,
-                generator)
+                generator, plain=not m.fused_detr_encoder,
+                precision="bf16" if self.compute_dtype == torch.bfloat16 else "f32",
+                fused_decoder=fused_decoder)
         hidden = L.widen(hidden)
         out["memory"] = L.widen(memory)
 

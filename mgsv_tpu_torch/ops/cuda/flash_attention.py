@@ -88,12 +88,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _launcher(device_index: int):
     """The kernel's C entry point, with its shared-memory limits set once on
     this device (call with the device current)."""
-    lib = kernels.load("flash_attention")
-    lib.mgsv_flash_attention_init.restype = ctypes.c_int
-    err = lib.mgsv_flash_attention_init()
-    if err != 0:
-        raise RuntimeError(f"flash_attention: CUDA error {err} in init on cuda:{device_index}")
-    fn = lib.mgsv_flash_attention_fwd
+    fn = kernels.load_initialized("flash_attention", device_index).mgsv_flash_attention_fwd
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 12
                    + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])

@@ -123,20 +123,11 @@ def _weights(layer: TemporalLayer, device: torch.device) -> tuple:
     return weights
 
 
-def _init(lib, name: str, device_index: int) -> None:
-    init = getattr(lib, f"mgsv_{name}_init")
-    init.restype = ctypes.c_int
-    err = init()
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA error {err} in init on cuda:{device_index}")
-
-
 @functools.cache
 def _launcher(device_index: int):
     """The forward's C entry point, with its kernels' shared-memory limits
     set once on this device (call with the device current)."""
-    lib = kernels.load("fused_temporal_layer")
-    _init(lib, "fused_temporal_layer", device_index)
+    lib = kernels.load_initialized("fused_temporal_layer", device_index)
     fn = lib.mgsv_fused_temporal_layer_fwd
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 5
@@ -147,8 +138,7 @@ def _launcher(device_index: int):
 @functools.cache
 def _bwd_launcher(device_index: int):
     """The backward's C entry points (workspace size, launch)."""
-    lib = kernels.load("fused_temporal_layer_bwd")
-    _init(lib, "fused_temporal_layer_bwd", device_index)
+    lib = kernels.load_initialized("fused_temporal_layer_bwd", device_index)
     size = lib.mgsv_fused_temporal_layer_bwd_workspace
     size.restype = ctypes.c_size_t
     size.argtypes = [ctypes.c_int, ctypes.c_int]

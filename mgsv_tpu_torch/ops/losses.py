@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from mgsv_tpu_torch.config import LossConfig
-from mgsv_tpu_torch.ops.matcher import hungarian_match
+from mgsv_tpu_torch.ops.matcher import MatchResult, hungarian_match
 from mgsv_tpu_torch.ops.spans import elementwise_temporal_giou, span_cw_to_se
 
 
@@ -57,11 +57,10 @@ def info_nce_loss(sims: torch.Tensor, logit_scale: torch.Tensor,
 
 
 def _layer_criterion(pred_logits, pred_spans, proj_queries, proj_vid_mem,
-                     tgt_spans, tgt_mask, cfg: LossConfig) -> Dict[str, torch.Tensor]:
+                     tgt_spans, match: MatchResult, cfg: LossConfig) -> Dict[str, torch.Tensor]:
     """One decoder layer: pred_logits / pred_spans [B, Q, 2], proj_queries
     [B, Q, Dc] | None, proj_vid_mem [B, F, Dc] | None, tgt_spans [B, T, 2],
-    tgt_mask [B, T] bool."""
-    match = hungarian_match(pred_logits, pred_spans, tgt_spans, tgt_mask, cfg)
+    and the layer's assignment."""
     w = match.pair_valid.to(pred_spans.dtype)                       # [B, T]
     n_pairs = torch.clamp(w.sum(), min=1.0)
     losses: Dict[str, torch.Tensor] = {}
@@ -103,14 +102,21 @@ def set_criterion(pred_logits_layers: torch.Tensor, pred_spans_layers: torch.Ten
                   proj_vid_mem: Optional[torch.Tensor], tgt_spans: torch.Tensor,
                   cfg: LossConfig):
     """SetCriterion over every decoder layer ([L, B, Q, *], final last),
-    matching re-run per layer.  Returns (total, log) with the final layer's
-    losses and, with aux_loss, `{name}_{i}` for the earlier layers."""
+    matching re-run per layer (the layers' assignments solved as one batch:
+    each is independent of the others).  Returns (total, log) with the
+    final layer's losses and, with aux_loss, `{name}_{i}` for the earlier
+    layers."""
     tgt_mask = tgt_spans[..., 1] != 0
-    num_layers = pred_logits_layers.shape[0]
+    num_layers, b = pred_logits_layers.shape[:2]
+    layers_first = lambda t: t.reshape(num_layers * b, *t.shape[2:])
+    tiled = lambda t: t.repeat(num_layers, *[1] * (t.dim() - 1))
+    match = hungarian_match(layers_first(pred_logits_layers), layers_first(pred_spans_layers),
+                            tiled(tgt_spans), tiled(tgt_mask), cfg)
     per_layer = [
         _layer_criterion(pred_logits_layers[i], pred_spans_layers[i],
                          None if proj_queries_layers is None else proj_queries_layers[i],
-                         proj_vid_mem, tgt_spans, tgt_mask, cfg)
+                         proj_vid_mem, tgt_spans,
+                         MatchResult(*(t[i * b:(i + 1) * b] for t in match)), cfg)
         for i in range(num_layers)]
     layer_losses = {name: torch.stack([d[name] for d in per_layer]) for name in per_layer[0]}
 

@@ -2,8 +2,9 @@
 
 cost = cost_span * L1(cw) + cost_giou * (-gIoU(se)) + cost_class * (-P[fg]),
 targets filtered by width != 0, padded to a static count with a validity
-mask.  The port has the two fast paths for one moment query (the paper
-configuration); more queries need the batched LSAP solver, still to port.
+mask.  One moment query (the paper configuration) takes the two fast
+paths; more queries take the exact batched LSAP solver (ops/lsap.py) on
+the cost's device.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from typing import NamedTuple
 import torch
 
 from mgsv_tpu_torch.config import LossConfig
+from mgsv_tpu_torch.ops import lsap
 from mgsv_tpu_torch.ops.spans import generalized_temporal_iou, span_cw_to_se
 
 _PAD_COST = 1e6
@@ -34,8 +36,7 @@ def matcher_cost(pred_logits: torch.Tensor, pred_spans_cw: torch.Tensor,
     cost_class = -prob_fg[..., None]
     cost_span = (pred_spans_cw[:, :, None, :] - tgt_spans_cw[:, None, :, :]).abs().sum(-1)
     pred_se, tgt_se = span_cw_to_se(pred_spans_cw), span_cw_to_se(tgt_spans_cw)
-    cost_giou = -torch.stack([generalized_temporal_iou(p, t)
-                              for p, t in zip(pred_se, tgt_se)])
+    cost_giou = -generalized_temporal_iou(pred_se, tgt_se)
     cost = cfg.cost_span * cost_span + cfg.cost_giou * cost_giou + cfg.cost_class * cost_class
     return torch.where(tgt_mask[:, None, :], cost, torch.full_like(cost, _PAD_COST))
 
@@ -52,13 +53,13 @@ def hungarian_match(pred_logits: torch.Tensor, pred_spans_cw: torch.Tensor,
     if num_queries == 1 and num_targets == 1:
         return MatchResult(torch.zeros(b, 1, dtype=torch.int64, device=tgt_mask.device),
                            tgt_mask)
+    cost = matcher_cost(pred_logits, pred_spans_cw, tgt_spans_cw, tgt_mask, cfg)
     if num_queries == 1:
         # one prediction: it matches the single cheapest valid target
-        cost = matcher_cost(pred_logits, pred_spans_cw, tgt_spans_cw, tgt_mask, cfg)
         best = cost[:, 0, :].argmin(dim=-1)
         one_hot = torch.nn.functional.one_hot(best, num_targets).bool()
         return MatchResult(torch.zeros(b, num_targets, dtype=torch.int64,
                                        device=tgt_mask.device), one_hot & tgt_mask)
-    raise NotImplementedError(
-        "more than one moment query needs the batched LSAP solver "
-        "(mgsv_tpu/ops/lsap.py), not ported yet (ROADMAP.md, queue 1: ops/lsap.py)")
+    col_to_row = lsap.solve_batch(cost)                             # [B, T]
+    return MatchResult(col_to_row.clamp(0, num_queries - 1),
+                       (col_to_row < num_queries) & tgt_mask)

@@ -27,21 +27,22 @@ def _safe_div(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
 
 
 def temporal_iou(spans1: torch.Tensor, spans2: torch.Tensor):
-    """Pairwise IoU of (start, end) spans [N, 2] x [M, 2] -> (iou, union) [N, M]."""
-    areas1 = spans1[:, 1] - spans1[:, 0]
-    areas2 = spans2[:, 1] - spans2[:, 0]
-    left = torch.maximum(spans1[:, None, 0], spans2[None, :, 0])
-    right = torch.minimum(spans1[:, None, 1], spans2[None, :, 1])
+    """Pairwise IoU of (start, end) spans [..., N, 2] x [..., M, 2] ->
+    (iou, union) [..., N, M] (leading dimensions batch)."""
+    areas1 = spans1[..., 1] - spans1[..., 0]
+    areas2 = spans2[..., 1] - spans2[..., 0]
+    left = torch.maximum(spans1[..., :, None, 0], spans2[..., None, :, 0])
+    right = torch.minimum(spans1[..., :, None, 1], spans2[..., None, :, 1])
     inter = torch.clamp(right - left, min=0)
-    union = areas1[:, None] + areas2[None, :] - inter
+    union = areas1[..., :, None] + areas2[..., None, :] - inter
     return _safe_div(inter, union), union
 
 
 def generalized_temporal_iou(spans1: torch.Tensor, spans2: torch.Tensor) -> torch.Tensor:
-    """Pairwise 1-D generalized IoU of (start, end) spans -> [N, M]."""
+    """Pairwise 1-D generalized IoU of (start, end) spans -> [..., N, M]."""
     iou, union = temporal_iou(spans1, spans2)
-    left = torch.minimum(spans1[:, None, 0], spans2[None, :, 0])
-    right = torch.maximum(spans1[:, None, 1], spans2[None, :, 1])
+    left = torch.minimum(spans1[..., :, None, 0], spans2[..., None, :, 0])
+    right = torch.maximum(spans1[..., :, None, 1], spans2[..., None, :, 1])
     enclosing = torch.clamp(right - left, min=0)
     return iou - _safe_div(enclosing - union, enclosing)
 

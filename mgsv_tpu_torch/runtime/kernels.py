@@ -27,7 +27,8 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 KERNELS = ("fused_encoder_layer", "fused_encoder_layer_bwd", "xpool_sim_train",
-           "flash_attention", "fused_temporal_layer", "fused_temporal_layer_bwd")
+           "flash_attention", "fused_temporal_layer", "fused_temporal_layer_bwd",
+           "fused_decoder_layer", "fused_decoder_layer_bwd")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -99,3 +100,16 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = _libs[name] = ctypes.CDLL(build_all([name])[name])
         return lib
+
+
+def load_initialized(name: str, device_index: int) -> ctypes.CDLL:
+    """`load(name)` after its `mgsv_<name>_init` ran on the current device
+    (it sets the kernels' shared-memory limits there; call with that
+    device current, once per device).  Raises on a CUDA error."""
+    lib = load(name)
+    init = getattr(lib, f"mgsv_{name}_init")
+    init.restype = ctypes.c_int
+    err = init()
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} in init on cuda:{device_index}")
+    return lib

@@ -23,7 +23,7 @@ import torch
 
 from mgsv_tpu_torch.config import Config
 from mgsv_tpu_torch.core.checkpoint import BestMetricTracker, CheckpointManager
-from mgsv_tpu_torch.core.device import resolve_device
+from mgsv_tpu_torch.core.device import check_mesh_shape, resolve_device
 from mgsv_tpu_torch.core.profiling import StepProfiler
 from mgsv_tpu_torch.data.dataset import MgsvDataset
 from mgsv_tpu_torch.data.pipeline import prefetch_epoch
@@ -75,6 +75,7 @@ class Trainer:
         if mesh is not None:
             raise NotImplementedError("multi-device training is not ported yet "
                                       "(ROADMAP.md, queue 1, item 9)")
+        check_mesh_shape(cfg.train.mesh_shape)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.train_data = train_data

@@ -42,13 +42,16 @@ def decode_top_span(outputs: Dict[str, Any], cfg: Config) -> Tuple[torch.Tensor,
     return spans_se[rows, best], scores[rows, best]
 
 
-def make_train_step(model: MaDe, cfg: Config, optimizer: GroupedAdam):
+def make_train_step(model: MaDe, cfg: Config, optimizer: GroupedAdam,
+                    fused_decoder: bool = False):
     """step(batch) -> log.  batch: tensors on the model's device, keyed as
     data/example_batch.py makes them.  The log holds the losses,
     train_iou [B] and grad_norm (the norm over every gradient, frozen
     parameters included, as optax.global_norm(grads) is), as tensors.
     After the step each parameter's .grad holds its gradient.  Dropout
-    draws from (cfg.train.seed, the optimizer's update count)."""
+    draws from (cfg.train.seed, the optimizer's update count).
+    fused_decoder: the DETR decoder on the decoder-layer kernel
+    (MaDe.forward; it raises for a detr_dropout above 0)."""
     params = list(model.parameters())
 
     def train_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -58,7 +61,7 @@ def make_train_step(model: MaDe, cfg: Config, optimizer: GroupedAdam):
             p.grad = None
         out = model(batch["frame_feats"], batch["frame_mask"], batch["segment_feats"],
                     batch["segment_mask"], v_duration=batch.get("v_duration"),
-                    generator=generator)
+                    generator=generator, fused_decoder=fused_decoder)
         loss, log = total_loss(out, batch["spans_target"], cfg,
                                music_codes=batch.get("music_codes"))
         loss.backward()
@@ -75,16 +78,18 @@ def make_train_step(model: MaDe, cfg: Config, optimizer: GroupedAdam):
     return train_step
 
 
-def make_eval_step(model: MaDe, cfg: Config):
+def make_eval_step(model: MaDe, cfg: Config, fused_decoder: bool = False):
     """eval_step(batch) -> the JAX eval step's outputs as tensors on the
     model's device: the embeddings, snippet tokens and mask the corpus
     similarity needs, the top-1 span in seconds, its score and IoU [B], and
-    the three losses (the in-batch retrieval loss, no music codes)."""
+    the three losses (the in-batch retrieval loss, no music codes).
+    fused_decoder: the DETR decoder on the decoder-layer kernel."""
 
     @torch.no_grad()
     def eval_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         out = model(batch["frame_feats"], batch["frame_mask"], batch["segment_feats"],
-                    batch["segment_mask"], v_duration=batch.get("v_duration"))
+                    batch["segment_mask"], v_duration=batch.get("v_duration"),
+                    fused_decoder=fused_decoder)
         loss, log = total_loss(out, batch["spans_target"], cfg)
         spans_sec, score = decode_top_span(out, cfg)
         return {

@@ -1,6 +1,7 @@
 """Where the time goes in the PyTorch port's training step, on one CUDA GPU.
 
     python3 scripts/profile_train_cuda.py [--steps 10] [--fused-temporal]
+        [--queries 10 [--fused-decoder]]
 
 Builds MaDe(Config()) (the paper widths, seeded random weights) and a
 seeded batch of B=512 precomputed features, warms up, and times the step
@@ -13,8 +14,11 @@ the host's time by operator and its kernel launches, then traces the two
 backward kernels alone at the step's shapes, so their launches can be read
 apart.  With --fused-temporal the configurations set fused_temporal (both
 temporal towers on the temporal-layer kernels, float32), and the temporal
-backward at the audio tower's shape is traced too.  Prints the card's name
-and power limit first.
+backward at the audio tower's shape is traced too.  With --queries Q the
+configurations have Q moment queries and detr_dropout 0 (the matcher on
+the batched LSAP), and with --fused-decoder the step runs the DETR decoder
+layers on the decoder-layer kernels (float32), whose backward at the
+step's shape is traced too.  Prints the card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -38,10 +42,11 @@ from torch.profiler import ProfilerActivity, profile
 from mgsv_tpu_torch.config import Config
 from mgsv_tpu_torch.core.device import resolve_device
 from mgsv_tpu_torch.data.example_batch import example_batch, to_tensors
-from mgsv_tpu_torch.models.detr import DetrEncoderLayer
+from mgsv_tpu_torch.models.detr import DetrDecoderLayer, DetrEncoderLayer
 from mgsv_tpu_torch.models.made import MaDe
 from mgsv_tpu_torch.models.temporal import TemporalTransformer
 from mgsv_tpu_torch.models.xpool import XPoolTransformer
+from mgsv_tpu_torch.ops.cuda import fused_decoder_layer as fdl
 from mgsv_tpu_torch.ops.cuda import fused_encoder_layer as fel
 from mgsv_tpu_torch.ops.cuda import fused_temporal_layer as ftl
 from mgsv_tpu_torch.ops.cuda import xpool_sim as xps
@@ -81,7 +86,8 @@ def plain_kernels():
     (the model looks them up at each call)."""
     with mock.patch.object(fel, "fused_encoder_layer", fel.fused_encoder_layer_reference), \
             mock.patch.object(xps, "xpool_sim", xps.xpool_sim_reference), \
-            mock.patch.object(ftl, "fused_temporal_layer", ftl.fused_temporal_layer_reference):
+            mock.patch.object(ftl, "fused_temporal_layer", ftl.fused_temporal_layer_reference), \
+            mock.patch.object(fdl, "fused_decoder_layer", fdl.fused_decoder_layer_reference):
         yield
 
 
@@ -106,6 +112,10 @@ def main() -> int:
     parser.add_argument("--steps", type=int, default=10, help="timed steps per turn")
     parser.add_argument("--fused-temporal", action="store_true",
                         help="the temporal towers on the temporal-layer kernels")
+    parser.add_argument("--queries", type=int, default=Config().model.num_moment_queries,
+                        help="moment queries (above 1: detr_dropout 0)")
+    parser.add_argument("--fused-decoder", action="store_true",
+                        help="the DETR decoder on the decoder-layer kernels")
     args = parser.parse_args()
     device = resolve_device("cuda")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -114,9 +124,12 @@ def main() -> int:
     kernels.build_all()
 
     base = Config()
-    base = dataclasses.replace(base, model=dataclasses.replace(
-        base.model, fused_temporal=args.fused_temporal))
-    print(f"fused_temporal={args.fused_temporal}")
+    over = dict(fused_temporal=args.fused_temporal, num_moment_queries=args.queries)
+    if args.queries > 1:
+        over["detr_dropout"] = 0.0
+    base = dataclasses.replace(base, model=dataclasses.replace(base.model, **over))
+    print(f"fused_temporal={args.fused_temporal} queries={args.queries} "
+          f"fused_decoder={args.fused_decoder}")
     warnings.simplefilter("ignore")   # the fused towers ignore bf16 by design
     batch = None
     for dtype in ("bfloat16", "float32"):
@@ -126,7 +139,8 @@ def main() -> int:
         steps = {}
         for plain in (False, True):
             model = MaDe(cfg, torch.Generator().manual_seed(0)).to(device)
-            step = make_train_step(model, cfg, make_optimizer(model, cfg, HORIZON))
+            step = make_train_step(model, cfg, make_optimizer(model, cfg, HORIZON),
+                                   args.fused_decoder)
             steps[plain] = on_plain_kernels(step) if plain else step
             for _ in range(2):
                 steps[plain](batch)
@@ -190,6 +204,13 @@ def main() -> int:
         tx, tg = (torch.randn(BATCH, s, d, device=device) for _ in range(2))
         calls[f"fused_temporal_layer_bwd B={BATCH} L={s} rate={m.temporal_dropout}"] = (
             lambda: ftl.fused_temporal_layer_bwd(tx, smask, tg, tlayer, m.temporal_dropout, 1))
+    if args.fused_decoder:
+        dlayer = DetrDecoderLayer(d, m.detr_heads, f, self_attn=m.decoder_self_attn)
+        dlayer.reset_parameters(torch.Generator().manual_seed(0))
+        dlayer = dlayer.to(device)
+        tq, qp, dg = (torch.randn(BATCH, args.queries, d, device=device) for _ in range(3))
+        calls[f"fused_decoder_layer_bwd B={BATCH} Q={args.queries} L=152"] = (
+            lambda: fdl.fused_decoder_layer_bwd(tq, x, mask, pos, qp, dg, dlayer))
     for name, fn in calls.items():
         fn()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:

@@ -10,8 +10,21 @@ Forward outputs agree to 1e-4 (float32 kernels with 3xTF32 GEMMs, outputs
 of order 1 after LayerNorm); gradients to 1e-3 of each tensor's largest
 magnitude.  The shapes are small enough that few ReLU gates sit within
 rounding of zero; chip_smoke.py holds the kernels at the training shapes
-against a float64 run.
+against a float64 run.  The decoder layer's gradients are held as
+chip_smoke.py holds them: against a float64 run of the plain version,
+within 1e-3 of each tensor's largest magnitude plus twice the float32 plain
+version's own error there, plus, element by element, the sum of what
+flipping each FFN gate whose float64 pre-activation lies within 1e-5 of
+zero does to the float64 run (at 3,000 query rows the kernel may flip such
+a gate where the float32 plain run flips none).  The encoder layer at
+precision "bf16" rounds every product's operands to bf16 on both sides,
+and one float32 rounding step apart can put an operand (or a ReLU gate) on
+the other side of a bf16 rounding boundary: its gradients are held against
+the float64 run of the float32 layer, within 1e-2 of their largest
+magnitude plus twice the bf16 plain version's own distance from it.
 """
+
+import copy
 
 import numpy as np
 import pytest
@@ -19,9 +32,10 @@ import torch
 
 from mgsv_tpu_torch.core.device import resolve_device
 from mgsv_tpu_torch.eval.similarity import xpool_sim_fused, xpool_similarity_blocked
-from mgsv_tpu_torch.models.detr import DetrEncoderLayer
+from mgsv_tpu_torch.models.detr import DetrDecoderLayer, DetrEncoderLayer
 from mgsv_tpu_torch.models.xpool import XPoolTransformer
 from mgsv_tpu_torch.ops.cuda import flash_attention as fa
+from mgsv_tpu_torch.ops.cuda import fused_decoder_layer as fdl
 from mgsv_tpu_torch.models.temporal import TemporalLayer
 from mgsv_tpu_torch.ops.cuda import fused_encoder_layer as fel
 from mgsv_tpu_torch.ops.cuda import fused_temporal_layer as ftl
@@ -57,6 +71,35 @@ def _perturbed(module, seed):
 def _assert_grads(got, want):
     for k, p in zip(got, want):
         torch.testing.assert_close(k, p, atol=1e-3 * p.abs().max().item() + 1e-6, rtol=0)
+
+
+def _assert_grads_vs_float64(kernel, plain, exact, rel=1e-3, slack=None):
+    for i, (k, p, e) in enumerate(zip(kernel, plain, exact)):
+        plain_err = (p.double() - e).abs().max().item()
+        diff = (k.double() - e).abs()
+        beyond = (diff if slack is None else diff - slack[i]).max().item()
+        assert beyond <= rel * e.abs().max().item() + 2 * plain_err + 1e-6, (i, beyond, plain_err)
+
+
+def _gate_flip_slack(layer64, grads_of, eps=1e-5):
+    """(float64 gradients, per tensor the sum over the FFN gates within eps
+    of zero of |the same with that gate flipped - them|): see
+    chip_smoke.py::gate_flip_slack."""
+    seen = {}
+    hook = layer64.linear1.register_forward_hook(lambda m, i, o: seen.update(z=o.detach()))
+    exact = grads_of()
+    hook.remove()
+    near = torch.nonzero(seen["z"].abs() < eps)
+    slack = [torch.zeros_like(e) for e in exact]
+    for idx in near:                   # one gate at a time: their effects add
+        flip = torch.zeros_like(seen["z"], dtype=torch.bool)
+        flip[tuple(idx)] = True
+        hook = layer64.linear1.register_forward_hook(
+            lambda m, i, o: torch.where(flip, o - 2 * o.detach(), o))
+        for s_, a, b in zip(slack, grads_of(), exact):
+            s_ += (a - b).abs()
+        hook.remove()
+    return exact, slack
 
 
 def _encoder_layer(dev):
@@ -240,3 +283,73 @@ def test_cuda_temporal_backward_is_bit_reproducible(dev):
     second = ftl.fused_temporal_layer_bwd(x, mask, g, layer, 0.8, 3)
     for a, b in zip([first[0], *first[1]], [second[0], *second[1]]):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_cuda_encoder_bf16_matches_plain_version(dev, rate):
+    """Kernels #1 and #2 at precision "bf16" against the bf16 plain version
+    (operands rounded to bf16, float32 sums), and nearer it than the
+    float32 kernel is."""
+    rng = np.random.default_rng(5)
+    x, pos, g = (_randn(rng, (6, 152, 256), dev) for _ in range(3))
+    mask = _ragged(rng, 6, 152, dev)
+    layer = _encoder_layer(dev)
+    layer64 = copy.deepcopy(layer).double()
+    before = fel.fused_encoder_layer.launches, fel.fused_encoder_layer_bwd.launches
+    outs, grads = [], []
+    for fn, lay, dt, prec in ((fel.fused_encoder_layer, layer, torch.float32, "bf16"),
+                              (fel.fused_encoder_layer_reference, layer, torch.float32, "bf16"),
+                              (fel.fused_encoder_layer_reference, layer64, torch.float64, "f32")):
+        xi, pi = (t.to(dt).requires_grad_() for t in (x, pos))
+        out = fn(xi, mask.to(dt), pi, lay, rate, 7, prec)
+        grads.append(torch.autograd.grad(out, [xi, pi, *lay.parameters()], g.to(dt)))
+        outs.append(out.detach())
+    assert (fel.fused_encoder_layer.launches, fel.fused_encoder_layer_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    with torch.no_grad():
+        f32 = fel.fused_encoder_layer(x, mask, pos, layer, rate, 7)
+    err = (outs[0] - outs[1]).abs().max().item()
+    assert err <= 2e-2, err
+    assert err < (f32 - outs[1]).abs().max().item()
+    _assert_grads_vs_float64(*grads, rel=1e-2)
+
+
+def _decoder_layer(dev, self_attn):
+    layer = DetrDecoderLayer(256, 8, 1024, self_attn=self_attn)
+    layer.reset_parameters(torch.Generator().manual_seed(0))
+    return _perturbed(layer, 2).to(dev)
+
+
+@pytest.mark.parametrize("b,q,L,self_attn", [(4, 1, 152, True), (6, 10, 152, True),
+                                             (3, 3, 21, False), (300, 10, 8, True)])
+def test_cuda_decoder_kernels_match_plain_version(dev, b, q, L, self_attn):
+    """Kernel #6, forward and backward: Q=1 and Q=10 at L=152 with ragged
+    key masks (a row with one valid key), no self-attention, and 2,400
+    memory rows (two split-K chunks) at a short L.  Two backward calls are
+    bit-identical."""
+    rng = np.random.default_rng(b * q + L)
+    tgt, qpos, g = (_randn(rng, (b, q, 256), dev) for _ in range(3))
+    mem, pos = _randn(rng, (b, L, 256), dev), _randn(rng, (b, L, 256), dev)
+    mask = _ragged(rng, b, L, dev)
+    mask[0] = 0.0
+    mask[0, 0] = 1.0
+    layer = _decoder_layer(dev, self_attn)
+    layer64 = copy.deepcopy(layer).double()
+    before = fdl.fused_decoder_layer.launches, fdl.fused_decoder_layer_bwd.launches
+    def run(fn, lay, dt):
+        ins = [t.to(dt).requires_grad_() for t in (tgt, mem, pos, qpos)]
+        out = fn(ins[0], ins[1], mask.to(dt), ins[2], ins[3], lay)
+        return out.detach(), torch.autograd.grad(out, [*ins, *lay.parameters()], g.to(dt))
+
+    out_k, grads_k = run(fdl.fused_decoder_layer, layer, torch.float32)
+    out_p, grads_p = run(fdl.fused_decoder_layer_reference, layer, torch.float32)
+    exact, slack = _gate_flip_slack(
+        layer64, lambda: run(fdl.fused_decoder_layer_reference, layer64, torch.float64)[1])
+    assert (fdl.fused_decoder_layer.launches, fdl.fused_decoder_layer_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(out_k, out_p, atol=1e-4, rtol=0)
+    _assert_grads_vs_float64(grads_k, grads_p, exact, slack=slack)
+    again = fdl.fused_decoder_layer_bwd(tgt, mem, mask, pos, qpos, g, layer)
+    first = fdl.fused_decoder_layer_bwd(tgt, mem, mask, pos, qpos, g, layer)
+    for a, c in zip([*again[:4], *again[4]], [*first[:4], *first[4]]):
+        assert torch.equal(a, c)

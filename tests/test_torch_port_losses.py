@@ -147,9 +147,15 @@ def test_one_query_matcher_matches_jax(targets):
 
 
 def test_matcher_refuses_several_queries():
+    """Three queries: refused until the batched LSAP (ops/lsap.py) was
+    ported; now the matcher takes them and gives JAX's assignment on the
+    same inputs, padded targets included."""
     rng = np.random.default_rng(8)
     logits, spans, _, _, tgt = _detr_outputs(rng, 1, 2, 3, 2, 4, 3)
-    with pytest.raises(NotImplementedError, match="lsap"):
-        tm.hungarian_match(torch.from_numpy(logits[0]), torch.from_numpy(spans[0]),
-                           torch.from_numpy(tgt), torch.from_numpy(tgt[..., 1] != 0),
-                           Config().loss)
+    mask = tgt[..., 1] != 0
+    got = tm.hungarian_match(torch.from_numpy(logits[0]), torch.from_numpy(spans[0]),
+                             torch.from_numpy(tgt), torch.from_numpy(mask), Config().loss)
+    want = jm.hungarian_match(jnp.asarray(logits[0]), jnp.asarray(spans[0]), jnp.asarray(tgt),
+                              jnp.asarray(mask), JaxConfig().loss)
+    np.testing.assert_array_equal(got.pair_valid.numpy(), np.asarray(want.pair_valid))
+    np.testing.assert_array_equal(got.tgt_to_pred.numpy(), np.asarray(want.tgt_to_pred))
