@@ -18,7 +18,9 @@ failure:
               precision "bf16" (the bf16 Config()'s: bf16 operands, float32
               sums) against its bf16 plain version, forward and every
               gradient, timed in turns with the float32 instantiation
-              beside the bf16 bound
+              beside the bf16 bound; the backward kernels of #2 (both
+              precisions) and #3 also by kernel name (one call under
+              torch.profiler, [breakdown] lines)
   4. temporal-kernel  the temporal-tower layer's kernels (#5, forward and
               backward) against their plain version at B=512 for the audio
               (L=96) and video (L=50) towers, rates 0 and 0.8, a row with no
@@ -284,6 +286,23 @@ def in_turns(kernel, plain, iters: int = 5):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def breakdown(name: str, fn, **fields) -> None:
+    """One call of fn under torch.profiler: its device time summed by kernel
+    name, one [breakdown] line per kernel (ms, launches), largest first."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(((e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+                   if e.device_time_total > 0), key=lambda r: -r[1])
+    phase("breakdown", name=name, **fields, device_ms=f"{sum(r[1] for r in rows):.4f}",
+          kernels=len(rows))
+    for kernel, ms, count in rows:
+        print(f"[breakdown]   {ms:9.4f} ms {count:4d} x {kernel[:120]}", flush=True)
+
+
 def bound(flops: float, nbytes: int, peak_flops: float = PEAK_TF32_FLOPS) -> tuple:
     """(ms, "operations" | "bytes"): the larger of the operations at the
     peak rate of their type (TF32 for the float32 kernels) and the bytes
@@ -478,6 +497,8 @@ def check_encoder(device: torch.device) -> list:
           ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}")
     phase("kernel-time", name="fused_encoder_layer_bwd", B=TRAIN_B, L=TRAIN_L, rate=rate,
           ms=f"{bms:.4f}", plain_ms=f"{plain_bms:.4f}")
+    breakdown("fused_encoder_layer_bwd", lambda: fel.fused_encoder_layer_bwd(
+        x, mask, pos, g, layer, rate, DROPOUT_SEED), precision="f32")
     flops = encoder_flops(TRAIN_B, TRAIN_L, d, ffn)
     fwd_bytes = nbytes(x, pos, mask, x, *params)
     bwd_bytes = nbytes(x, pos, mask, g, *params, x, pos, *params)
@@ -555,6 +576,7 @@ def check_encoder_bf16(layer, layer64, names, x, pos, mask, g, rate) -> dict:
         out, [xi, pi, *params], g, retain_graph=True))
     bms_b, bms32 = in_turns(bwd("bf16"), bwd("f32"))
     del out
+    breakdown("fused_encoder_layer_bwd", bwd("bf16"), precision="bf16")
     return {"fused_encoder_layer": (fwd_err, (ms + ms_b) / 2, plain_ms, ms32),
             "fused_encoder_layer_bwd": (bwd_err, (bms + bms_b) / 2, plain_bms, bms32)}
 
@@ -611,6 +633,8 @@ def check_xpool(device: torch.device) -> list:
           plain_ms=f"{plain_ms:.4f}")
     phase("kernel-time", name="xpool_sim_bwd", V=vc, M=mc, S=s, rate=rate, ms=f"{bms:.4f}",
           plain_ms=f"{plain_bms:.4f}")
+    breakdown("xpool_sim_bwd", lambda: xps.xpool_sim_bwd(q, k, v, mask, vhat, weights, g, rate,
+                                                         DROPOUT_SEED))
     flops = xpool_pair_flops(vc, mc, s, d)
     src = "mgsv_tpu_torch/csrc/xpool_sim_train.cu"
     return [

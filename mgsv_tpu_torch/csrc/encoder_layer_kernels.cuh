@@ -49,6 +49,36 @@ qkv_kernel(const float* __restrict__ x, const float* __restrict__ pos,
   store_rows(qkv, ld_out, part * kCols, A, r0, rows);
 }
 
+// The dropout mask values (k0, k1) of weights (i0, j) and (i1, j), lane's
+// key j = jb + lane: with L a multiple of 4 every row starts a group of four
+// mask words, so in each group of four lanes the first draws row i0's
+// group and the second row i1's, and the four read them by shuffles (one
+// Philox call per two lanes); else one per weight.  Every lane of the warp
+// calls it; values for j >= L are not used.
+__device__ __forceinline__ void row_pair_keep(const Dropout& drop, unsigned b, unsigned h, int L,
+                                              int i0, int i1, int jb, float& k0, float& k1) {
+  const int lane = threadIdx.x & 31, j = jb + lane;
+  if ((L & 3) == 0) {
+    const int sub = lane & 3, lead = lane & ~3;
+    uint4 w = make_uint4(0u, 0u, 0u, 0u);
+    if (sub < 2) w = philox4(drop.seed, b, h, (unsigned)((sub ? i1 : i0) * L + (j & ~3)) >> 2);
+    uint4 w0, w1;
+    w0.x = __shfl_sync(0xffffffffu, w.x, lead);
+    w0.y = __shfl_sync(0xffffffffu, w.y, lead);
+    w0.z = __shfl_sync(0xffffffffu, w.z, lead);
+    w0.w = __shfl_sync(0xffffffffu, w.w, lead);
+    w1.x = __shfl_sync(0xffffffffu, w.x, lead + 1);
+    w1.y = __shfl_sync(0xffffffffu, w.y, lead + 1);
+    w1.z = __shfl_sync(0xffffffffu, w.z, lead + 1);
+    w1.w = __shfl_sync(0xffffffffu, w.w, lead + 1);
+    k0 = word_of(w0, sub) >= drop.thresh ? drop.scale : 0.f;
+    k1 = word_of(w1, sub) >= drop.thresh ? drop.scale : 0.f;
+  } else if (j < L) {
+    k0 = keep(drop, b, h, i0 * L + j);
+    k1 = keep(drop, b, h, i1 * L + j);
+  }
+}
+
 // Softmax rows start 16-byte aligned and hold L rounded up to 4 floats.
 __host__ __device__ constexpr int attention_rows_offset(int L) {
   return (3 * L * kPad + L + 3) & ~3;
@@ -60,7 +90,8 @@ __host__ __device__ constexpr size_t attention_smem_bytes(int L) {
 
 // (b) One block per (head, batch row).  The head's q, k, v ([L, 32] each)
 // sit in shared memory; each warp takes two query rows at a time, their
-// scores one key per lane, and writes ctx [B, L, D].  Dropout multiplies
+// scores one key per lane, and writes ctx [B, L, D] (and, given stats, each
+// row's softmax max and sum [B, H, L], for a backward).  Dropout multiplies
 // the normalized weights (after the softmax sum), as torch does.  kDrop
 // false (rate 0, the serving path) compiles the mask code out.  A null mask
 // means every key is valid.  kBf16: q, k, v and the (dropped) weights are
@@ -69,7 +100,7 @@ __host__ __device__ constexpr size_t attention_smem_bytes(int L) {
 template <bool kDrop, bool kBf16 = false>
 __global__ void __launch_bounds__(kThreads)
 attention_kernel(const float* __restrict__ qkv, const float* __restrict__ mask,
-                 float* __restrict__ ctx, int L, Dropout drop) {
+                 float* __restrict__ ctx, int L, Dropout drop, float2* __restrict__ stats) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int h = blockIdx.x, b = blockIdx.y;
@@ -131,22 +162,37 @@ attention_kernel(const float* __restrict__ qkv, const float* __restrict__ mask,
     mx0 = warp_max(mx0);
     mx1 = warp_max(mx1);
     float sum0 = 0.f, sum1 = 0.f;
-    for (int j = lane; j < L; j += 32) {
-      const float e0 = expf(p0[j] - mx0), e1 = expf(p1[j] - mx1);
-      sum0 += e0;
-      sum1 += e1;
-      p0[j] = kDrop && !kBf16 ? e0 * keep(drop, b, h, i0 * L + j) : e0;
-      p1[j] = kDrop && !kBf16 ? e1 * keep(drop, b, h, i1 * L + j) : e1;
+    for (int jb = 0; jb < L; jb += 32) {   // every lane takes each step (row_pair_keep)
+      const int j = jb + lane;
+      float k0 = 1.f, k1 = 1.f;
+      if constexpr (kDrop && !kBf16) row_pair_keep(drop, b, h, L, i0, i1, jb, k0, k1);
+      if (j < L) {
+        const float e0 = expf(p0[j] - mx0), e1 = expf(p1[j] - mx1);
+        sum0 += e0;
+        sum1 += e1;
+        p0[j] = e0 * k0;
+        p1[j] = e1 * k1;
+      }
     }
     sum0 = warp_sum(sum0);
     sum1 = warp_sum(sum1);
+    if (stats != nullptr && lane == 0) {
+      float2* st = stats + ((size_t)b * gridDim.x + h) * L;
+      st[i0] = make_float2(mx0, sum0);
+      st[i1] = make_float2(mx1, sum1);
+    }
     __syncwarp();
     if constexpr (kBf16) {
       // JAX's order: p / sum, then the mask, then the bf16 operand of p v
-      for (int j = lane; j < L; j += 32) {
-        const float a0 = p0[j] / sum0, a1 = p1[j] / sum1;
-        p0[j] = round_bf16(kDrop ? a0 * keep(drop, b, h, i0 * L + j) : a0);
-        p1[j] = round_bf16(kDrop ? a1 * keep(drop, b, h, i1 * L + j) : a1);
+      for (int jb = 0; jb < L; jb += 32) {
+        const int j = jb + lane;
+        float k0 = 1.f, k1 = 1.f;
+        if constexpr (kDrop) row_pair_keep(drop, b, h, L, i0, i1, jb, k0, k1);
+        if (j < L) {
+          const float a0 = p0[j] / sum0, a1 = p1[j] / sum1;
+          p0[j] = round_bf16(kDrop ? a0 * k0 : a0);
+          p1[j] = round_bf16(kDrop ? a1 * k1 : a1);
+        }
       }
       sum0 = sum1 = 1.f;
       __syncwarp();
@@ -255,14 +301,15 @@ inline cudaError_t attention_init(int max_l = kMaxL) {
 // Launches (b) over B rows on `s`; rate 0 takes the instantiation without
 // mask code, bf16 the one with bf16 operands.
 inline void launch_attention(const float* qkv, const float* mask, float* ctx, int B, int H,
-                             int L, const Dropout& drop, cudaStream_t s, bool bf16 = false) {
+                             int L, const Dropout& drop, cudaStream_t s, bool bf16 = false,
+                             float2* stats = nullptr) {
   const dim3 grid(H, B);
   const size_t smem = attention_smem_bytes(L);
   auto* kernel = drop.thresh != 0u ? (bf16 ? attention_kernel<true, true>
                                            : attention_kernel<true, false>)
                                    : (bf16 ? attention_kernel<false, true>
                                            : attention_kernel<false, false>);
-  kernel<<<grid, kThreads, smem, s>>>(qkv, mask, ctx, L, drop);
+  kernel<<<grid, kThreads, smem, s>>>(qkv, mask, ctx, L, drop, stats);
 }
 
 // The forward's GEMM launches at both precisions: dynamic shared memory.

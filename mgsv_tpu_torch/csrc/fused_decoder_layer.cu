@@ -23,8 +23,9 @@
 //  (a) qkv_kernel: k = (mem + pos) Wk^T + bk and v = mem Wv^T + bv into a
 //      [B*L, 2D] buffer;
 //  (b) with self-attention: qkv_kernel over the query rows, the encoder's
-//      attention_kernel over Q keys, rowgemm_kernel (out-projection with
-//      the residual fused) and ln_fwd_kernel (LN1);
+//      attention_kernel over Q keys, the wgmma core's row product
+//      (wgmma_gemm.cuh: out-projection with the residual fused) and
+//      ln_fwd_kernel (LN1);
 //  (c) qkv_kernel: the cross-attention's q from t1 + qpos;
 //  (d) cross_attention_kernel: one block per (head, batch row), the head's
 //      k and v of the row's L memory rows in shared memory, one warp per

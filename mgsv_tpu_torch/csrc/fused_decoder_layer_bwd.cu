@@ -18,15 +18,15 @@
 //  * cross_attention_bwd_kernel recomputes the [Q, L] weights per (head,
 //    batch row) in shared memory, in two sweeps (query rows: statistics and
 //    dq; key rows: dk and dv), so every sum has one owner and no atomics
-//    are needed; the self-attention's backward is the encoder's
-//    attention_bwd_kernel over Q keys.
-//  * Activation x weight products run through rowgemm_kernel (3xTF32 tiles,
-//    bias / ReLU / gate / residual epilogues fused), over the B*Q query
-//    rows or the B*L memory rows.
-//  * Each weight gradient is a split-K GEMM over 2048-row chunks whose
-//    partials are summed in chunk order (wgrad_kernel, reduce_kernel), bias
-//    and LayerNorm gradients column sums in the same two passes: two calls
-//    on the same inputs are bit-identical.
+//    are needed; the self-attention's backward is the encoder's tensor-core
+//    attention_bwd_tc_kernel over Q keys.
+//  * Activation x weight products run on the wgmma core (wgmma_gemm.cuh,
+//    3xTF32; bias / ReLU / gate / residual epilogues fused), over the B*Q
+//    query rows or the B*L memory rows.
+//  * Each weight gradient is a split-K product of the same core over
+//    1024-row slices whose partials are summed in slice order
+//    (reduce_kernel), bias and LayerNorm gradients column sums in the same
+//    two passes: two calls on the same inputs are bit-identical.
 //
 // With t1 the self-attention block's output (tgt without it), a = t1 +
 // qpos, q = a Wq^T + bq, t2 = LN2(t1 + ctx Wo^T + bo), h1 = relu(t2 W1^T +
@@ -115,28 +115,24 @@ extern "C" int mgsv_fused_decoder_layer_bwd(
   lq.ln_fwd(r3, n3_g, n3_b, nullptr, xh3, inv3);
 
   // ---- LN3, the FFN and LN2
-  lq.ln_bwd(g, xh3, inv3, n3_g, dr3);
-  lq.colsum(g, xh3, D, D, dn3_g);
-  lq.colsum(g, nullptr, D, D, dn3_b);
-  lq.colsum(dr3, nullptr, D, D, db2);
+  lq.ln_bwd_sums(g, xh3, inv3, n3_g, dr3, dn3_g, dn3_b);
+  lq.colsum(dr3, D, D, db2);
   lq.wgrad(dr3, D, D, h1, F, F, dw2);
   lq.rowgemm({dr3, D, D, w2, F, 1, nullptr, 0, -1, F, h1, F, nullptr, 0, dz1, F}, F);
-  lq.colsum(dz1, nullptr, F, F, db1);
+  lq.colsum(dz1, F, F, db1);
   lq.wgrad(dz1, F, F, t2, D, D, dw1);
   lq.rowgemm({dz1, F, F, w1, D, 1, nullptr, 0, -1, D, nullptr, 0, dr3, D, dt2, D}, D);
-  lq.ln_bwd(dt2, xh2, inv2, n2_g, dr2);
-  lq.colsum(dt2, xh2, D, D, dn2_g);
-  lq.colsum(dt2, nullptr, D, D, dn2_b);
+  lq.ln_bwd_sums(dt2, xh2, inv2, n2_g, dr2, dn2_g, dn2_b);
 
   // ---- the cross-attention and its projections
-  lq.colsum(dr2, nullptr, D, D, dca_b_out);
+  lq.colsum(dr2, D, D, dca_b_out);
   lq.wgrad(dr2, D, D, ctx, D, D, dca_w_out);
   lq.rowgemm({dr2, D, D, ca_w_out, D, 1, nullptr, 0, -1, D, nullptr, 0, nullptr, 0, dctx, D}, D);
   if (!lq.check()) return (int)lq.err;
   cross_attention_bwd_kernel<<<dim3(H, B), kThreads, cross_attention_bwd_smem_bytes(Q, L), s>>>(
       q, kv, mask, dctx, dq, dkv, Q, L);
-  lq.colsum(dq, nullptr, D, D, dca_b_in);
-  lm.colsum(dkv, nullptr, 2 * D, 2 * D, dca_b_in + D);
+  lq.colsum(dq, D, D, dca_b_in);
+  lm.colsum(dkv, 2 * D, 2 * D, dca_b_in + D);
   lq.add(t1p, qpos, a, nq * d);
   lq.wgrad(dq, D, D, a, D, D, dca_w_in);
   lm.add(mem, pos, mp, nm * d);
@@ -154,15 +150,13 @@ extern "C" int mgsv_fused_decoder_layer_bwd(
   } else {
     // ---- LN1 and the self-attention
     lq.rowgemm({dq, D, D, ca_w_in, D, 1, nullptr, 0, -1, D, nullptr, 0, dr2, D, dt1, D}, D);
-    lq.ln_bwd(dt1, xh1, inv1, n1_g, dr1);
-    lq.colsum(dt1, xh1, D, D, dn1_g);
-    lq.colsum(dt1, nullptr, D, D, dn1_b);
-    lq.colsum(dr1, nullptr, D, D, dsa_b_out);
+    lq.ln_bwd_sums(dt1, xh1, inv1, n1_g, dr1, dn1_g, dn1_b);
+    lq.colsum(dr1, D, D, dsa_b_out);
     lq.wgrad(dr1, D, D, sa_ctx, D, D, dsa_w_out);
     lq.rowgemm({dr1, D, D, sa_w_out, D, 1, nullptr, 0, -1, D, nullptr, 0, nullptr, 0, dsa_ctx, D},
                D);
     lq.attention_bwd(sa_qkv, dsa_ctx, nullptr, dsa_qkv, B, H, Q);
-    lq.colsum(dsa_qkv, nullptr, 3 * D, 3 * D, dsa_b_in);
+    lq.colsum(dsa_qkv, 3 * D, 3 * D, dsa_b_in);
     lq.add(tgt, qpos, a, nq * d);
     lq.wgrad(dsa_qkv, 3 * D, 2 * D, a, D, D, dsa_w_in);
     lq.wgrad(dsa_qkv + 2 * D, 3 * D, D, tgt, D, D, dsa_w_in + 2 * d * d);

@@ -9,34 +9,37 @@
 // the ReLU gate is read from the dropped h1, as the TPU kernel does.
 //
 // What bounds it on the card: at B=512, L=152 the backward is about twice
-// the forward's 134.5 GFLOP of float32 work, run on the tensor cores in
-// 3xTF32; the per-row activations it keeps in device memory (q/k/v, ctx,
-// y1, the [B*L, F] h1, LayerNorm statistics, and their cotangents, about
-// 2 GB) add a few GB of traffic, well under the arithmetic's time.  So the
-// arithmetic bounds it.  The design (the launches of layer_bwd_kernels.cuh,
-// which the temporal layer's backward shares):
+// the forward's 134.5 GFLOP, plus the forward's recompute, all on the tensor
+// cores; the per-row activations it keeps in device memory (q/k/v, ctx, y1,
+// the [B*L, F] h1, LayerNorm statistics and their cotangents, about 2 GB)
+// add a few GB of traffic.  So the arithmetic bounds it, and the design
+// (the launches of layer_bwd_kernels.cuh, which the temporal and decoder
+// layers' backwards share) puts every product on Hopper's tensor cores:
 //
-//  * The [B, H, L, L] attention matrices never reach device memory:
-//    attention_bwd_kernel recomputes them per (head, batch row) in shared
-//    memory, in two sweeps, one over query rows (softmax statistics, dq)
-//    and one over key rows (dk, dv), so every sum has one owner and no
-//    atomics are needed.
-//  * Activation x weight products go through rowgemm_kernel: 64-row tiles,
-//    256 output columns per block, the 3xTF32 tiles of tf32_tile.cuh, with
-//    the bias / ReLU / dropout / gate / residual epilogues fused.
-//  * The TPU kernel sums the 16 weight gradients across its sequential grid
-//    in place.  Here blocks run in parallel and in no order, so each weight
-//    gradient dW = G^T H over all B*L rows is a split-K GEMM (wgrad_kernel:
-//    each block one 64 x 256 output tile over one 2048-row chunk, its rows
-//    staged K-major with cp.async, double-buffered) whose per-chunk
-//    partials reduce_kernel then sums in chunk order; bias and LayerNorm
-//    gradients (column sums, 32 columns per block) take the same two
-//    passes.  No float atomics: a step is reproducible from run to run.
+//  * Every activation x weight product of the recompute and the backward,
+//    q|k|v included, is a launch of the wgmma core (wgmma_gemm.cuh): 128 x
+//    128 tiles fed by TMA through a ring of shared-memory stages, persistent
+//    blocks, the bias / ReLU / dropout / gate / residual epilogues on the
+//    accumulators.  dX = dY W reads W as an MN-major operand, transposed in
+//    shared memory; nothing is transposed in device memory.
+//  * Each weight gradient dW = G^T H over all B*L rows is a split-K launch
+//    of the same core (both operands MN-major, 1024-row slices) whose
+//    per-slice partials reduce_kernel sums in slice order; bias and
+//    LayerNorm gradients (column sums) take the same two passes.  No float
+//    atomics: a step is reproducible from run to run.
+//  * The [B, H, L, L] attention matrices never reach device memory: per
+//    (head, batch row) the backward rebuilds them on the tensor cores
+//    (attention_bwd_tc_kernel: mma.sync, 3xTF32 or bf16), one sweep over
+//    query rows (dq) and one over key rows (dk, dv), so every sum has one
+//    owner.  At "f32" the recompute's attention is the forward kernel's own
+//    float32 one (it also hands its softmax statistics to the backward,
+//    and D_i = dctx_i . ctx_i); at "bf16" it runs on the tensor cores too.
 //
 // With bf16 set (JAX's precision="bf16" of this VJP) every product, the
 // recompute's and the backward's, the weight gradients' included, takes
-// bf16 operands with float32 sums; LayerNorm, softmax, the dropout masks,
-// the column sums and the split-K order stay float32 and unchanged.
+// bf16 operands (rounded as the GEMM core stages them) with float32 sums;
+// LayerNorm, softmax, the dropout masks, the column sums and the split-K
+// order stay float32 and unchanged.
 
 #include "layer_bwd_kernels.cuh"
 
@@ -46,15 +49,13 @@ extern "C" size_t mgsv_fused_encoder_layer_bwd_workspace(int rows, int F) {
   const size_t n = (size_t)rows, d = kCols, z = (n + kChunk - 1) / kChunk;
   const size_t partial = std::max<size_t>({(size_t)F * d, 2 * d * d, 3 * d});
   return 2 * align4(n * 3 * d) + 12 * align4(n * d) + 2 * align4(n) + 2 * align4(n * F) +
-         align4(z * partial);
+         align4(z * partial) +
+         align4(2 * (kCols / kHeadDim) * n);   // the attention rows' softmax statistics
 }
 
 // Once per device, before the first launch on it: dynamic shared memory.
 extern "C" int mgsv_fused_encoder_layer_bwd_init() {
-  cudaError_t err;
-  if ((err = gemm_launches_init()) != cudaSuccess || (err = layer_bwd_init(kMaxL)) != cudaSuccess)
-    return (int)err;
-  return 0;
+  return (int)layer_bwd_init(kMaxL);
 }
 
 // Backward of one encoder layer on `stream`: recomputes the forward from
@@ -86,17 +87,19 @@ extern "C" int mgsv_fused_encoder_layer_bwd(
         *dr1 = take(n * d), *dout = take(n * d), *dctx = take(n * d), *a = take(n * d);
   float* inv1 = take(n);
   float* inv2 = take(n);
+  float2* stats = reinterpret_cast<float2*>(take(2 * (size_t)H * n));
   float* h1 = take(n * F);
   float* dz1 = take(n * F);
   Launcher k{static_cast<cudaStream_t>(stream), rows, L, Dropout{seed, thresh, scale}, cur};
   k.bf16 = bf16 != 0;
 
   // ---- recompute the forward
-  auto* qkv_k = bf16 ? qkv_kernel<true> : qkv_kernel<false>;
-  qkv_k<<<dim3((rows + kRows - 1) / kRows, 3), kThreads, kGemmSmem, k.s>>>(
-      x, pos, w_in, b_in, qkv, rows, 2, 3 * kCols);
-  if (!k.check()) return (int)k.err;
-  launch_attention(qkv, mask, ctx, B, H, L, k.drop, k.s, k.bf16);
+  k.add(x, pos, a, n * d);
+  k.rowgemm({a, D, D, w_in, D, 0, b_in, 0, -1, D, nullptr, 0, nullptr, 0, qkv, 3 * D}, 2 * D);
+  k.rowgemm({x, D, D, w_in + (size_t)2 * D * D, D, 0, b_in + 2 * D, 0, -1, D, nullptr, 0, nullptr,
+             0, qkv + 2 * D, 3 * D},
+            D);
+  k.attention_fwd(qkv, mask, ctx, B, H, L, stats);
   k.rowgemm({ctx, D, D, w_out, D, 0, b_out, 0, H, D, nullptr, 0, x, D, r, D}, D);
   k.ln_fwd(r, g1, be1, y1, xh1, inv1);
   k.rowgemm({y1, D, D, w1, D, 0, b1, 1, H + 1, F, nullptr, 0, nullptr, 0, h1, F}, F);
@@ -104,34 +107,32 @@ extern "C" int mgsv_fused_encoder_layer_bwd(
   k.ln_fwd(r, g2, be2, nullptr, xh2, inv2);
 
   // ---- FFN and LN2
-  k.ln_bwd(g_out, xh2, inv2, g2, dr2);
-  k.colsum(g_out, xh2, D, D, dg2);
-  k.colsum(g_out, nullptr, D, D, dbe2);
+  k.ln_bwd_sums(g_out, xh2, inv2, g2, dr2, dg2, dbe2);
   k.dropout(dr2, dh2, D, H + 2);
-  k.colsum(dh2, nullptr, D, D, db2);
+  k.colsum(dh2, D, D, db2);
   k.wgrad(dh2, D, D, h1, F, F, dw2);
   k.rowgemm({dh2, D, D, w2, F, 1, nullptr, 0, H + 1, F, h1, F, nullptr, 0, dz1, F}, F);
-  k.colsum(dz1, nullptr, F, F, db1);
+  k.colsum(dz1, F, F, db1);
   k.wgrad(dz1, F, F, y1, D, D, dw1);
   k.rowgemm({dz1, F, F, w1, D, 1, nullptr, 0, -1, D, nullptr, 0, dr2, D, dy1, D}, D);
 
   // ---- LN1 and the attention output projection
-  k.ln_bwd(dy1, xh1, inv1, g1, dr1);
-  k.colsum(dy1, xh1, D, D, dg1);
-  k.colsum(dy1, nullptr, D, D, dbe1);
+  k.ln_bwd_sums(dy1, xh1, inv1, g1, dr1, dg1, dbe1);
   k.dropout(dr1, dout, D, H);
-  k.colsum(dout, nullptr, D, D, db_out);
+  k.colsum(dout, D, D, db_out);
   k.wgrad(dout, D, D, ctx, D, D, dw_out);
   k.rowgemm({dout, D, D, w_out, D, 1, nullptr, 0, -1, D, nullptr, 0, nullptr, 0, dctx, D}, D);
 
   // ---- attention and the input projections
-  k.attention_bwd(qkv, dctx, mask, dqkv, B, H, L);
-  k.colsum(dqkv, nullptr, 3 * D, 3 * D, db_in);
-  k.add(x, pos, a, n * d);
+  k.attention_bwd(qkv, dctx, mask, dqkv, B, H, L, ctx, stats);
+  k.colsum(dqkv, 3 * D, 3 * D, db_in);
   k.wgrad(dqkv, 3 * D, 2 * D, a, D, D, dw_in);
   k.wgrad(dqkv + 2 * D, 3 * D, D, x, D, D, dw_in + (size_t)2 * D * D);
-  k.rowgemm({dqkv, 3 * D, 3 * D, w_in, D, 1, nullptr, 0, -1, D, nullptr, 0, dr1, D, dx, D}, D);
+  // dpos = dq Wq + dk Wk; dx = dv Wv + dpos + dr1
   k.rowgemm({dqkv, 3 * D, 2 * D, w_in, D, 1, nullptr, 0, -1, D, nullptr, 0, nullptr, 0, dpos, D},
+            D);
+  k.rowgemm({dqkv + 2 * D, 3 * D, D, w_in + (size_t)2 * D * D, D, 1, nullptr, 0, -1, D, nullptr,
+             0, dr1, D, dx, D, 0, dpos, D},
             D);
   k.check();
   return (int)k.err;

@@ -17,10 +17,11 @@
 // their cotangents, about 1.5 GB at L=96) add a few GB of traffic, well
 // under the arithmetic's time.  So the arithmetic bounds it.  It runs the
 // launches of layer_bwd_kernels.cuh, as the DETR encoder layer's backward
-// does: the [B, H, L, L] attention weights are recomputed per (head, batch
-// row) in shared memory, and every weight gradient is a split-K GEMM over
-// 2048-row chunks whose partials are summed in chunk order, so a step
-// repeats bit for bit (no float atomics).
+// does: every product on the wgmma core (wgmma_gemm.cuh, 3xTF32), the
+// [B, H, L, L] attention weights rebuilt per (head, batch row) on the
+// tensor cores, and every weight gradient a split-K product over 1024-row
+// slices whose partials are summed in slice order, so a step repeats bit
+// for bit (no float atomics).
 //
 // With the forward's names (y = LN1(x), u = y + o, z = LN2(u), a = z W1^T +
 // b1, h = drop_H(gelu(a)), out = z + drop_H+1(h W2^T + b2)):
@@ -40,7 +41,8 @@ extern "C" size_t mgsv_fused_temporal_layer_bwd_workspace(int rows, int F) {
   const size_t n = (size_t)rows, d = kCols, z = (n + kChunk - 1) / kChunk;
   const size_t partial = std::max<size_t>({(size_t)F * d, 3 * d * d});
   return 2 * align4(n * 3 * d) + 11 * align4(n * d) + 2 * align4(n) + 3 * align4(n * F) +
-         align4(z * partial);
+         align4(z * partial) +
+         align4(2 * (kCols / kHeadDim) * n);   // the attention rows' softmax statistics
 }
 
 // Once per device, before the first launch on it: dynamic shared memory.
@@ -74,6 +76,7 @@ extern "C" int mgsv_fused_temporal_layer_bwd(
         *du = take(n * d), *dctx = take(n * d), *dy = take(n * d);
   float* inv1 = take(n);
   float* inv2 = take(n);
+  float2* stats = reinterpret_cast<float2*>(take(2 * (size_t)H * n));
   float* a1 = take(n * F);
   float* h1 = take(n * F);
   float* da1 = take(n * F);
@@ -82,8 +85,7 @@ extern "C" int mgsv_fused_temporal_layer_bwd(
   // ---- recompute the forward
   k.ln_fwd(x, g1, be1, y, xh1, inv1);
   k.rowgemm({y, D, D, w_in, D, 0, b_in, 0, -1, D, nullptr, 0, nullptr, 0, qkv, 3 * D}, 3 * D);
-  if (!k.check()) return (int)k.err;
-  launch_attention(qkv, mask, ctx, B, H, L, k.drop, k.s);
+  k.attention_fwd(qkv, mask, ctx, B, H, L, stats);
   k.rowgemm({ctx, D, D, w_out, D, 0, b_out, 0, -1, D, nullptr, 0, y, D, u, D}, D);
   k.ln_fwd(u, g2, be2, z, xh2, inv2);
   k.rowgemm({z, D, D, w1, D, 0, b1, 0, -1, F, nullptr, 0, nullptr, 0, a1, F}, F);
@@ -91,30 +93,26 @@ extern "C" int mgsv_fused_temporal_layer_bwd(
 
   // ---- the FFN
   k.dropout(g_out, dh2, D, H + 1);
-  k.colsum(dh2, nullptr, D, D, db2);
+  k.colsum(dh2, D, D, db2);
   k.wgrad(dh2, D, D, h1, F, F, dw2);
   k.rowgemm({dh2, D, D, w2, F, 1, nullptr, 0, H, F, a1, F, nullptr, 0, da1, F,
              /*gelu_gate=*/1}, F);
-  k.colsum(da1, nullptr, F, F, db1);
+  k.colsum(da1, F, F, db1);
   k.wgrad(da1, F, F, z, D, D, dw1);
   k.rowgemm({da1, F, F, w1, D, 1, nullptr, 0, -1, D, nullptr, 0, g_out, D, dz, D}, D);
 
   // ---- LN2 and the attention output projection
-  k.ln_bwd(dz, xh2, inv2, g2, du);
-  k.colsum(dz, xh2, D, D, dg2);
-  k.colsum(dz, nullptr, D, D, dbe2);
-  k.colsum(du, nullptr, D, D, db_out);
+  k.ln_bwd_sums(dz, xh2, inv2, g2, du, dg2, dbe2);
+  k.colsum(du, D, D, db_out);
   k.wgrad(du, D, D, ctx, D, D, dw_out);
   k.rowgemm({du, D, D, w_out, D, 1, nullptr, 0, -1, D, nullptr, 0, nullptr, 0, dctx, D}, D);
 
   // ---- attention, the input projection and LN1
-  k.attention_bwd(qkv, dctx, mask, dqkv, B, H, L);
-  k.colsum(dqkv, nullptr, 3 * D, 3 * D, db_in);
+  k.attention_bwd(qkv, dctx, mask, dqkv, B, H, L, ctx, stats);
+  k.colsum(dqkv, 3 * D, 3 * D, db_in);
   k.wgrad(dqkv, 3 * D, 3 * D, y, D, D, dw_in);
   k.rowgemm({dqkv, 3 * D, 3 * D, w_in, D, 1, nullptr, 0, -1, D, nullptr, 0, du, D, dy, D}, D);
-  k.ln_bwd(dy, xh1, inv1, g1, dx);
-  k.colsum(dy, xh1, D, D, dg1);
-  k.colsum(dy, nullptr, D, D, dbe1);
+  k.ln_bwd_sums(dy, xh1, inv1, g1, dx, dg1, dbe1);
   k.check();
   return (int)k.err;
 }

@@ -13,10 +13,6 @@
 //   gemm_t      W[n][k] = Wt[k][n] of a [K][N] matrix, staged K-major
 //               [kKc][256]; rows k >= kvalid read as zero
 //
-// gemm_tn computes the weight-gradient form C[n][k] += sum_r G[r][n] H[r][k]
-// over rows r, both operands read from row-major [R][*] matrices and
-// staged K-major (r is the reduction), with 16-byte loads and stores.
-//
 // Every product takes a template parameter kBf16: false is the 3xTF32 tile
 // above; true rounds both operands to bf16 as it reads them from shared
 // memory into mma.sync m16n8k16 fragments and accumulates in float32 (the
@@ -38,12 +34,11 @@ constexpr int kKc = 32;               // reduction depth per staged tile
 constexpr int kLda = kCols + 4;       // activation tile row stride: 16 B rows, 4 mod 32 banks
 constexpr int kLdws = kKc + 4;        // staged tile [kCols][kLdws], same two properties
 constexpr int kWsFloats = kCols * kLdws;
-// K-major staged tiles ([kKc][kLdt] for W, [kKc][kLdg] for gemm_tn's G):
-// 16-byte rows at 8 mod 32 banks, so fragment reads (k t, column g) hit
-// banks 8 t + g, all distinct.  Both fit the buffers of the K-minor tiles.
+// K-major staged tiles ([kKc][kLdt]): 16-byte rows at 8 mod 32 banks, so
+// fragment reads (k t, column g) hit banks 8 t + g, all distinct.  They fit
+// the buffers of the K-minor tiles.
 constexpr int kLdt = kCols + 8;
-constexpr int kLdg = kRows + 8;
-static_assert(kKc * kLdt <= kWsFloats && kKc * kLdg <= kRows * kLdws, "staging sizes");
+static_assert(kKc * kLdt <= kWsFloats, "staging sizes");
 constexpr int kTileFloats = kRows * kLda;
 constexpr float kBigNeg = -1e9f;
 constexpr float kLnEps = 1e-5f;
@@ -148,8 +143,7 @@ __device__ __forceinline__ float round_bf16(float x) {
 using Acc = float[2][8][4];
 
 // acc += A[.. x kKc] . Ws[.. x kKc]^T for this warp's tile.  A is row-major
-// (element (row, k) at A[row * LDA + k]) or, with A_KMAJOR, K-major (at
-// A[k * LDA + row]); Ws is [kCols][kLdws] K-minor or, with W_KMAJOR,
+// (element (row, k) at A[row * kLda + k]); Ws is [kCols][kLdws] K-minor or, with W_KMAJOR,
 // [kKc][kLdt] K-major.  With g = lane / 4, t = lane % 4, fragment reads hit
 // banks 4 g + t (K-minor, row strides 4 mod 32) or 8 t + g (K-major, row
 // strides 8 mod 32): conflict-free either way.  The tensor cores add in
@@ -158,13 +152,13 @@ using Acc = float[2][8][4];
 // added to acc with an ordinary rounded add.  kBf16: both operands rounded
 // to bf16 into m16n8k16 fragments (A: rows g, g + 8 at k 2t, 2t + 1 and
 // 2t + 8, 2t + 9; B: those k at column g), one product per 16-deep step.
-template <int LDA = kLda, bool A_KMAJOR = false, bool W_KMAJOR = false, bool kBf16 = false>
+template <bool W_KMAJOR = false, bool kBf16 = false>
 __device__ __forceinline__ void mma_tile(Acc& acc, const float* A, const float* Ws) {
   constexpr int kSteps = kKc / 8;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int row0 = 32 * (warp & 1) + g, col0 = 64 * (warp >> 1) + g;
-  auto a_at = [&](int row, int k) { return A_KMAJOR ? A[k * LDA + row] : A[row * LDA + k]; };
+  auto a_at = [&](int row, int k) { return A[row * kLda + k]; };
   auto w_at = [&](int k, int n) { return W_KMAJOR ? Ws[k * kLdt + n] : Ws[n * kLdws + k]; };
   if constexpr (kBf16) {
     constexpr int kSteps16 = kKc / 16;
@@ -268,7 +262,7 @@ __device__ void gemm_k(Acc& acc, const float* A, int K, float* Ws, Stage stage) 
   __syncthreads();
   for (int c = 0; c < nk; ++c) {
     if (c + 1 < nk) stage(Ws + ((c + 1) & 1) * kWsFloats, (c + 1) * kKc);
-    mma_tile<kLda, false, W_KMAJOR, kBf16>(acc, A + c * kKc, Ws + (c & 1) * kWsFloats);
+    mma_tile<W_KMAJOR, kBf16>(acc, A + c * kKc, Ws + (c & 1) * kWsFloats);
     cp_async_wait_all();
     __syncthreads();
   }
@@ -292,84 +286,9 @@ __device__ void gemm_t(Acc& acc, const float* A, const float* __restrict__ Wt,
                [&](float* buf, int k0) { stage_w_t(buf, Wt, ldw, n0, k0, kvalid); });
 }
 
-// dst[0..4) = src[0..4): cp.async (src in device memory) or a synchronous
-// 16-byte load and store (src in device or shared memory).
-template <bool kAsync>
-__device__ __forceinline__ void copy16(float* dst, const float* src) {
-  if constexpr (kAsync)
-    cp_async16(dst, src);
-  else
-    *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
-}
-
-// gemm_tn's staging of rows [rb, rb + kKc): G's columns [n0, n0 + kRows)
-// into Ga ([kKc][kLdg]) and H's first kCols columns into Ws ([kKc][kLdt]),
-// rows >= r1 as zeros.
-template <bool kAsync>
-__device__ __forceinline__ void stage_tn(float* Ga, float* Ws, const float* G, int ldg, int n0,
-                                         const float* H, int ldh, int rb, int r1) {
-  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int e = threadIdx.x; e < kKc * kRows / 4; e += kThreads) {
-    const int kk = e / (kRows / 4), q = e % (kRows / 4), r = rb + kk;
-    float* dst = Ga + kk * kLdg + 4 * q;
-    if (r < r1)
-      copy16<kAsync>(dst, G + (size_t)r * ldg + n0 + 4 * q);
-    else
-      *reinterpret_cast<float4*>(dst) = zero4;
-  }
-  for (int e = threadIdx.x; e < kKc * kCols / 4; e += kThreads) {
-    const int kk = e / (kCols / 4), q = e % (kCols / 4), r = rb + kk;
-    float* dst = Ws + kk * kLdt + 4 * q;
-    if (r < r1)
-      copy16<kAsync>(dst, H + (size_t)r * ldh + 4 * q);
-    else
-      *reinterpret_cast<float4*>(dst) = zero4;
-  }
-  if constexpr (kAsync) cp_async_commit();
-}
-
-constexpr int kGaFloats = kKc * kLdg;
-
-// acc[n][k] += sum_{r0 <= r < r1} G[r][n0 + n] . H[r][k] (n < kRows,
-// k < kCols; G, H row-major with row strides ldg, ldh that are multiples of
-// 4, 16-byte aligned), through shared staging buffers filled K-major with
-// 16-byte copies.  Without kAsync, G and H may lie in shared memory and Ga
-// (kGaFloats) and Ws (kWsFloats) hold one buffer each; with kAsync both
-// lie in device memory, Ga and Ws hold two buffers each, and the next rows
-// load with cp.async while these compute.  Expects the block synchronized;
-// returns synchronized.
-template <bool kAsync = false, bool kBf16 = false>
-__device__ void gemm_tn(Acc& acc, const float* G, int ldg, int n0, const float* H, int ldh,
-                        int r0, int r1, float* Ga, float* Ws) {
-  const int nk = (r1 - r0 + kKc - 1) / kKc;
-  if constexpr (kAsync) {
-    if (nk > 0) stage_tn<true>(Ga, Ws, G, ldg, n0, H, ldh, r0, r1);
-    cp_async_wait_all();
-    __syncthreads();
-  }
-  for (int c = 0; c < nk; ++c) {
-    const int buf = kAsync ? c & 1 : 0;
-    if constexpr (kAsync) {
-      if (c + 1 < nk)
-        stage_tn<true>(Ga + (buf ^ 1) * kGaFloats, Ws + (buf ^ 1) * kWsFloats, G, ldg, n0, H,
-                       ldh, r0 + (c + 1) * kKc, r1);
-    } else {
-      stage_tn<false>(Ga, Ws, G, ldg, n0, H, ldh, r0 + c * kKc, r1);
-      __syncthreads();
-    }
-    mma_tile<kLdg, true, true, kBf16>(acc, Ga + buf * kGaFloats, Ws + buf * kWsFloats);
-    if constexpr (kAsync) cp_async_wait_all();
-    __syncthreads();
-  }
-}
-
 // In-place LayerNorm over each row of a [kRows][kLda] tile (kCols values).
-// With xhat (row stride ldx) and inv, also stores the normalized row and
-// 1 / std of each row r < nrows.
 __device__ void layer_norm_rows(float* a, const float* __restrict__ g,
-                                const float* __restrict__ beta,
-                                float* xhat = nullptr, int ldx = 0, float* inv_out = nullptr,
-                                int nrows = kRows) {
+                                const float* __restrict__ beta) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int r = warp; r < kRows; r += kWarps) {
     float* row = a + r * kLda;
@@ -388,15 +307,11 @@ __device__ void layer_norm_rows(float* a, const float* __restrict__ g,
       q = fmaf(d, d, q);
     }
     const float inv = rsqrtf(warp_sum(q) / kCols + kLnEps);
-    const bool keep_stats = xhat != nullptr && r < nrows;
 #pragma unroll
     for (int t = 0; t < kCols / 32; ++t) {
       const int c = lane + 32 * t;
-      const float xh = (v[t] - mean) * inv;
-      if (keep_stats) xhat[(size_t)r * ldx + c] = xh;
-      row[c] = xh * g[c] + beta[c];
+      row[c] = (v[t] - mean) * inv * g[c] + beta[c];
     }
-    if (keep_stats && lane == 0 && inv_out != nullptr) inv_out[r] = inv;
   }
   __syncthreads();
 }

@@ -112,7 +112,7 @@ def _launchers(device_index: int):
     fwd.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + drop
     size = lib.mgsv_xpool_sim_bwd_workspace
     size.restype = ctypes.c_size_t
-    size.argtypes = [ctypes.c_int, ctypes.c_int]
+    size.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
     bwd = lib.mgsv_xpool_sim_bwd
     bwd.restype = ctypes.c_int
     bwd.argtypes = [ctypes.c_void_p] * 27 + [ctypes.c_int] * 4 + drop
@@ -153,7 +153,7 @@ def xpool_sim_bwd(q, k, v, mask, vhat, weights, g, rate: float = 0.0, seed: int 
     grads = [torch.empty_like(w) for w in weights]
     with torch.cuda.device(q.device):
         _, size, bwd = _launchers(q.device.index)
-        ws = q.new_empty(int(size(vc, m)))
+        ws = q.new_empty(int(size(vc, m, s)))
         stream = torch.cuda.current_stream(q.device).cuda_stream
         args = [t.data_ptr() for t in (q, k, v, mask, vhat) + tuple(weights)
                 + (g, dq, dk, dv, dvhat) + tuple(grads) + (ws,)]

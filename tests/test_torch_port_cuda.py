@@ -353,3 +353,72 @@ def test_cuda_decoder_kernels_match_plain_version(dev, b, q, L, self_attn):
     first = fdl.fused_decoder_layer_bwd(tgt, mem, mask, pos, qpos, g, layer)
     for a, c in zip([*again[:4], *again[4]], [*first[:4], *first[4]]):
         assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("b,L", [(3, 152), (3, 21), (3, 256), (512, 152)])
+def test_cuda_encoder_backward_against_float64(dev, precision, b, L):
+    """Kernel #2 (its products on the wgmma core, its attention on the
+    tensor cores) at row counts that are no multiple of the 128-row tile
+    (456, 63, 768 and 77,824 rows; L = 256 is the layer's longest), rate
+    0.1 and a batch row with no valid key: every gradient against the
+    float64 run of the plain version, within 1e-3 of its largest magnitude
+    plus twice the float32 plain version's own error ("bf16": 1e-2, and the
+    bf16 plain version's error, as in test_cuda_encoder_bf16_matches_plain_
+    version); below 1,000 rows also with the gate-flip slack.  Two calls are
+    bit-identical."""
+    rng = np.random.default_rng(b + L)
+    x, pos, g = (_randn(rng, (b, L, 256), dev) for _ in range(3))
+    mask = _ragged(rng, b, L, dev)
+    mask[1] = 0.0
+    layer = _encoder_layer(dev)
+    layer64 = copy.deepcopy(layer).double()
+
+    def grads_of(fn, lay, dt, prec):
+        xi, pi = (t.to(dt).requires_grad_() for t in (x, pos))
+        out = fn(xi, mask.to(dt), pi, lay, 0.1, 7, prec)
+        return torch.autograd.grad(out, [xi, pi, *lay.parameters()], g.to(dt))
+
+    kernel = grads_of(fel.fused_encoder_layer, layer, torch.float32, precision)
+    plain = grads_of(fel.fused_encoder_layer_reference, layer, torch.float32, precision)
+    exact_of = lambda: grads_of(fel.fused_encoder_layer_reference, layer64, torch.float64, "f32")
+    slack = None
+    if precision == "f32" and b * L < 1000:
+        exact, slack = _gate_flip_slack(layer64, exact_of)
+    else:
+        exact = exact_of()
+    _assert_grads_vs_float64(kernel, plain, exact, rel=1e-3 if precision == "f32" else 1e-2,
+                             slack=slack)
+    first = fel.fused_encoder_layer_bwd(x, mask, pos, g, layer, 0.1, 7, precision)
+    second = fel.fused_encoder_layer_bwd(x, mask, pos, g, layer, 0.1, 7, precision)
+    for a, c in zip([first[0], first[1], *first[2]], [second[0], second[1], *second[2]]):
+        assert torch.isfinite(a).all() and torch.equal(a, c)
+
+
+@pytest.mark.parametrize("vc,m,s", [(200, 37, 96), (300, 400, 37)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_cuda_xpool_backward_against_float64(dev, vc, m, s, rate):
+    """Kernel #3's backward (Wout once per track, the pairs a chunk of
+    musics at a time): V no multiple of 64, S = 96 and 37, 120,000 pairs
+    (two music chunks), a track with no valid snippet; every gradient
+    against the float64 run of the plain version, within 1e-3 of its
+    largest magnitude plus twice the float32 plain version's own error.
+    Two calls are bit-identical."""
+    rng = np.random.default_rng(vc + m + s)
+    weights = [w.detach() for w in _perturbed(XPoolTransformer(256), 2).to(dev).stage_weights()]
+    q = _randn(rng, (vc, 256), dev)
+    vhat = torch.nn.functional.normalize(_randn(rng, (vc, 256), dev), dim=-1)
+    k, v = _randn(rng, (m, s, 256), dev), _randn(rng, (m, s, 256), dev)
+    mask, g = _ragged(rng, m, s, dev), _randn(rng, (m, vc), dev)
+    mask[1] = 0.0
+    grads = []
+    for fn, dt in ((xps.xpool_sim, torch.float32), (xps.xpool_sim_reference, torch.float32),
+                   (xps.xpool_sim_reference, torch.float64)):
+        ins = [t.to(dt).requires_grad_() for t in (q, k, v, vhat, *weights)]
+        out = fn(ins[0], ins[1], ins[2], mask.to(dt), ins[3], ins[4:], rate, 9)
+        grads.append(torch.autograd.grad(out, ins, g.to(dt)))
+    _assert_grads_vs_float64(*grads)
+    first = xps.xpool_sim_bwd(q, k, v, mask, vhat, weights, g, rate, 9)
+    second = xps.xpool_sim_bwd(q, k, v, mask, vhat, weights, g, rate, 9)
+    for a, c in zip([*first[:4], *first[4]], [*second[:4], *second[4]]):
+        assert torch.isfinite(a).all() and torch.equal(a, c)
