@@ -18,9 +18,9 @@ failure:
               precision "bf16" (the bf16 Config()'s: bf16 operands, float32
               sums) against its bf16 plain version, forward and every
               gradient, timed in turns with the float32 instantiation
-              beside the bf16 bound; the backward kernels of #2 (both
-              precisions) and #3 also by kernel name (one call under
-              torch.profiler, [breakdown] lines)
+              beside the bf16 bound; the encoder layer's forward (#1) and
+              backward (#2) at both precisions and #3's backward also by
+              kernel name (one call under torch.profiler, [breakdown] lines)
   4. temporal-kernel  the temporal-tower layer's kernels (#5, forward and
               backward) against their plain version at B=512 for the audio
               (L=96) and video (L=50) towers, rates 0 and 0.8, a row with no
@@ -71,7 +71,8 @@ failure:
               [8, 12, 1214, 64] with ragged key masks and a fully masked
               row, CLIP's [400, 12, 50, 64], and the extraction's
               [384, 12, 1214, 64]; kernel, plain and SDPA timed in turns
-              beside the bound
+              beside the bound; [breakdown] lines of the extraction's shape
+              (float32) and of one track (bf16)
  16. extract  `cli.extract_features` in-process on seeded raw media (8 frame
               directories of 10-50 JPEGs, WAV tracks of 240/180/60/30 s, one
               at 44.1 kHz) with full-width CLIP ViT-B/32 and AST checkpoints
@@ -288,15 +289,28 @@ def in_turns(kernel, plain, iters: int = 5):
 
 def breakdown(name: str, fn, **fields) -> None:
     """One call of fn under torch.profiler: its device time summed by kernel
-    name, one [breakdown] line per kernel (ms, launches), largest first."""
+    name, one [breakdown] line per kernel (ms, launches), largest first; where
+    the profiler saw no device time, the call timed with CUDA events, one
+    line per kernel wrapper it launched."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
-    rows = sorted(((e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
-                   if e.device_time_total > 0), key=lambda r: -r[1])
+    # the kernels' own device time: a host op (an autograd Function, the
+    # profiler's own buffer requests) carries its children's as well
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0), key=lambda r: -r[1])
+    if not rows:
+        # the profiler can miss a later session's device activity: CUDA
+        # events then time the whole call, beside the wrappers' launches
+        before = read_counts()
+        ms = cuda_ms(fn, 1)
+        rows = [(f"{kernel} (CUDA events, the whole call)", ms, count - before[kernel])
+                for kernel, count in read_counts().items() if count != before[kernel]]
     phase("breakdown", name=name, **fields, device_ms=f"{sum(r[1] for r in rows):.4f}",
           kernels=len(rows))
     for kernel, ms, count in rows:
@@ -497,6 +511,9 @@ def check_encoder(device: torch.device) -> list:
           ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}")
     phase("kernel-time", name="fused_encoder_layer_bwd", B=TRAIN_B, L=TRAIN_L, rate=rate,
           ms=f"{bms:.4f}", plain_ms=f"{plain_bms:.4f}")
+    with torch.no_grad():
+        breakdown("fused_encoder_layer", lambda: fel.fused_encoder_layer(
+            x, mask, pos, layer, rate, DROPOUT_SEED), precision="f32")
     breakdown("fused_encoder_layer_bwd", lambda: fel.fused_encoder_layer_bwd(
         x, mask, pos, g, layer, rate, DROPOUT_SEED), precision="f32")
     flops = encoder_flops(TRAIN_B, TRAIN_L, d, ffn)
@@ -576,6 +593,8 @@ def check_encoder_bf16(layer, layer64, names, x, pos, mask, g, rate) -> dict:
         out, [xi, pi, *params], g, retain_graph=True))
     bms_b, bms32 = in_turns(bwd("bf16"), bwd("f32"))
     del out
+    with torch.no_grad():
+        breakdown("fused_encoder_layer", fwd("bf16"), precision="bf16")
     breakdown("fused_encoder_layer_bwd", bwd("bf16"), precision="bf16")
     return {"fused_encoder_layer": (fwd_err, (ms + ms_b) / 2, plain_ms, ms32),
             "fused_encoder_layer_bwd": (bwd_err, (bms + bms_b) / 2, plain_bms, bms32)}
@@ -1397,7 +1416,9 @@ def check_flash(device: torch.device) -> dict:
     """Kernel #7 against its plain version at the towers' shapes, in
     float32 and bf16; kernel, plain and SDPA (unmasked shapes: SDPA gives a
     fully masked row the mean of v, not 0) timed in turns beside the
-    bound.  Returns the kernels-line entry, at the extraction's shape."""
+    bound, with a [breakdown] of the float32 extraction shape and of one
+    track in bf16.  Returns the kernels-line entry: float32 at the
+    extraction's shape, its bf16_* fields at one track's."""
     rng = np.random.default_rng(SEED + 3)
     scale = HEAD_DIM ** -0.5
     cases = [(SNIPPETS, AST_TOKENS, False, torch.float32),
@@ -1405,7 +1426,7 @@ def check_flash(device: torch.device) -> dict:
              (8, AST_TOKENS, True, torch.float32), (8, AST_TOKENS, True, torch.bfloat16),
              (400, CLIP_TOKENS, False, torch.float32),
              (SNIPPETS * EXTRACT_BATCH // 8, AST_TOKENS, False, torch.float32)]
-    out = None
+    out, bf16 = None, None
     for b, length, masked, dtype in cases:
         q, k, v = (randn(rng, (b, AST_HEADS, length, HEAD_DIM), device).to(dtype)
                    for _ in range(3))
@@ -1442,11 +1463,23 @@ def check_flash(device: torch.device) -> dict:
               sdpa_ms="none" if sdpa_ms is None else f"{sdpa_ms:.4f}",
               bound_ms=f"{bms:.4f}", bound_by=by, gflop=f"{flops / 1e9:.1f}",
               tflops=f"{flops / ms / 1e9:.1f}")
+        dname = str(dtype).split(".")[1]
         if b == SNIPPETS * EXTRACT_BATCH // 8:
             out = entry("flash_attention", "mgsv_tpu_torch/csrc/flash_attention.cu",
                         "mgsv_tpu/ops/pallas/flash_attention.py:89", err, ms, plain_ms,
                         flops, nb, library_ms=sdpa_ms)
+            with torch.no_grad():
+                breakdown("flash_attention", lambda: fa.flash_attention(q, k, v, scale),
+                          dtype=dname, B=b)
+        if b == SNIPPETS and dtype == torch.bfloat16 and not masked:
+            bf16 = dict(bf16_max_abs_err=err, bf16_ms=ms, bf16_plain_ms=plain_ms,
+                        bf16_bound_ms=bms, bf16_bound_by=by, bf16_library_ms=sdpa_ms,
+                        bf16_batch=b)
+            with torch.no_grad():
+                breakdown("flash_attention", lambda: fa.flash_attention(q, k, v, scale),
+                          dtype=dname, B=b)
         del q, k, v, mask
+    out.update(bf16)
     return out
 
 

@@ -250,12 +250,12 @@ inline const float* decoder_attention_fwd(Launcher& lq, Launcher& lm, const Deco
                                           float* xh1, float* inv1, float* q, float* ctx) {
   const int Nq = B * Q, Nm = B * L;
   if (!lq.check() || !lm.check()) return tgt;
-  qkv_kernel<false><<<dim3((Nm + kRows - 1) / kRows, 2), kThreads, kGemmSmem, lm.s>>>(
+  qkv_kernel<<<dim3((Nm + kRows - 1) / kRows, 2), kThreads, kGemmSmem, lm.s>>>(
       mem, pos, w.ca_w_in + (size_t)kCols * kCols, w.ca_b_in + kCols, kv, Nm, 1, 2 * kCols);
   const float* t1p = tgt;
   if (self_attn) {
     if (!lm.check()) return tgt;
-    qkv_kernel<false><<<dim3((Nq + kRows - 1) / kRows, 3), kThreads, kGemmSmem, lq.s>>>(
+    qkv_kernel<<<dim3((Nq + kRows - 1) / kRows, 3), kThreads, kGemmSmem, lq.s>>>(
         tgt, qpos, w.sa_w_in, w.sa_b_in, sa_qkv, Nq, 2, 3 * kCols);
     if (!lq.check()) return tgt;
     launch_attention(sa_qkv, nullptr, sa_ctx, B, H, Q, lq.drop, lq.s);
@@ -266,7 +266,7 @@ inline const float* decoder_attention_fwd(Launcher& lq, Launcher& lm, const Deco
     t1p = t1;
   }
   if (!lq.check()) return t1p;
-  qkv_kernel<false><<<dim3((Nq + kRows - 1) / kRows, 1), kThreads, kGemmSmem, lq.s>>>(
+  qkv_kernel<<<dim3((Nq + kRows - 1) / kRows, 1), kThreads, kGemmSmem, lq.s>>>(
       t1p, qpos, w.ca_w_in, w.ca_b_in, q, Nq, 1, kCols);
   if (!lq.check()) return t1p;
   cross_attention_kernel<<<dim3(H, B), kThreads, cross_attention_smem_bytes(L), lq.s>>>(

@@ -1,12 +1,17 @@
-// The three forward launches of the post-norm DETR encoder layer, shared by
-// fused_encoder_layer.cu (the forward) and fused_encoder_layer_bwd.cu (its
-// recompute).  Every weight is in torch's [out, in] layout (in_proj_weight
-// rows q|k|v).  Dropout sites, drawn from philox.cuh with stream (batch
-// row b, site): heads 0..H-1 the attention weights (element i L + j),
-// H the attention output (l D + c), H+1 after the ReLU (l F + f), H+2 the
-// FFN output (l D + c).  Each launch takes a template parameter kBf16: the
-// GEMMs and the attention products with bf16 operands and float32 sums
-// (precision "bf16", see tf32_tile.cuh), else float32 (3xTF32).
+// The first design's forward launches of the post-norm DETR encoder layer
+// (GEMMs on mma.sync tiles), which now serve other layers: the decoder
+// layer's forward and recompute (#6, decoder_layer_kernels.cuh: qkv_kernel,
+// ffn_kernel and, for its self-attention, attention_kernel), the temporal
+// layer's forward (#5, fused_temporal_layer.cu: attention_kernel), and the
+// float32 attention of the encoder layer's own forward sequence
+// (layer_bwd_kernels.cuh::encoder_layer_fwd, #1 and #2's recompute at
+// "f32"; its GEMMs run on the wgmma core).
+// Every weight is in torch's [out, in] layout (in_proj_weight rows q|k|v).
+// Dropout sites, drawn from philox.cuh with stream (batch row b, site):
+// heads 0..H-1 the attention weights (element i L + j), H the attention
+// output (l D + c), H+1 after the ReLU (l F + f), H+2 the FFN output (l D +
+// c).  Every product is float32 (3xTF32 on mma.sync tiles, or CUDA-core
+// multiply-adds in the attention).
 #pragma once
 
 #include <initializer_list>
@@ -30,7 +35,6 @@ constexpr size_t kFfnSmem = sizeof(float) * (size_t)(2 * kTileFloats + 2 * kWsFl
 // column p D of a [B*L, ld_out] buffer.  The encoder takes q|k|v
 // (pos_parts 2, ld_out 3D); the decoder's cross-attention k|v of its
 // memory (pos_parts 1) and its q (one part).
-template <bool kBf16 = false>
 __global__ void __launch_bounds__(kThreads, 1)
 qkv_kernel(const float* __restrict__ x, const float* __restrict__ pos,
            const float* __restrict__ w_in, const float* __restrict__ b_in,
@@ -42,7 +46,7 @@ qkv_kernel(const float* __restrict__ x, const float* __restrict__ pos,
   load_rows(A, x, part < pos_parts ? pos : nullptr, r0, rows);
   Acc acc;
   zero(acc);
-  gemm<kBf16>(acc, A, w_in, kCols, part * kCols, kCols, Ws);
+  gemm(acc, A, w_in, kCols, part * kCols, kCols, Ws);
   const float* bias = b_in + part * kCols;
   for_each_acc(acc, [&](int r, int c, float& v) { A[r * kLda + c] = v + bias[c]; });
   __syncthreads();
@@ -94,10 +98,8 @@ __host__ __device__ constexpr size_t attention_smem_bytes(int L) {
 // row's softmax max and sum [B, H, L], for a backward).  Dropout multiplies
 // the normalized weights (after the softmax sum), as torch does.  kDrop
 // false (rate 0, the serving path) compiles the mask code out.  A null mask
-// means every key is valid.  kBf16: q, k, v and the (dropped) weights are
-// rounded to bf16 before their products, q unscaled (JAX scales the
-// scores), and the weights are normalized before p v.
-template <bool kDrop, bool kBf16 = false>
+// means every key is valid.
+template <bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 attention_kernel(const float* __restrict__ qkv, const float* __restrict__ mask,
                  float* __restrict__ ctx, int L, Dropout drop, float2* __restrict__ stats) {
@@ -118,15 +120,9 @@ attention_kernel(const float* __restrict__ qkv, const float* __restrict__ mask,
   for (int e = threadIdx.x; e < L * kHeadDim; e += kThreads) {
     const int r = e / kHeadDim, c = e % kHeadDim;
     const float* row = base + (size_t)r * 3 * kCols + c;
-    if constexpr (kBf16) {
-      q_s[r * kPad + c] = round_bf16(row[0]);
-      k_s[r * kPad + c] = round_bf16(row[kCols]);
-      v_s[r * kPad + c] = round_bf16(row[2 * kCols]);
-    } else {
-      q_s[r * kPad + c] = row[0] * scale;
-      k_s[r * kPad + c] = row[kCols];
-      v_s[r * kPad + c] = row[2 * kCols];
-    }
+    q_s[r * kPad + c] = row[0] * scale;
+    k_s[r * kPad + c] = row[kCols];
+    v_s[r * kPad + c] = row[2 * kCols];
   }
   for (int j = threadIdx.x; j < L; j += kThreads)
     m_s[j] = mask != nullptr ? mask[(size_t)b * L + j] : 1.f;
@@ -149,10 +145,6 @@ attention_kernel(const float* __restrict__ qkv, const float* __restrict__ mask,
         s0 = fmaf(qa[c], kv, s0);
         s1 = fmaf(qb[c], kv, s1);
       }
-      if constexpr (kBf16) {
-        s0 *= scale;
-        s1 *= scale;
-      }
       if (m_s[j] == 0.f) s0 = s1 = kBigNeg;
       p0[j] = s0;
       p1[j] = s1;
@@ -165,7 +157,7 @@ attention_kernel(const float* __restrict__ qkv, const float* __restrict__ mask,
     for (int jb = 0; jb < L; jb += 32) {   // every lane takes each step (row_pair_keep)
       const int j = jb + lane;
       float k0 = 1.f, k1 = 1.f;
-      if constexpr (kDrop && !kBf16) row_pair_keep(drop, b, h, L, i0, i1, jb, k0, k1);
+      if constexpr (kDrop) row_pair_keep(drop, b, h, L, i0, i1, jb, k0, k1);
       if (j < L) {
         const float e0 = expf(p0[j] - mx0), e1 = expf(p1[j] - mx1);
         sum0 += e0;
@@ -182,21 +174,6 @@ attention_kernel(const float* __restrict__ qkv, const float* __restrict__ mask,
       st[i1] = make_float2(mx1, sum1);
     }
     __syncwarp();
-    if constexpr (kBf16) {
-      // JAX's order: p / sum, then the mask, then the bf16 operand of p v
-      for (int jb = 0; jb < L; jb += 32) {
-        const int j = jb + lane;
-        float k0 = 1.f, k1 = 1.f;
-        if constexpr (kDrop) row_pair_keep(drop, b, h, L, i0, i1, jb, k0, k1);
-        if (j < L) {
-          const float a0 = p0[j] / sum0, a1 = p1[j] / sum1;
-          p0[j] = round_bf16(kDrop ? a0 * k0 : a0);
-          p1[j] = round_bf16(kDrop ? a1 * k1 : a1);
-        }
-      }
-      sum0 = sum1 = 1.f;
-      __syncwarp();
-    }
     float acc0 = 0.f, acc1 = 0.f;
     int j = 0;
     for (; j + 4 <= L; j += 4) {           // four keys per broadcast 16-byte read
@@ -227,8 +204,8 @@ attention_kernel(const float* __restrict__ qkv, const float* __restrict__ mask,
 // (c) One block per 64 rows.  Out-proj, dropout, residual and LN1; the FFN
 // in 256-wide slices of the hidden dimension, each ReLU slice (dropped out)
 // kept in shared memory and folded straight into the second GEMM's register
-// accumulators; dropout, residual and LN2.  kDrop and kBf16 as in (b).
-template <bool kDrop, bool kBf16 = false>
+// accumulators; dropout, residual and LN2.  kDrop as in (b).
+template <bool kDrop>
 __global__ void __launch_bounds__(kThreads, 1)
 ffn_kernel(const float* __restrict__ x, const float* __restrict__ ctx,
            const float* __restrict__ w_out, const float* __restrict__ b_out,
@@ -252,7 +229,7 @@ ffn_kernel(const float* __restrict__ x, const float* __restrict__ ctx,
   load_rows(A, ctx, nullptr, r0, rows);
   Acc acc;
   zero(acc);
-  gemm<kBf16>(acc, A, w_out, kCols, 0, kCols, Ws);
+  gemm(acc, A, w_out, kCols, 0, kCols, Ws);
   for_each_acc(acc, [&](int r, int c, float& v) {
     Y[r * kLda + c] = (v + b_out[c]) * site_keep(r, H, kCols, c);
   });
@@ -272,12 +249,12 @@ ffn_kernel(const float* __restrict__ x, const float* __restrict__ ctx,
   zero(acc2);
   for (int f0 = 0; f0 < F; f0 += kCols) {
     zero(acc);
-    gemm<kBf16>(acc, Y, w1, kCols, f0, kCols, Ws);
+    gemm(acc, Y, w1, kCols, f0, kCols, Ws);
     for_each_acc(acc, [&](int r, int c, float& v) {
       A[r * kLda + c] = fmaxf(v + b1[f0 + c], 0.f) * site_keep(r, H + 1, F, f0 + c);
     });
     __syncthreads();
-    gemm<kBf16>(acc2, A, w2 + f0, F, 0, kCols, Ws);
+    gemm(acc2, A, w2 + f0, F, 0, kCols, Ws);
   }
   for_each_acc(acc2, [&](int r, int c, float& v) {
     A[r * kLda + c] = (v + b2[c]) * site_keep(r, H + 2, kCols, c) + Y[r * kLda + c];
@@ -287,43 +264,37 @@ ffn_kernel(const float* __restrict__ x, const float* __restrict__ ctx,
   store_rows(out, kCols, 0, A, r0, rows);
 }
 
-// Every instantiation of (b): dynamic shared memory for sequences up to max_l.
+// Both instantiations of (b): dynamic shared memory for sequences up to
+// max_l.
 inline cudaError_t attention_init(int max_l = kMaxL) {
   const int bytes = (int)attention_smem_bytes(max_l);
   cudaError_t err = cudaSuccess;
-  for (auto* kernel : {attention_kernel<false, false>, attention_kernel<true, false>,
-                       attention_kernel<false, true>, attention_kernel<true, true>})
+  for (auto* kernel : {attention_kernel<false>, attention_kernel<true>})
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   return err;
 }
 
 // Launches (b) over B rows on `s`; rate 0 takes the instantiation without
-// mask code, bf16 the one with bf16 operands.
+// mask code.
 inline void launch_attention(const float* qkv, const float* mask, float* ctx, int B, int H,
-                             int L, const Dropout& drop, cudaStream_t s, bool bf16 = false,
+                             int L, const Dropout& drop, cudaStream_t s,
                              float2* stats = nullptr) {
   const dim3 grid(H, B);
   const size_t smem = attention_smem_bytes(L);
-  auto* kernel = drop.thresh != 0u ? (bf16 ? attention_kernel<true, true>
-                                           : attention_kernel<true, false>)
-                                   : (bf16 ? attention_kernel<false, true>
-                                           : attention_kernel<false, false>);
+  auto* kernel = drop.thresh != 0u ? attention_kernel<true> : attention_kernel<false>;
   kernel<<<grid, kThreads, smem, s>>>(qkv, mask, ctx, L, drop, stats);
 }
 
-// The forward's GEMM launches at both precisions: dynamic shared memory.
+// The decoder forward's GEMM launches (float32, no dropout): dynamic shared
+// memory.
 inline cudaError_t gemm_launches_init() {
-  cudaError_t err = cudaSuccess;
-  for (auto* kernel : {qkv_kernel<false>, qkv_kernel<true>})
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)kGemmSmem);
-  for (auto* kernel : {ffn_kernel<false, false>, ffn_kernel<true, false>,
-                       ffn_kernel<false, true>, ffn_kernel<true, true>})
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)kFfnSmem);
+  cudaError_t err = cudaFuncSetAttribute(qkv_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)kGemmSmem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ffn_kernel<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kFfnSmem);
   return err;
 }
 

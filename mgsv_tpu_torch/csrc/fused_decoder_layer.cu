@@ -82,7 +82,7 @@ extern "C" int mgsv_fused_decoder_layer_fwd(
                                            inv1, q, ctx);
   if (!lq.check()) return (int)lq.err;
   if (!lm.check()) return (int)lm.err;
-  ffn_kernel<false, false><<<(Nq + kRows - 1) / kRows, kThreads, kFfnSmem, s>>>(
+  ffn_kernel<false><<<(Nq + kRows - 1) / kRows, kThreads, kFfnSmem, s>>>(
       t1p, ctx, ca_w_out, ca_b_out, n2_g, n2_b, w1, b1, w2, b2, n3_g, n3_b, out, Nq, Q, H, F,
       none);
   return (int)cudaGetLastError();

@@ -31,9 +31,12 @@
 //    (head, batch row) the backward rebuilds them on the tensor cores
 //    (attention_bwd_tc_kernel: mma.sync, 3xTF32 or bf16), one sweep over
 //    query rows (dq) and one over key rows (dk, dv), so every sum has one
-//    owner.  At "f32" the recompute's attention is the forward kernel's own
-//    float32 one (it also hands its softmax statistics to the backward,
-//    and D_i = dctx_i . ctx_i); at "bf16" it runs on the tensor cores too.
+//    owner.
+//  * The recompute is the forward kernel's own launch sequence
+//    (layer_bwd_kernels.cuh::encoder_layer_fwd), so its activations are the
+//    forward's to the bit.  At "f32" its attention (float32, on the CUDA
+//    cores) also hands its softmax statistics to the backward, and D_i =
+//    dctx_i . ctx_i; at "bf16" it runs on the tensor cores.
 //
 // With bf16 set (JAX's precision="bf16" of this VJP) every product, the
 // recompute's and the backward's, the weight gradients' included, takes
@@ -93,18 +96,11 @@ extern "C" int mgsv_fused_encoder_layer_bwd(
   Launcher k{static_cast<cudaStream_t>(stream), rows, L, Dropout{seed, thresh, scale}, cur};
   k.bf16 = bf16 != 0;
 
-  // ---- recompute the forward
-  k.add(x, pos, a, n * d);
-  k.rowgemm({a, D, D, w_in, D, 0, b_in, 0, -1, D, nullptr, 0, nullptr, 0, qkv, 3 * D}, 2 * D);
-  k.rowgemm({x, D, D, w_in + (size_t)2 * D * D, D, 0, b_in + 2 * D, 0, -1, D, nullptr, 0, nullptr,
-             0, qkv + 2 * D, 3 * D},
-            D);
-  k.attention_fwd(qkv, mask, ctx, B, H, L, stats);
-  k.rowgemm({ctx, D, D, w_out, D, 0, b_out, 0, H, D, nullptr, 0, x, D, r, D}, D);
-  k.ln_fwd(r, g1, be1, y1, xh1, inv1);
-  k.rowgemm({y1, D, D, w1, D, 0, b1, 1, H + 1, F, nullptr, 0, nullptr, 0, h1, F}, F);
-  k.rowgemm({h1, F, F, w2, F, 0, b2, 0, H + 2, D, nullptr, 0, y1, D, r, D}, D);
-  k.ln_fwd(r, g2, be2, nullptr, xh2, inv2);
+  // ---- recompute the forward: #1's own sequence, keeping what the
+  // backward reads
+  EncoderActs t{a, qkv, ctx, r, y1, h1, xh1, inv1, xh2, inv2, nullptr, stats};
+  encoder_layer_fwd(k, x, pos, mask, {w_in, b_in, w_out, b_out, g1, be1, w1, b1, w2, b2, g2, be2},
+                    t, B, H, F);
 
   // ---- FFN and LN2
   k.ln_bwd_sums(g_out, xh2, inv2, g2, dr2, dg2, dbe2);

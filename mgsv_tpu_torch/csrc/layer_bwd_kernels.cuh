@@ -165,8 +165,8 @@ struct RowEpi {
   }
 };
 
-// LayerNorm statistics of each [256] row: xhat, 1 / std and (when y is
-// given) y = xhat * g + beta.  One warp per row.
+// LayerNorm of each [256] row: y = xhat * g + beta, xhat and 1 / std, each
+// written where its pointer is not null.  One warp per row.
 __global__ void ln_fwd_kernel(const float* __restrict__ in, const float* __restrict__ g,
                               const float* __restrict__ beta, float* __restrict__ y,
                               float* __restrict__ xhat, float* __restrict__ inv_out, int rows) {
@@ -188,10 +188,10 @@ __global__ void ln_fwd_kernel(const float* __restrict__ in, const float* __restr
   for (int t = 0; t < kVec; ++t) {
     const int c = lane + 32 * t;
     const float xh = (v[t] - mean) * inv;
-    xhat[(size_t)row * kCols + c] = xh;
+    if (xhat) xhat[(size_t)row * kCols + c] = xh;
     if (y) y[(size_t)row * kCols + c] = xh * g[c] + beta[c];
   }
-  if (lane == 0) inv_out[row] = inv;
+  if (lane == 0 && inv_out) inv_out[row] = inv;
 }
 
 // Row kernels with column sums: a block takes kSumRows consecutive rows,
@@ -1011,7 +1011,7 @@ struct Launcher {
                      float2* stats = nullptr) {
     if (!check()) return;
     if (!bf16) {
-      launch_attention(qkv, mask, ctx, B, H, len, drop, s, false, stats);
+      launch_attention(qkv, mask, ctx, B, H, len, drop, s, stats);
       return;
     }
     attention_fwd_tc_kernel<<<dim3(H, B), kAttThreads, attention_tc_smem_bytes(len, 3), s>>>(
@@ -1030,15 +1030,64 @@ struct Launcher {
   }
 };
 
-// The dynamic shared memory of the launches above (and of the forward
-// attention of #1's launches, which the decoder's recompute runs), for
-// sequences up to max_l.  The GEMM core sets its own at each launch.
-inline cudaError_t layer_bwd_init(int max_l) {
+// The layer's tensors in torch's [out, in] layout (in_proj_weight rows q|k|v).
+struct EncoderWeights {
+  const float *w_in, *b_in, *w_out, *b_out, *g1, *be1, *w1, *b1, *w2, *b2, *g2, *be2;
+};
+
+// What the forward writes, per row: a = x + pos, qkv [3D], ctx, r (the
+// residual sums before each LayerNorm), y1 = LN1(r), h1 [F] (the dropped
+// ReLU); and, where not null, LN1's and LN2's xhat and 1 / std, the
+// attention rows' softmax statistics [B, H, L] and out = LN2(r).
+struct EncoderActs {
+  float *a, *qkv, *ctx, *r, *y1, *h1;
+  float *xh1, *inv1, *xh2, *inv2, *out;
+  float2* stats;
+};
+
+// The post-norm DETR encoder layer's forward: x + pos; q|k (from x + pos)
+// and v (from x) on the GEMM core with their biases; the attention (at
+// "bf16" on the tensor cores, at "f32" attention_kernel's float32 one);
+// the out-projection with dropout (site H) and the residual x; LN1; FFN1
+// with bias, ReLU and dropout (H + 1); FFN2 with dropout (H + 2) and the
+// residual y1; LN2.  Kernel #1 (fused_encoder_layer.cu) keeps `out`, #2's
+// recompute (fused_encoder_layer_bwd.cu) the statistics its backward reads:
+// both run this one sequence.
+inline void encoder_layer_fwd(Launcher& k, const float* x, const float* pos, const float* mask,
+                              const EncoderWeights& w, const EncoderActs& t, int B, int H,
+                              int F) {
+  const int D = kCols;
+  k.add(x, pos, t.a, (size_t)k.rows * D);
+  k.rowgemm({t.a, D, D, w.w_in, D, 0, w.b_in, 0, -1, D, nullptr, 0, nullptr, 0, t.qkv, 3 * D},
+            2 * D);
+  k.rowgemm({x, D, D, w.w_in + (size_t)2 * D * D, D, 0, w.b_in + 2 * D, 0, -1, D, nullptr, 0,
+             nullptr, 0, t.qkv + 2 * D, 3 * D},
+            D);
+  k.attention_fwd(t.qkv, mask, t.ctx, B, H, k.L, t.stats);
+  k.rowgemm({t.ctx, D, D, w.w_out, D, 0, w.b_out, 0, H, D, nullptr, 0, x, D, t.r, D}, D);
+  k.ln_fwd(t.r, w.g1, w.be1, t.y1, t.xh1, t.inv1);
+  k.rowgemm({t.y1, D, D, w.w1, D, 0, w.b1, 1, H + 1, F, nullptr, 0, nullptr, 0, t.h1, F}, F);
+  k.rowgemm({t.h1, F, F, w.w2, F, 0, w.b2, 0, H + 2, D, nullptr, 0, t.y1, D, t.r, D}, D);
+  k.ln_fwd(t.r, w.g2, w.be2, t.out, t.xh2, t.inv2);
+}
+
+// The dynamic shared memory of encoder_layer_fwd's attention launches at
+// both precisions, for sequences up to max_l.  The GEMM core sets its own
+// at each launch.
+inline cudaError_t encoder_fwd_init(int max_l) {
   cudaError_t err = attention_init(max_l);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(attention_fwd_tc_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)attention_tc_smem_bytes(max_l, 3));
+  return err;
+}
+
+// The dynamic shared memory of the launches above (and of the forward
+// attention of #1's launches, which the decoder's recompute runs), for
+// sequences up to max_l.
+inline cudaError_t layer_bwd_init(int max_l) {
+  cudaError_t err = encoder_fwd_init(max_l);
   for (auto* kernel : {attention_bwd_tc_kernel<false>, attention_bwd_tc_kernel<true>})
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

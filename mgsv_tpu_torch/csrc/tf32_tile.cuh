@@ -13,11 +13,9 @@
 //   gemm_t      W[n][k] = Wt[k][n] of a [K][N] matrix, staged K-major
 //               [kKc][256]; rows k >= kvalid read as zero
 //
-// Every product takes a template parameter kBf16: false is the 3xTF32 tile
-// above; true rounds both operands to bf16 as it reads them from shared
-// memory into mma.sync m16n8k16 fragments and accumulates in float32 (the
-// JAX kernels' precision="bf16": bf16 MXU operands, float32 sums).  The
-// staging, layouts and epilogues are the same for both.
+// pack_bf16 and mma_bf16 (bf16 operands, float32 sums: the JAX kernels'
+// precision="bf16") serve the tensor-core attention of
+// layer_bwd_kernels.cuh.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -132,12 +130,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// x rounded to the nearest bf16, kept as a float (a bf16 operand of a
-// product that the CUDA cores compute in float32: exact, as on the MXU).
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
 // The block's [kRows x kCols] output is split over the 8 warps as 2 x 4
 // warp tiles of 32 rows x 64 columns, each 2 x 8 m16n8 accumulator tiles.
 using Acc = float[2][8][4];
@@ -149,10 +141,8 @@ using Acc = float[2][8][4];
 // strides 8 mod 32): conflict-free either way.  The tensor cores add in
 // float32 but truncate to the running sum's exponent, so the tile's
 // products are summed from zero (small cross terms first) and only then
-// added to acc with an ordinary rounded add.  kBf16: both operands rounded
-// to bf16 into m16n8k16 fragments (A: rows g, g + 8 at k 2t, 2t + 1 and
-// 2t + 8, 2t + 9; B: those k at column g), one product per 16-deep step.
-template <bool W_KMAJOR = false, bool kBf16 = false>
+// added to acc with an ordinary rounded add.
+template <bool W_KMAJOR = false>
 __device__ __forceinline__ void mma_tile(Acc& acc, const float* A, const float* Ws) {
   constexpr int kSteps = kKc / 8;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -160,40 +150,6 @@ __device__ __forceinline__ void mma_tile(Acc& acc, const float* A, const float* 
   const int row0 = 32 * (warp & 1) + g, col0 = 64 * (warp >> 1) + g;
   auto a_at = [&](int row, int k) { return A[row * kLda + k]; };
   auto w_at = [&](int k, int n) { return W_KMAJOR ? Ws[k * kLdt + n] : Ws[n * kLdws + k]; };
-  if constexpr (kBf16) {
-    constexpr int kSteps16 = kKc / 16;
-    unsigned af[2][kSteps16][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int s = 0; s < kSteps16; ++s) {
-        const int r = row0 + 16 * mi, k = 16 * s + 2 * t;
-        af[mi][s][0] = pack_bf16(a_at(r, k), a_at(r, k + 1));
-        af[mi][s][1] = pack_bf16(a_at(r + 8, k), a_at(r + 8, k + 1));
-        af[mi][s][2] = pack_bf16(a_at(r, k + 8), a_at(r, k + 9));
-        af[mi][s][3] = pack_bf16(a_at(r + 8, k + 8), a_at(r + 8, k + 9));
-      }
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni) {
-      unsigned bf[kSteps16][2];
-      const int n = col0 + 8 * ni;
-#pragma unroll
-      for (int s = 0; s < kSteps16; ++s) {
-        const int k = 16 * s + 2 * t;
-        bf[s][0] = pack_bf16(w_at(k, n), w_at(k + 1, n));
-        bf[s][1] = pack_bf16(w_at(k + 8, n), w_at(k + 9, n));
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        float part[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int s = 0; s < kSteps16; ++s) mma_bf16(part, af[mi][s], bf[s][0], bf[s][1]);
-#pragma unroll
-        for (int r = 0; r < 4; ++r) acc[mi][ni][r] += part[r];
-      }
-    }
-    return;
-  }
   unsigned ab[2][kSteps][4], as[2][kSteps][4];
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
@@ -254,7 +210,7 @@ __device__ __forceinline__ void zero(Acc& acc) {
 // K-slice by stage(buffer, k0) into one of Ws's two buffers: the next slice
 // loads while this one computes.  Expects A written and the block
 // synchronized; returns synchronized.  K is a multiple of kKc.
-template <bool W_KMAJOR, bool kBf16, class Stage>
+template <bool W_KMAJOR, class Stage>
 __device__ void gemm_k(Acc& acc, const float* A, int K, float* Ws, Stage stage) {
   const int nk = K / kKc;
   stage(Ws, 0);
@@ -262,7 +218,7 @@ __device__ void gemm_k(Acc& acc, const float* A, int K, float* Ws, Stage stage) 
   __syncthreads();
   for (int c = 0; c < nk; ++c) {
     if (c + 1 < nk) stage(Ws + ((c + 1) & 1) * kWsFloats, (c + 1) * kKc);
-    mma_tile<W_KMAJOR, kBf16>(acc, A + c * kKc, Ws + (c & 1) * kWsFloats);
+    mma_tile<W_KMAJOR>(acc, A + c * kKc, Ws + (c & 1) * kWsFloats);
     cp_async_wait_all();
     __syncthreads();
   }
@@ -270,19 +226,17 @@ __device__ void gemm_k(Acc& acc, const float* A, int K, float* Ws, Stage stage) 
 
 // acc += A . W[n0 .. n0+kCols)[0 .. K)^T (torch [N][K] weight, row stride ldw);
 // rows n >= nvalid of W read as zero.
-template <bool kBf16 = false>
 __device__ void gemm(Acc& acc, const float* A, const float* __restrict__ W,
                      int ldw, int n0, int K, float* Ws, int nvalid = 1 << 30) {
-  gemm_k<false, kBf16>(acc, A, K, Ws,
+  gemm_k<false>(acc, A, K, Ws,
                 [&](float* buf, int k0) { stage_w(buf, W, ldw, n0, k0, nvalid); });
 }
 
 // acc += A . Wt[0 .. K)[n0 .. n0+kCols) (row-major [K][N], row stride ldw);
 // rows k >= kvalid of Wt read as zero.
-template <bool kBf16 = false>
 __device__ void gemm_t(Acc& acc, const float* A, const float* __restrict__ Wt,
                        int ldw, int n0, int K, int kvalid, float* Ws) {
-  gemm_k<true, kBf16>(acc, A, K, Ws,
+  gemm_k<true>(acc, A, K, Ws,
                [&](float* buf, int k0) { stage_w_t(buf, Wt, ldw, n0, k0, kvalid); });
 }
 

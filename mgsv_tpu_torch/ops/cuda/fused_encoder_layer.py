@@ -39,7 +39,7 @@ if TYPE_CHECKING:
 
 # The shapes the kernel takes; csrc/fused_encoder_layer.cu guards the same.
 HEAD_DIM = 32      # the kernel maps one lane to one head channel
-DIM = 256          # its GEMM tiles span a full row of D = 256 (for LayerNorm)
+DIM = 256          # the LayerNorm launches take a row of D = 256, one warp each
 MAX_L = 256        # the attention block's shared memory is sized for this L
 MAX_B = 65535      # grid y of the attention launch
 PRECISIONS = ("f32", "bf16")
@@ -208,14 +208,19 @@ def _weights(layer: DetrEncoderLayer, device: torch.device) -> tuple:
 
 @functools.cache
 def _launcher(device_index: int):
-    """The forward's C entry point, with the kernels' shared-memory limits
-    set once on this device (call with the device current)."""
-    fn = kernels.load_initialized("fused_encoder_layer", device_index).mgsv_fused_encoder_layer_fwd
+    """The forward's C entry points (workspace size, launch), with the
+    kernels' shared-memory limits set once on this device (call with the
+    device current)."""
+    lib = kernels.load_initialized("fused_encoder_layer", device_index)
+    size = lib.mgsv_fused_encoder_layer_workspace
+    size.restype = ctypes.c_size_t
+    size.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn = lib.mgsv_fused_encoder_layer_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 5
                    + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_int,
                       ctypes.c_void_p])
-    return fn
+    return size, fn
 
 
 @functools.cache
@@ -235,12 +240,11 @@ def _bwd_launcher(device_index: int):
 
 def _forward_kernel(x, mask, pos, layer, weights, rate, seed, precision) -> torch.Tensor:
     (b, L, d), f = x.shape, weights[6].shape[0]
-    qkv = x.new_empty(b, L, 3 * d)
-    ctx = torch.empty_like(x)
     out = torch.empty_like(x)
-    args = [t.data_ptr() for t in (x, pos, mask) + tuple(weights) + (qkv, ctx, out)]
     with torch.cuda.device(x.device):
-        launch = _launcher(x.device.index)
+        size, launch = _launcher(x.device.index)
+        ws = x.new_empty(int(size(b * L, f)))
+        args = [t.data_ptr() for t in (x, pos, mask) + tuple(weights) + (ws, out)]
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = launch(*args, b, L, d, layer.self_attn.heads, f,
                      *philox.kernel_args(rate, seed), int(precision == "bf16"), stream)

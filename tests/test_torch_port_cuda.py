@@ -207,12 +207,15 @@ def test_cuda_eval_kernel_splits_the_tracks(dev, monkeypatch):
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("b,h,lq,lk,masked", [(2, 3, 130, 200, True), (3, 2, 64, 64, False),
                                               (2, 12, 1214, 1214, False), (5, 4, 50, 50, True),
-                                              (1, 2, 7, 300, True)])
+                                              (1, 2, 7, 300, True), (2, 2, 100, 129, False),
+                                              (2, 3, 70, 1, True), (3, 2, 1, 300, True),
+                                              (2, 2, 129, 1214, True)])
 def test_cuda_flash_attention_matches_plain_version(dev, dtype, atol, b, h, lq, lk, masked):
     """Kernel #7 against its plain version: ragged key masks with a fully
-    masked batch row (output 0), Lq != Lk, lengths off the 64-row tiles, and
-    q, k, v as strided views of one packed [B, L, 3, H, 64] tensor, as the
-    towers hand them over.  float32 1e-4 (3xTF32 products), bf16 2e-2."""
+    masked batch row (output 0), Lq != Lk, Lq = 1, lengths off the 64- and
+    128-key tiles and the 128-row query tiles (Lk = 1, 129, 1214), and q, k,
+    v as strided views of one packed [B, L, 3, H, 64] tensor, as the towers
+    hand them over.  float32 1e-4 (3xTF32 products), bf16 2e-2."""
     rng = np.random.default_rng(b * lq + lk)
     qkv = _randn(rng, (b, max(lq, lk), 3, h, 64), dev).to(dtype).permute(2, 0, 3, 1, 4)
     q, k, v = qkv[0][:, :, :lq], qkv[1][:, :, :lk], qkv[2][:, :, :lk]
@@ -229,6 +232,21 @@ def test_cuda_flash_attention_matches_plain_version(dev, dtype, atol, b, h, lq, 
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
     if masked:
         assert not got[-1].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_is_bit_reproducible(dev, dtype):
+    """Two calls on contiguous [B, H, L, 64] tensors give the same bits (each
+    output row has one owner and a fixed order of sums)."""
+    rng = np.random.default_rng(11)
+    q, k, v = (_randn(rng, (3, 4, 300, 64), dev).to(dtype) for _ in range(3))
+    mask = _ragged(rng, 3, 300, dev)
+    first = fa.flash_attention(q, k, v, 0.125, mask)
+    second = fa.flash_attention(q, k, v, 0.125, mask)
+    assert torch.equal(first, second)
+    torch.testing.assert_close(first.float(),
+                               fa.flash_attention_reference(q, k, v, 0.125, mask).float(),
+                               atol=1e-4 if dtype == torch.float32 else 2e-2, rtol=0)
 
 
 def test_cuda_flash_attention_refuses_other_head_dims(dev):
@@ -312,6 +330,32 @@ def test_cuda_encoder_bf16_matches_plain_version(dev, rate):
     assert err <= 2e-2, err
     assert err < (f32 - outs[1]).abs().max().item()
     _assert_grads_vs_float64(*grads, rel=1e-2)
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("b,L", [(5, 1), (3, 21), (7, 150), (2, 256), (8, 152)])
+def test_cuda_encoder_forward_shapes(dev, precision, rate, b, L):
+    """Kernel #1 against its plain version at L = 1, 21, 150, 256 and the 8
+    serving rows (B=8, L=152), B*L off the GEMM core's 128-row tiles: float32
+    within 1e-4; "bf16" within 2e-2 of the bf16 plain version and nearer it
+    than the float32 kernel is."""
+    rng = np.random.default_rng(100 * b + L)
+    x, pos = _randn(rng, (b, L, 256), dev), _randn(rng, (b, L, 256), dev)
+    mask = _ragged(rng, b, L, dev)
+    layer = _encoder_layer(dev)
+    before = fel.fused_encoder_layer.launches
+    with torch.no_grad():
+        out = fel.fused_encoder_layer(x, mask, pos, layer, rate, 9, precision)
+        ref = fel.fused_encoder_layer_reference(x, mask, pos, layer, rate, 9, precision)
+        f32 = fel.fused_encoder_layer(x, mask, pos, layer, rate, 9)
+    assert fel.fused_encoder_layer.launches == before + 2
+    assert out.shape == x.shape and torch.isfinite(out).all()
+    if precision == "f32":
+        torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    else:
+        err = (out - ref).abs().max().item()
+        assert err <= 2e-2 and err < (f32 - ref).abs().max().item(), err
 
 
 def _decoder_layer(dev, self_attn):
