@@ -19,8 +19,10 @@ failure:
               sums) against its bf16 plain version, forward and every
               gradient, timed in turns with the float32 instantiation
               beside the bf16 bound; the encoder layer's forward (#1) and
-              backward (#2) at both precisions and #3's backward also by
-              kernel name (one call under torch.profiler, [breakdown] lines)
+              backward (#2) at both precisions and #3's backward and
+              forward also by kernel name (one call under torch.profiler,
+              [breakdown] lines: the forward's u^T launch, the tf32 splits
+              and the pair kernel), with the forward's workspace bytes
   4. temporal-kernel  the temporal-tower layer's kernels (#5, forward and
               backward) against their plain version at B=512 for the audio
               (L=96) and video (L=50) towers, rates 0 and 0.8, a row with no
@@ -50,8 +52,9 @@ failure:
               replies equal to direct engine.query calls
  10. eval-kernel  the evaluation X-Pool kernel (#4) against its plain
               version at V = M = 2,048, S = 96 (the corpus of an MGSV-EC
-              split), timed in turns beside its bound; one line at the
-              serving scan's shape (V = 32, M = 4,096) for information
+              split), timed in turns beside its bound, its workspace bytes
+              and a [breakdown] by kernel name; one line at the serving
+              scan's shape (V = 32, M = 4,096) for information
  11. train-cli  `cli.train` in-process on 2,048 generated rows of the
               default bf16 Config(): 4 steps at B=512, then an evaluation
               at B=40 (52 batches, one corpus similarity); history.json,
@@ -654,6 +657,10 @@ def check_xpool(device: torch.device) -> list:
           plain_ms=f"{plain_bms:.4f}")
     breakdown("xpool_sim_bwd", lambda: xps.xpool_sim_bwd(q, k, v, mask, vhat, weights, g, rate,
                                                          DROPOUT_SEED))
+    phase("workspace", name="xpool_sim_fwd", V=vc, M=mc, S=s,
+          bytes=xps.forward_workspace_bytes(vc, mc, s, device))
+    breakdown("xpool_sim_fwd", lambda: xps.xpool_sim_fwd(q, k, v, mask, vhat, weights, rate,
+                                                         DROPOUT_SEED), V=vc, M=mc, rate=rate)
     flops = xpool_pair_flops(vc, mc, s, d)
     src = "mgsv_tpu_torch/csrc/xpool_sim_train.cu"
     return [
@@ -1047,10 +1054,10 @@ def check_http(engine: RetrievalEngine, videos, vmask) -> None:
 
 def xpool_pair_flops(vc: int, mc: int, s: int, d: int) -> int:
     """The least work of the pair chain.  Per (video, track): scores and
-    p.v (4 S D), Wlin (2 D^2), the cosine (2 D).  Wout is linear and acts
-    on a softmax-weighted sum whose weights add up to 1, so it can be
-    applied once per snippet of each track (M S 2 D^2) in place of once per
-    pair; the kernel does the latter."""
+    p.u (4 S D), Wlin (2 D^2), the cosine (2 D).  Wout is linear and acts
+    on a softmax-weighted sum, so it is applied once per snippet of each
+    track (M S 2 D^2, u = v Wout^T) and not once per pair, as the kernel
+    does."""
     return vc * mc * (4 * s * d + 2 * d * d + 2 * d) + mc * s * 2 * d * d
 
 
@@ -1085,6 +1092,10 @@ def check_eval_kernel(device: torch.device) -> dict:
             fn_ms, blocked_ms = in_turns(
                 lambda: xpool_sim_fused(video, segs, mask, xpool),
                 lambda: xpool_similarity_blocked(xpool, video, segs, mask), iters=2)
+            if vc == EVAL_N:
+                phase("workspace", name="xpool_sim_eval", V=vc, M=mc, S=s,
+                      bytes=xps.forward_workspace_bytes(vc, mc, s, device))
+                breakdown("xpool_sim_eval", lambda: xps.xpool_sim_eval(*ins), V=vc, M=mc)
         flops = xpool_pair_flops(vc, mc, s, d)
         nb = nbytes(*ins[:5], *ins[5], got)
         bms, by = bound(flops, nb)

@@ -125,30 +125,6 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
-// wgmma_gemm.cuh's mbar_wait with a bound: a wait that outlasts two
-// seconds (which no tile of a correct launch needs) traps, so a fault in
-// the pipeline ends the launch with an error instead of hanging the card.
-__device__ __forceinline__ void fa_wait(uint32_t bar, unsigned parity) {
-  uint32_t done = 0;
-  uint64_t start = 0;
-  for (uint32_t polls = 0; !done; ++polls) {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (!done && (polls & 1023u) == 0) {
-      uint64_t now;
-      asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
-      if (polls == 0)
-        start = now;
-      else if (now - start > 2000000000ull)
-        __trap();
-    }
-  }
-}
-
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
@@ -258,11 +234,6 @@ __device__ __forceinline__ void convert_kv(const char* st, char* cvt, int ctid) 
     *reinterpret_cast<float4*>(vs + off) = make_float4(
         tf32_rna(x[0] - b.x), tf32_rna(x[1] - b.y), tf32_rna(x[2] - b.z), tf32_rna(x[3] - b.w));
   }
-}
-
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // The online softmax of one thread's two rows (g and g + 8 of its warp's
@@ -398,7 +369,7 @@ __global__ void __launch_bounds__(FaCfg<kBf16>::kThreads, 1)
         const int bh = item / p.qtiles, q0 = (item % p.qtiles) * kQRows;
         const int b = bh / p.H, h = bh % p.H;
         const int qs = qi % kQBufs;
-        fa_wait(smem_addr(q_empty + qs), ((unsigned)(qi / kQBufs) & 1u) ^ 1u);
+        mbar_wait_bounded(smem_addr(q_empty + qs), ((unsigned)(qi / kQBufs) & 1u) ^ 1u);
         const uint32_t qbar = smem_addr(q_full + qs);
         const uint32_t qdst = smem_addr(qbuf + qs * C::kQBytes);
         mbar_expect_tx(qbar, C::kQBytes);
@@ -410,7 +381,7 @@ __global__ void __launch_bounds__(FaCfg<kBf16>::kThreads, 1)
         }
         for (int j = 0; j < ntiles; ++j, ++it) {
           const int s = it % kStages;
-          fa_wait(smem_addr(empty + s), ((unsigned)(it / kStages) & 1u) ^ 1u);
+          mbar_wait_bounded(smem_addr(empty + s), ((unsigned)(it / kStages) & 1u) ^ 1u);
           const uint32_t bar = smem_addr(full + s);
           mbar_expect_tx(bar, C::kStageBytes);
           const uint32_t dst = smem_addr(stages + s * C::kStageBytes);
@@ -493,11 +464,11 @@ __global__ void __launch_bounds__(FaCfg<kBf16>::kThreads, 1)
     for (int k = 0; k < nitems; ++k) {
       const int item = blockIdx.x + k * gridDim.x;
       const Rows rows = rows_of(item);
-      fa_wait(smem_addr(q_full + (k & 1)), (unsigned)(k >> 1) & 1u);
+      mbar_wait_bounded(smem_addr(q_full + (k & 1)), (unsigned)(k >> 1) & 1u);
       // the group's 64 rows of 128 bytes
       const uint32_t qa = smem_addr(qbuf + (k & 1) * C::kQBytes + wg * 64 * 128);
       auto issue_s = [&](float (&sc)[4 * kJ], int u) {
-        fa_wait(smem_addr(full + u % kStages), (unsigned)(u / kStages) & 1u);
+        mbar_wait_bounded(smem_addr(full + u % kStages), (unsigned)(u / kStages) & 1u);
         const uint32_t ka = smem_addr(stage(u));
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
@@ -547,7 +518,7 @@ __global__ void __launch_bounds__(FaCfg<kBf16>::kThreads, 1)
     for (int k = 0; k < nitems; ++k) {
       const int item = blockIdx.x + k * gridDim.x;
       const Rows rows = rows_of(item);
-      fa_wait(smem_addr(q_full), (unsigned)k & 1u);
+      mbar_wait_bounded(smem_addr(q_full), (unsigned)k & 1u);
       // q's A fragments (big, small) per 8-channel k-step, scaled
       unsigned qb[8][4], qsm[8][4];
 #pragma unroll
@@ -568,7 +539,7 @@ __global__ void __launch_bounds__(FaCfg<kBf16>::kThreads, 1)
       // tile i converted by both groups into buffer i mod 2
       auto convert = [&](int i) {
         const int si = i % kStages;
-        fa_wait(smem_addr(full + si), (unsigned)(i / kStages) & 1u);
+        mbar_wait_bounded(smem_addr(full + si), (unsigned)(i / kStages) & 1u);
         convert_kv(stages + si * C::kStageBytes, cvt + (i & 1) * C::kCvtBytes, threadIdx.x);
         release(empty + si);
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");

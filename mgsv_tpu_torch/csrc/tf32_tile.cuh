@@ -3,15 +3,10 @@
 // A block of 256 threads computes a [kRows = 64] x [kCols = 256] float32
 // tile on the tensor cores (mma.sync m16n8k8 tf32, each operand split into
 // two tf32 halves, three products per tile: float32 accuracy).  The "A"
-// operand is a [64][K] tile in shared memory, K-minor; the "W" operand is
-// staged K-slice by K-slice from device memory with cp.async, double-
-// buffered, in the layout its source already has, so every copy moves 16
-// contiguous bytes:
-//
-//   gemm        W[n][k] rows of a torch [N][K] weight, staged [256][kKc];
-//               rows n >= nvalid read as zero
-//   gemm_t      W[n][k] = Wt[k][n] of a [K][N] matrix, staged K-major
-//               [kKc][256]; rows k >= kvalid read as zero
+// operand is a [64][K] tile in shared memory, K-minor; the "W" operand, the
+// rows W[n][k] of a torch [N][K] weight (rows n >= nvalid read as zero), is
+// staged K-slice by K-slice ([256][kKc]) from device memory with cp.async,
+// double-buffered, so every copy moves 16 contiguous bytes (gemm).
 //
 // pack_bf16 and mma_bf16 (bf16 operands, float32 sums: the JAX kernels'
 // precision="bf16") serve the tensor-core attention of
@@ -32,11 +27,6 @@ constexpr int kKc = 32;               // reduction depth per staged tile
 constexpr int kLda = kCols + 4;       // activation tile row stride: 16 B rows, 4 mod 32 banks
 constexpr int kLdws = kKc + 4;        // staged tile [kCols][kLdws], same two properties
 constexpr int kWsFloats = kCols * kLdws;
-// K-major staged tiles ([kKc][kLdt]): 16-byte rows at 8 mod 32 banks, so
-// fragment reads (k t, column g) hit banks 8 t + g, all distinct.  They fit
-// the buffers of the K-minor tiles.
-constexpr int kLdt = kCols + 8;
-static_assert(kKc * kLdt <= kWsFloats, "staging sizes");
 constexpr int kTileFloats = kRows * kLda;
 constexpr float kBigNeg = -1e9f;
 constexpr float kLnEps = 1e-5f;
@@ -82,22 +72,6 @@ __device__ __forceinline__ void stage_w(float* Ws, const float* __restrict__ W,
   cp_async_commit();
 }
 
-// Stage Ws[kk][n] = Wt[k0 + kk][n0 + n] (K-major, row stride kLdt) of a
-// row-major [K][N] matrix (row stride ldw) with cp.async; rows k0 + kk >=
-// kvalid are written as zeros.
-__device__ __forceinline__ void stage_w_t(float* Ws, const float* __restrict__ Wt,
-                                          int ldw, int n0, int k0, int kvalid) {
-  for (int e = threadIdx.x; e < kKc * kCols / 4; e += kThreads) {
-    const int kk = e / (kCols / 4), q = e % (kCols / 4);
-    float* dst = Ws + kk * kLdt + 4 * q;
-    if (k0 + kk < kvalid)
-      cp_async16(dst, Wt + (size_t)(k0 + kk) * ldw + n0 + 4 * q);
-    else
-      *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  cp_async_commit();
-}
-
 // 3xTF32: x = big + small with both halves exact in tf32, and
 // a.b ~ a_small.b_big + a_big.b_small + a_big.b_big keeps float32 accuracy
 // (the dropped small.small term is ~2^-22 relative) on the tensor cores.
@@ -135,21 +109,19 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], 
 using Acc = float[2][8][4];
 
 // acc += A[.. x kKc] . Ws[.. x kKc]^T for this warp's tile.  A is row-major
-// (element (row, k) at A[row * kLda + k]); Ws is [kCols][kLdws] K-minor or, with W_KMAJOR,
-// [kKc][kLdt] K-major.  With g = lane / 4, t = lane % 4, fragment reads hit
-// banks 4 g + t (K-minor, row strides 4 mod 32) or 8 t + g (K-major, row
-// strides 8 mod 32): conflict-free either way.  The tensor cores add in
-// float32 but truncate to the running sum's exponent, so the tile's
-// products are summed from zero (small cross terms first) and only then
-// added to acc with an ordinary rounded add.
-template <bool W_KMAJOR = false>
+// (element (row, k) at A[row * kLda + k]); Ws is [kCols][kLdws] K-minor.
+// With g = lane / 4, t = lane % 4, fragment reads hit banks 4 g + t (row
+// strides 4 mod 32): conflict-free.  The tensor cores add in float32 but
+// truncate to the running sum's exponent, so the tile's products are summed
+// from zero (small cross terms first) and only then added to acc with an
+// ordinary rounded add.
 __device__ __forceinline__ void mma_tile(Acc& acc, const float* A, const float* Ws) {
   constexpr int kSteps = kKc / 8;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int row0 = 32 * (warp & 1) + g, col0 = 64 * (warp >> 1) + g;
   auto a_at = [&](int row, int k) { return A[row * kLda + k]; };
-  auto w_at = [&](int k, int n) { return W_KMAJOR ? Ws[k * kLdt + n] : Ws[n * kLdws + k]; };
+  auto w_at = [&](int k, int n) { return Ws[n * kLdws + k]; };
   unsigned ab[2][kSteps][4], as[2][kSteps][4];
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
@@ -206,38 +178,23 @@ __device__ __forceinline__ void zero(Acc& acc) {
   for_each_acc(acc, [](int, int, float& v) { v = 0.f; });
 }
 
-// acc += A[kRows x K] (shared, row stride kLda) . W^T, W staged K-slice by
-// K-slice by stage(buffer, k0) into one of Ws's two buffers: the next slice
+// acc += A[kRows x K] (shared, row stride kLda) . W[n0 .. n0+kCols)[0 .. K)^T
+// (torch [N][K] weight, row stride ldw; rows n >= nvalid read as zero), W
+// staged K-slice by K-slice into one of Ws's two buffers: the next slice
 // loads while this one computes.  Expects A written and the block
 // synchronized; returns synchronized.  K is a multiple of kKc.
-template <bool W_KMAJOR, class Stage>
-__device__ void gemm_k(Acc& acc, const float* A, int K, float* Ws, Stage stage) {
+__device__ void gemm(Acc& acc, const float* A, const float* __restrict__ W,
+                     int ldw, int n0, int K, float* Ws, int nvalid = 1 << 30) {
   const int nk = K / kKc;
-  stage(Ws, 0);
+  stage_w(Ws, W, ldw, n0, 0, nvalid);
   cp_async_wait_all();
   __syncthreads();
   for (int c = 0; c < nk; ++c) {
-    if (c + 1 < nk) stage(Ws + ((c + 1) & 1) * kWsFloats, (c + 1) * kKc);
-    mma_tile<W_KMAJOR>(acc, A + c * kKc, Ws + (c & 1) * kWsFloats);
+    if (c + 1 < nk) stage_w(Ws + ((c + 1) & 1) * kWsFloats, W, ldw, n0, (c + 1) * kKc, nvalid);
+    mma_tile(acc, A + c * kKc, Ws + (c & 1) * kWsFloats);
     cp_async_wait_all();
     __syncthreads();
   }
-}
-
-// acc += A . W[n0 .. n0+kCols)[0 .. K)^T (torch [N][K] weight, row stride ldw);
-// rows n >= nvalid of W read as zero.
-__device__ void gemm(Acc& acc, const float* A, const float* __restrict__ W,
-                     int ldw, int n0, int K, float* Ws, int nvalid = 1 << 30) {
-  gemm_k<false>(acc, A, K, Ws,
-                [&](float* buf, int k0) { stage_w(buf, W, ldw, n0, k0, nvalid); });
-}
-
-// acc += A . Wt[0 .. K)[n0 .. n0+kCols) (row-major [K][N], row stride ldw);
-// rows k >= kvalid of Wt read as zero.
-__device__ void gemm_t(Acc& acc, const float* A, const float* __restrict__ Wt,
-                       int ldw, int n0, int K, int kvalid, float* Ws) {
-  gemm_k<true>(acc, A, K, Ws,
-               [&](float* buf, int k0) { stage_w_t(buf, Wt, ldw, n0, k0, kvalid); });
 }
 
 // In-place LayerNorm over each row of a [kRows][kLda] tile (kCols values).

@@ -101,6 +101,30 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, unsigned parity) {
         : "memory");
 }
 
+// mbar_wait with a bound: a wait that outlasts two seconds (which no tile
+// of a correct launch needs) traps, so a fault in a pipeline ends the launch
+// with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait_bounded(uint32_t bar, unsigned parity) {
+  uint32_t done = 0;
+  uint64_t start = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (!done && (polls & 1023u) == 0) {
+      uint64_t now;
+      asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
+      if (polls == 0)
+        start = now;
+      else if (now - start > 2000000000ull)
+        __trap();
+    }
+  }
+}
+
 __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                             int c0, int c1, int c2) {
   asm volatile(
@@ -126,6 +150,12 @@ __device__ __forceinline__ void wg_commit() {
 }
 __device__ __forceinline__ void wg_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// wait until at most N committed groups of this warpgroup's wgmmas are in
+// flight
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // d = A . B^T + (scale_d ? d : 0) over one k-step, the 64 x 128 warpgroup
@@ -453,23 +483,28 @@ struct Operand {
   int batch = 1;
 };
 
-// A 3-D map of the operand with a box of one staged slice: K-major
-// (32 k x 128 rows, 128-byte swizzle) or MN-major (128 x 32 k, plain).
-inline bool encode_operand(CUtensorMap* map, const Operand& o, bool mn_major) {
+// A 3-D map of the operand with a box of box_inner x box_outer values (one
+// matrix of the batch) and the given swizzle.
+inline bool encode_map(CUtensorMap* map, const Operand& o, int box_inner, int box_outer,
+                       CUtensorMapSwizzle swizzle) {
   TensorMapEncodeFn enc = tensor_map_encoder();
   if (enc == nullptr) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)o.inner, (cuuint64_t)o.outer, (cuuint64_t)o.batch};
   const cuuint64_t strides[2] = {
       (cuuint64_t)o.ld * 4,
       (cuuint64_t)(o.batch > 1 ? o.bstride : (long)o.outer * o.ld) * 4};
-  const cuuint32_t box[3] = {mn_major ? (cuuint32_t)kGemmBM : (cuuint32_t)kGemmBK,
-                             mn_major ? (cuuint32_t)kGemmBK : (cuuint32_t)kGemmBM, 1};
+  const cuuint32_t box[3] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer, 1};
   const cuuint32_t estr[3] = {1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(o.p), dims, strides, box,
-             estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             mn_major ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 3-D map of the operand with a box of one staged slice: K-major
+// (32 k x 128 rows, 128-byte swizzle) or MN-major (128 x 32 k, plain).
+inline bool encode_operand(CUtensorMap* map, const Operand& o, bool mn_major) {
+  return mn_major ? encode_map(map, o, kGemmBM, kGemmBK, CU_TENSOR_MAP_SWIZZLE_NONE)
+                  : encode_map(map, o, kGemmBK, kGemmBM, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // C = epi(A . B^T) over an M x N output per z < Z: kAT / kBT say

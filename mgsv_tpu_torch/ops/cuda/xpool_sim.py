@@ -17,8 +17,16 @@ of `seed` (ops/philox.py).  On a CUDA tensor both launch
 csrc/xpool_sim_train.cu (built at first use, see runtime/kernels.py) or
 raise; on a CPU tensor they run `xpool_sim_reference`, the plain PyTorch
 version with the same masks (autograd differentiates it), and
-`xpool_sim_eval_reference`, the same a block of tracks at a time.  The
-kernel source says what bounds it on the card and how it splits the work.
+`xpool_sim_eval_reference`, the same a block of tracks at a time.
+
+Both passes apply Wout once per track (u_m = v_m Wout^T), not once per
+pair: the least work.  A forward launch runs, a group of tracks at a time,
+u^T on the wgmma GEMM core and the pair chain as one persistent wgmma
+kernel fed by TMA, which writes one float per pair; its workspace (the
+tf32 halves of Wlin, and of k and u^T for a group) stays under 256 MB
+whatever M is (`forward_workspace_bytes`), and the wrapper allocates it.
+The kernel source says what bounds it on the card and how it splits the
+work.
 """
 
 from __future__ import annotations
@@ -98,9 +106,9 @@ def _check(q, k, v, mask, vhat, weights) -> None:
 
 @functools.cache
 def _launchers(device_index: int):
-    """(forward, workspace size, backward) C entry points, with the
-    kernels' shared-memory limits set once on this device (call with it
-    current)."""
+    """(forward, its workspace size, backward's workspace size, backward) C
+    entry points, with the kernels' shared-memory limits set once on this
+    device (call with it current)."""
     lib = kernels.load("xpool_sim_train")
     lib.mgsv_xpool_sim_init.restype = ctypes.c_int
     err = lib.mgsv_xpool_sim_init()
@@ -109,14 +117,34 @@ def _launchers(device_index: int):
     drop = [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p]
     fwd = lib.mgsv_xpool_sim_fwd
     fwd.restype = ctypes.c_int
-    fwd.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + drop
-    size = lib.mgsv_xpool_sim_bwd_workspace
-    size.restype = ctypes.c_size_t
-    size.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    fwd.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + drop
+    sizes = []
+    for size in (lib.mgsv_xpool_sim_fwd_workspace, lib.mgsv_xpool_sim_bwd_workspace):
+        size.restype = ctypes.c_size_t
+        size.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        sizes.append(size)
     bwd = lib.mgsv_xpool_sim_bwd
     bwd.restype = ctypes.c_int
     bwd.argtypes = [ctypes.c_void_p] * 27 + [ctypes.c_int] * 4 + drop
-    return fwd, size, bwd
+    return fwd, sizes[0], sizes[1], bwd
+
+
+def forward_workspace_bytes(vc: int, m: int, s: int, device: torch.device) -> int:
+    """Bytes of device workspace one forward launch over m tracks takes (at
+    most 256 MB, or one track's more): Wlin's tf32 halves, then k's and
+    u^T's of a group of tracks."""
+    with torch.cuda.device(device):
+        return 4 * int(_launchers(device.index)[1](vc, m, s))
+
+
+def _forward(q, k, v, mask, vhat, weights, out, ws, rate, seed) -> int:
+    """One launch of the forward into out [M, V]; returns the CUDA error."""
+    (vc, d), (m, s) = q.shape, mask.shape
+    with torch.cuda.device(q.device):
+        fwd = _launchers(q.device.index)[0]
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        args = [t.data_ptr() for t in (q, k, v, mask, vhat) + tuple(weights) + (out, ws)]
+        return fwd(*args, vc, m, s, d, *philox.kernel_args(rate, seed), stream)
 
 
 def xpool_sim_fwd(q, k, v, mask, vhat, weights, rate: float = 0.0,
@@ -125,11 +153,8 @@ def xpool_sim_fwd(q, k, v, mask, vhat, weights, rate: float = 0.0,
     _check(q, k, v, mask, vhat, weights)
     (vc, d), (m, s) = q.shape, mask.shape
     out = q.new_empty(m, vc)
-    with torch.cuda.device(q.device):
-        fwd = _launchers(q.device.index)[0]
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        args = [t.data_ptr() for t in (q, k, v, mask, vhat) + tuple(weights) + (out,)]
-        err = fwd(*args, vc, m, s, d, *philox.kernel_args(rate, seed), stream)
+    ws = q.new_empty(forward_workspace_bytes(vc, m, s, q.device) // 4)
+    err = _forward(q, k, v, mask, vhat, weights, out, ws, rate, seed)
     if err != 0:
         raise RuntimeError(f"xpool_sim: CUDA error {err} at launch")
     xpool_sim_fwd.launches += 1
@@ -152,7 +177,7 @@ def xpool_sim_bwd(q, k, v, mask, vhat, weights, g, rate: float = 0.0, seed: int 
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     grads = [torch.empty_like(w) for w in weights]
     with torch.cuda.device(q.device):
-        _, size, bwd = _launchers(q.device.index)
+        _, _, size, bwd = _launchers(q.device.index)
         ws = q.new_empty(int(size(vc, m, s)))
         stream = torch.cuda.current_stream(q.device).cuda_stream
         args = [t.data_ptr() for t in (q, k, v, mask, vhat) + tuple(weights)
@@ -205,16 +230,14 @@ def xpool_sim_eval(q, k, v, mask, vhat, weights) -> torch.Tensor:
         return xpool_sim_eval_reference(q, k, v, mask, vhat, weights)
     (vc, d), (m, s) = q.shape, mask.shape
     out = q.new_empty(m, vc)
+    ws = None
     for start in range(0, m, M_CHUNK):
         part = slice(start, start + M_CHUNK)
         _check(q, k[part], v[part], mask[part], vhat, weights)
         rows = out[part]
-        with torch.cuda.device(q.device):
-            fwd = _launchers(q.device.index)[0]
-            stream = torch.cuda.current_stream(q.device).cuda_stream
-            args = [t.data_ptr() for t in (q, k[part], v[part], mask[part], vhat)
-                    + tuple(weights) + (rows,)]
-            err = fwd(*args, vc, rows.shape[0], s, d, *philox.kernel_args(0.0, 0), stream)
+        if ws is None:       # the first part is the largest
+            ws = q.new_empty(forward_workspace_bytes(vc, rows.shape[0], s, q.device) // 4)
+        err = _forward(q, k[part], v[part], mask[part], vhat, weights, rows, ws, 0.0, 0)
         if err != 0:
             raise RuntimeError(f"xpool_sim_eval: CUDA error {err} at launch")
         xpool_sim_eval.launches += 1

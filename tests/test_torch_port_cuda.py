@@ -145,8 +145,8 @@ def test_cuda_backward_kernel_matches_plain_version(dev, rate, b, L):
 @pytest.mark.parametrize("vc,m,s", [(70, 9, 96), (128, 64, 96), (33, 5, 50)])
 @pytest.mark.parametrize("rate", [0.0, 0.3])
 def test_cuda_xpool_kernels_match_plain_version(dev, vc, m, s, rate):
-    """Ragged V and M (70 videos: a partial 64-video tile), full tiles, and
-    a snippet count that is no multiple of 32."""
+    """Ragged V and M (70 videos: a partial 128-video tile), full tiles, and
+    a snippet count that is no multiple of 16."""
     rng = np.random.default_rng(vc + m)
     weights = [w.detach() for w in _perturbed(XPoolTransformer(256), 2).to(dev).stage_weights()]
     q = _randn(rng, (vc, 256), dev)
@@ -166,10 +166,59 @@ def test_cuda_xpool_kernels_match_plain_version(dev, vc, m, s, rate):
     _assert_grads(*grads)
 
 
+def _xpool_inputs(dev, vc, m, s, seed):
+    """Stage weights off identity, q, vhat, k, v and ragged snippet masks
+    with one track (the middle one) whose every snippet is masked."""
+    rng = np.random.default_rng(seed)
+    weights = [w.detach() for w in _perturbed(XPoolTransformer(256), seed).to(dev).stage_weights()]
+    q = _randn(rng, (vc, 256), dev)
+    vhat = torch.nn.functional.normalize(_randn(rng, (vc, 256), dev), dim=-1)
+    k, v = _randn(rng, (m, s, 256), dev), _randn(rng, (m, s, 256), dev)
+    mask = _ragged(rng, m, s, dev)
+    mask[m // 2] = 0
+    return q, k, v, mask, vhat, weights
+
+
+@pytest.mark.parametrize("vc,m,s", [(1, 5, 96), (200, 3, 37), (130, 3, 256), (64, 4, 96),
+                                    (33, 4, 5), (5, 300, 256)])
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_cuda_xpool_forward_shapes(dev, vc, m, s, rate):
+    """The forward kernel alone: one video, a partial 128-video tile (200
+    videos), three tracks, S = 37, S = 5 (fewer snippets than one 16-deep
+    slice) and S = MAX_S (two score chunks), 300 tracks at S = MAX_S (two
+    groups of the workspace: the second group's dropout stream starts at its
+    first track), a track with no valid snippet; within 1e-4 of the plain
+    version, one launch per call, and two calls give the same bits."""
+    q, k, v, mask, vhat, weights = _xpool_inputs(dev, vc, m, s, vc + s)
+    before = xps.xpool_sim_fwd.launches
+    first = xps.xpool_sim_fwd(q, k, v, mask, vhat, weights, rate, 9)
+    assert xps.xpool_sim_fwd.launches == before + 1
+    second = xps.xpool_sim_fwd(q, k, v, mask, vhat, weights, rate, 9)
+    want = xps.xpool_sim_reference(q, k, v, mask, vhat, weights, rate, 9)
+    assert first.shape == (m, vc)
+    torch.testing.assert_close(first, want, atol=1e-4, rtol=0)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("vc,m,s", [(1, 3, 96), (200, 3, 37), (70, 5, 256)])
+def test_cuda_eval_kernel_shapes(dev, vc, m, s):
+    """`xpool_sim_eval` at the forward's edge shapes, a dead track included:
+    within 1e-4 of its plain version, one launch per call, two calls the
+    same bits."""
+    q, k, v, mask, vhat, weights = _xpool_inputs(dev, vc, m, s, 2 * vc + s)
+    before = xps.xpool_sim_eval.launches
+    first = xps.xpool_sim_eval(q, k, v, mask, vhat, weights)
+    assert xps.xpool_sim_eval.launches == before + 1
+    second = xps.xpool_sim_eval(q, k, v, mask, vhat, weights)
+    torch.testing.assert_close(first, xps.xpool_sim_eval_reference(q, k, v, mask, vhat, weights),
+                               atol=1e-4, rtol=0)
+    assert torch.equal(first, second)
+
+
 @pytest.mark.parametrize("vc,m,s", [(70, 9, 96), (33, 5, 50), (64, 40, 96)])
 def test_cuda_eval_kernel_matches_plain_version(dev, vc, m, s):
     """Kernel #4 (`xpool_sim_fused` through `xpool_sim_eval`) against the
-    blocked plain path, with ragged snippet masks and a partial 64-video
+    blocked plain path, with ragged snippet masks and a partial 128-video
     tile; one launch per call."""
     rng = np.random.default_rng(vc * m)
     xpool = _perturbed(XPoolTransformer(256), 3).to(dev)
