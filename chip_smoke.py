@@ -27,13 +27,17 @@ failure:
               backward) against their plain version at B=512 for the audio
               (L=96) and video (L=50) towers, rates 0 and 0.8, a row with no
               valid key included; two identical backward calls bit-identical;
-              kernel and plain times in turns beside the bound; the forward
-              also at the evaluation's B=40, rate 0
+              kernel and plain times in turns beside the bound, and the
+              audio tower's forward and backward by kernel name
+              ([breakdown]); the forward also at the evaluation's B=40, rate 0
   5. decoder-kernel  the DETR decoder layer's kernels (#6, forward and
               backward) against their plain version at B=512, L=152 for
               Q=1 and Q=10 queries, self-attention on, ragged key masks with
               a row of one valid key; two identical backward calls
-              bit-identical; kernel and plain times in turns beside the bound
+              bit-identical, and equal to the bit to the backward given the
+              forward's memory k|v (what autograd runs, and what is timed);
+              kernel and plain times in turns beside the bound, [breakdown]
+              lines at Q=10; the forward also at the evaluation's B=40, Q=1
   6. train    one float32 training step of MaDe (Config() widths, dropout
               on) through the kernels and one through the plain versions,
               from the same weights, batch and seed: the loss and every
@@ -291,31 +295,39 @@ def in_turns(kernel, plain, iters: int = 5):
 
 
 def breakdown(name: str, fn, **fields) -> None:
-    """One call of fn under torch.profiler: its device time summed by kernel
-    name, one [breakdown] line per kernel (ms, launches), largest first; where
-    the profiler saw no device time, the call timed with CUDA events, one
-    line per kernel wrapper it launched."""
+    """One call of fn under torch.profiler, after a warm-up call that the
+    profiler runs but does not keep (without it, the profiler can miss the
+    first launches of the call): its device time summed by kernel name,
+    one [breakdown] line per kernel (ms, launches), largest first, beside
+    the call's time from CUDA events; where the profiler saw no device
+    time, one line per kernel wrapper the call launched."""
     fn()
     torch.cuda.synchronize()
+    events_ms = cuda_ms(fn, 1)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
+    kept = []                  # the recorded step's events, kept as it ends
+    with torch.profiler.profile(activities=acts,
+                                schedule=torch.profiler.schedule(wait=0, warmup=1, active=1),
+                                on_trace_ready=lambda p: kept.append(p.key_averages())) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
     # the kernels' own device time: a host op (an autograd Function, the
-    # profiler's own buffer requests) carries its children's as well
+    # profiler's own buffer requests, the schedule's step) carries its
+    # children's as well
     rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                   for e in prof.key_averages()
+                   for e in kept[0]
                    if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.self_device_time_total > 0), key=lambda r: -r[1])
+                   and e.self_device_time_total > 0
+                   and not e.key.startswith("ProfilerStep")), key=lambda r: -r[1])
     if not rows:
-        # the profiler can miss a later session's device activity: CUDA
-        # events then time the whole call, beside the wrappers' launches
         before = read_counts()
-        ms = cuda_ms(fn, 1)
-        rows = [(f"{kernel} (CUDA events, the whole call)", ms, count - before[kernel])
+        fn()
+        rows = [(f"{kernel} (CUDA events, the whole call)", events_ms, count - before[kernel])
                 for kernel, count in read_counts().items() if count != before[kernel]]
     phase("breakdown", name=name, **fields, device_ms=f"{sum(r[1] for r in rows):.4f}",
-          kernels=len(rows))
+          events_ms=f"{events_ms:.4f}", kernels=len(rows))
     for kernel, ms, count in rows:
         print(f"[breakdown]   {ms:9.4f} ms {count:4d} x {kernel[:120]}", flush=True)
 
@@ -745,6 +757,12 @@ def check_temporal(device: torch.device) -> list:
             phase("temporal-kernel-time", name=name, tower=tower, B=TRAIN_B, L=length, rate=rate,
                   ms=f"{t:.4f}", plain_ms=f"{pt:.4f}", bound_ms=f"{b_ms:.4f}", bound_by=by,
                   gflop=f"{fl / 1e9:.1f}", tflops=f"{fl / t / 1e9:.1f}")
+        if tower == "audio":
+            with torch.no_grad():
+                breakdown("fused_temporal_layer", lambda: ftl.fused_temporal_layer(
+                    x, mask, layer, rate, DROPOUT_SEED), tower=tower, B=TRAIN_B, rate=rate)
+            breakdown("fused_temporal_layer_bwd", lambda: ftl.fused_temporal_layer_bwd(
+                x, mask, g, layer, rate, DROPOUT_SEED), tower=tower, B=TRAIN_B, rate=rate)
 
         xs = randn(rng, (EVAL_B, length, d), device)             # the evaluation's shape
         ms_ = torch.from_numpy(ragged_mask(rng, EVAL_B, length, 1)).to(device)
@@ -1330,9 +1348,12 @@ def gate_flip_slack(layer64, grads_of) -> tuple:
 def check_decoder(device: torch.device) -> list:
     """Kernel #6 (forward and backward) against autograd through the plain
     version at B=512, L=152, Q=1 and Q_MULTI queries, self-attention on,
-    ragged key masks with a row of one valid key; the backward twice, bit
-    for bit; kernel and plain timed in turns.  Returns the kernels-line
-    entries at Q_MULTI."""
+    ragged key masks with a row of one valid key; the recomputing backward
+    twice, bit for bit, and equal to the bit to the backward given the
+    forward's memory k|v (what autograd runs); kernel and plain timed in
+    turns, and by kernel name at Q_MULTI; then the forward at the
+    evaluation's B=40, Q=1.  Returns the kernels-line entries at Q_MULTI,
+    the backward's given the forward's k|v."""
     m = Config().model
     d, heads, ffn = m.dim_input, m.detr_heads, m.detr_ffn_dim
     gen = torch.Generator().manual_seed(SEED + 6)
@@ -1370,12 +1391,18 @@ def check_decoder(device: torch.device) -> list:
               grads=len(names), max_abs_err=gerr, at=gname, its_max=gmax, plain_f32_err=perr,
               rtol_of_max=GRAD_RTOL, gates_within_flip_eps=flips, flip_eps=FLIP_EPS)
         del out_k, out_p, grads_k, grads_p, exact, slack
-        first, second = (fdl.fused_decoder_layer_bwd(tgt, mem, mask, pos, qpos, g, layer)
-                         for _ in range(2))
-        if not all(torch.equal(a, b) for a, b in zip([*first[:4], *first[4]],
-                                                     [*second[:4], *second[4]])):
+        kv = fdl.fused_decoder_layer_fwd(tgt, mem, mask, pos, qpos, layer)[1]
+        first, second, saved = (fdl.fused_decoder_layer_bwd(tgt, mem, mask, pos, qpos, g, layer,
+                                                            kv=k) for k in (None, None, kv))
+        flat = [[*r[:4], *r[4]] for r in (first, second, saved)]
+        if not all(torch.equal(a, b) for a, b in zip(flat[0], flat[1])):
             raise AssertionError(f"fused_decoder_layer_bwd Q={q}: two calls differ")
-        del first, second
+        if not all(torch.equal(a, b) for a, b in zip(flat[0], flat[2])):
+            raise AssertionError(f"fused_decoder_layer_bwd Q={q}: given the forward's k|v, "
+                                 f"it differs from the recomputing backward")
+        phase("decoder-kernel", name="fused_decoder_layer_bwd", B=TRAIN_B, Q=q, L=TRAIN_L,
+              saved_kv_equal_to_recompute_bitwise=True, kv_mbytes=f"{nbytes(kv) / 1e6:.1f}")
+        del first, second, saved, flat
         with torch.no_grad():
             ms, plain_ms = in_turns(
                 lambda: fdl.fused_decoder_layer(tgt, mem, mask, pos, qpos, layer),
@@ -1383,8 +1410,10 @@ def check_decoder(device: torch.device) -> list:
         ins = [t.clone().requires_grad_() for t in (tgt, mem, pos, qpos)]
         out = fdl.fused_decoder_layer_reference(ins[0], ins[1], mask, ins[2], ins[3], layer)
         bms, plain_bms = in_turns(
-            lambda: fdl.fused_decoder_layer_bwd(tgt, mem, mask, pos, qpos, g, layer),
+            lambda: fdl.fused_decoder_layer_bwd(tgt, mem, mask, pos, qpos, g, layer, kv=kv),
             lambda: torch.autograd.grad(out, [*ins, *params], g, retain_graph=True))
+        rms = cuda_ms(lambda: fdl.fused_decoder_layer_bwd(tgt, mem, mask, pos, qpos, g, layer),
+                      5)
         del out, ins
         flops = decoder_flops(TRAIN_B, q, TRAIN_L, d, ffn)
         fwd_bytes = nbytes(tgt, qpos, mem, pos, mask, *params, tgt)
@@ -1396,8 +1425,15 @@ def check_decoder(device: torch.device) -> list:
             phase("decoder-kernel-time", name=name, B=TRAIN_B, Q=q, L=TRAIN_L, ms=f"{t:.4f}",
                   plain_ms=f"{pt:.4f}", bound_ms=f"{b_ms:.4f}", bound_by=by,
                   gflop=f"{fl / 1e9:.2f}", mbytes=f"{nb / 1e6:.1f}",
-                  tflops=f"{fl / t / 1e9:.1f}")
+                  tflops=f"{fl / t / 1e9:.1f}",
+                  **({"saved_kv": True, "recomputing_ms": f"{rms:.4f}"}
+                     if name.endswith("_bwd") else {}))
         if q == Q_MULTI:
+            with torch.no_grad():
+                breakdown("fused_decoder_layer", lambda: fdl.fused_decoder_layer(
+                    tgt, mem, mask, pos, qpos, layer), B=TRAIN_B, Q=q)
+            breakdown("fused_decoder_layer_bwd", lambda: fdl.fused_decoder_layer_bwd(
+                tgt, mem, mask, pos, qpos, g, layer, kv=kv), B=TRAIN_B, Q=q, saved_kv=True)
             src = "mgsv_tpu_torch/csrc/fused_decoder_layer"
             entries = [
                 entry("fused_decoder_layer", f"{src}.cu",
@@ -1406,7 +1442,23 @@ def check_decoder(device: torch.device) -> list:
                 entry("fused_decoder_layer_bwd", f"{src}_bwd.cu",
                       "mgsv_tpu/ops/pallas/fused_decoder_layer.py:329", gerr, bms, plain_bms,
                       2 * flops, bwd_bytes)]
-        del tgt, qpos, g
+        del tgt, qpos, g, kv
+
+    b, q = EVAL_B, 1                               # the evaluation's shape
+    tgt, qpos = (randn(rng, (b, q, d), device) for _ in range(2))
+    ins = (tgt, mem[:b], mask[:b], pos[:b], qpos)
+    with torch.no_grad():
+        err = check_close(f"fused_decoder_layer B={b} Q={q}",
+                          fdl.fused_decoder_layer(*ins, layer),
+                          fdl.fused_decoder_layer_reference(*ins, layer))
+        ms, plain_ms = in_turns(lambda: fdl.fused_decoder_layer(*ins, layer),
+                                lambda: fdl.fused_decoder_layer_reference(*ins, layer))
+    b_ms, by = bound(decoder_flops(b, q, TRAIN_L, d, ffn),
+                     nbytes(tgt, qpos, *ins[1:4], *params, tgt))
+    phase("decoder-kernel", name="fused_decoder_layer", B=b, Q=q, L=TRAIN_L, max_abs_err=err,
+          atol=KERNEL_ATOL, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b_ms:.4f}",
+          bound_by=by)
+    entries[0]["max_abs_err"] = max(entries[0]["max_abs_err"], err)
     return entries
 
 

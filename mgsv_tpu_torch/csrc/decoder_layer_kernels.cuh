@@ -5,7 +5,7 @@
 //
 // Layouts: query-side tensors are [B*Q, D] (row b Q + i), memory-side
 // [B*L, D]; the cross-attention's k | v of the memory sit in one [B*L, 2D]
-// buffer (k from memory + pos, v from memory, one GEMM over all B*L rows);
+// buffer (k from memory + pos, v from memory, two GEMMs over all B*L rows);
 // every weight is in torch's [out, in] layout, in_proj_weight rows q|k|v.
 #pragma once
 
@@ -37,11 +37,15 @@ cross_attention_kernel(const float* __restrict__ q, const float* __restrict__ kv
   float* p = m_s + round4(L) + warp * round4(L);   // this warp's softmax row
   const float scale = 1.0f / sqrtf((float)kHeadDim);
 
+  // the head's k and v rows (128 contiguous bytes each), 16 bytes per load
   const float* base = kv + (size_t)b * L * 2 * kCols + h * kHeadDim;
-  for (int e = threadIdx.x; e < L * kHeadDim; e += kThreads) {
-    const int r = e / kHeadDim, c = e % kHeadDim;
-    k_s[r * kPad + c] = base[(size_t)r * 2 * kCols + c];
-    v_s[r * kPad + c] = base[(size_t)r * 2 * kCols + kCols + c];
+  for (int e = threadIdx.x; e < L * kHeadDim / 4; e += kThreads) {
+    const int r = e / (kHeadDim / 4), c = 4 * (e % (kHeadDim / 4));
+    const float4 kr = *reinterpret_cast<const float4*>(base + (size_t)r * 2 * kCols + c);
+    const float4 vr = *reinterpret_cast<const float4*>(base + (size_t)r * 2 * kCols + kCols + c);
+    float *kd = k_s + r * kPad + c, *vd = v_s + r * kPad + c;
+    kd[0] = kr.x; kd[1] = kr.y; kd[2] = kr.z; kd[3] = kr.w;
+    vd[0] = vr.x; vd[1] = vr.y; vd[2] = vr.z; vd[3] = vr.w;
   }
   for (int j = threadIdx.x; j < L; j += kThreads) m_s[j] = mask[(size_t)b * L + j];
   __syncthreads();
@@ -218,10 +222,9 @@ struct DecoderWeights {
 };
 
 // Dynamic shared memory of every launch the forward and backward take,
-// for Q and L up to kMaxL.
+// for Q and L up to kMaxL (the GEMM core sets its own at each launch).
 inline cudaError_t decoder_layer_init() {
-  cudaError_t err = gemm_launches_init();
-  if (err == cudaSuccess) err = layer_bwd_init(kMaxL);
+  cudaError_t err = layer_bwd_init(kMaxL);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(cross_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)cross_attention_smem_bytes(kMaxL));
@@ -237,42 +240,76 @@ inline bool decoder_shape_ok(int B, int Q, int L, int D, int H, int F) {
          H * kHeadDim == D && F >= kCols && F % kCols == 0;
 }
 
-// The forward up to the cross-attention, on the launchers' stream: kv
-// [B*L, 2D] of the memory; with self-attention its q | k | v sa_qkv
-// [B*Q, 3D], its context sa_ctx, t1 = LN1(tgt + sa_ctx Wo^T + bo) with
-// LN1's xhat1 and inv1 (r1 is scratch); the cross-attention's q (from
-// t1 + qpos) and ctx.  Returns t1 (tgt without self-attention).
-inline const float* decoder_attention_fwd(Launcher& lq, Launcher& lm, const DecoderWeights& w,
-                                          const float* tgt, const float* mem, const float* mask,
-                                          const float* pos, const float* qpos, int B, int Q,
-                                          int L, int H, bool self_attn, float* kv,
-                                          float* sa_qkv, float* sa_ctx, float* r1, float* t1,
-                                          float* xh1, float* inv1, float* q, float* ctx) {
-  const int Nq = B * Q, Nm = B * L;
-  if (!lq.check() || !lm.check()) return tgt;
-  qkv_kernel<<<dim3((Nm + kRows - 1) / kRows, 2), kThreads, kGemmSmem, lm.s>>>(
-      mem, pos, w.ca_w_in + (size_t)kCols * kCols, w.ca_b_in + kCols, kv, Nm, 1, 2 * kCols);
-  const float* t1p = tgt;
-  if (self_attn) {
-    if (!lm.check()) return tgt;
-    qkv_kernel<<<dim3((Nq + kRows - 1) / kRows, 3), kThreads, kGemmSmem, lq.s>>>(
-        tgt, qpos, w.sa_w_in, w.sa_b_in, sa_qkv, Nq, 2, 3 * kCols);
-    if (!lq.check()) return tgt;
-    launch_attention(sa_qkv, nullptr, sa_ctx, B, H, Q, lq.drop, lq.s);
-    lq.rowgemm({sa_ctx, kCols, kCols, w.sa_w_out, kCols, 0, w.sa_b_out, 0, -1, kCols, nullptr, 0,
-                tgt, kCols, r1, kCols},
-               kCols);
-    lq.ln_fwd(r1, w.n1_g, w.n1_b, t1, xh1, inv1);
-    t1p = t1;
+// What decoder_layer_fwd writes.  Memory side: mp = mem + pos [B*L, D]
+// and the cross-attention's k | v [B*L, 2D].  Query side, [B*Q, D] each:
+// with self-attention its q | k | v sa_qkv [B*Q, 3D], its context sa_ctx,
+// r1 = tgt + sa_ctx Wo^T + bo and t1 = LN1(r1); a = t1 + qpos (tgt + qpos
+// while the self-attention runs), the cross-attention's q and ctx, r2 and
+// t2 = LN2(r2), h1 [B*Q, F] = relu(t2 W1^T + b1), r3 = t2 + h1 W2^T + b2;
+// where not null, each LayerNorm's xhat and 1 / std and out = LN3(r3).
+struct DecoderActs {
+  float *mp, *kv;
+  float *sa_qkv, *sa_ctx, *r1, *t1, *a, *q, *ctx, *r2, *t2, *h1, *r3;
+  float *xh1, *inv1, *xh2, *inv2, *xh3, *inv3, *out;
+};
+
+// The decoder layer's forward, lq over the B*Q query rows and lm over the
+// B*L memory rows (one stream), every product on the GEMM core: mem + pos
+// and the cross-attention's k (from it) and v (from mem), skipped
+// when kv_ready (t.kv then holds the forward's); with self-attention tgt +
+// qpos, q|k (from it) and v (from tgt), the float32 attention over the Q
+// queries, the out-projection with the residual tgt, LN1; t1 + qpos and
+// the cross-attention's q; cross_attention_kernel; the out-projection with
+// the residual t1, LN2; FFN1 (bias, ReLU); FFN2 with the residual t2; LN3.
+// Kernel #6 (fused_decoder_layer.cu) keeps out and k|v, the backward's
+// recompute (fused_decoder_layer_bwd.cu) the LayerNorms' statistics: both
+// run this one sequence.  Returns t1 (tgt without self-attention).
+inline const float* decoder_layer_fwd(Launcher& lq, Launcher& lm, const DecoderWeights& w,
+                                      const float* tgt, const float* mem, const float* mask,
+                                      const float* pos, const float* qpos, int B, int Q, int L,
+                                      int H, int F, bool self_attn, bool kv_ready,
+                                      const DecoderActs& t) {
+  const int D = kCols;
+  const size_t dd = (size_t)D * D, nq = (size_t)lq.rows * D;
+  if (!kv_ready) {
+    lm.add(mem, pos, t.mp, (size_t)lm.rows * D);
+    lm.rowgemm({t.mp, D, D, w.ca_w_in + dd, D, 0, w.ca_b_in + D, 0, -1, D, nullptr, 0, nullptr,
+                0, t.kv, 2 * D},
+               D);
+    lm.rowgemm({mem, D, D, w.ca_w_in + 2 * dd, D, 0, w.ca_b_in + 2 * D, 0, -1, D, nullptr, 0,
+                nullptr, 0, t.kv + D, 2 * D},
+               D);
   }
-  if (!lq.check()) return t1p;
-  qkv_kernel<<<dim3((Nq + kRows - 1) / kRows, 1), kThreads, kGemmSmem, lq.s>>>(
-      t1p, qpos, w.ca_w_in, w.ca_b_in, q, Nq, 1, kCols);
-  if (!lq.check()) return t1p;
-  cross_attention_kernel<<<dim3(H, B), kThreads, cross_attention_smem_bytes(L), lq.s>>>(
-      q, kv, mask, ctx, Q, L);
-  lq.check();
-  return t1p;
+  const float* t1 = tgt;
+  if (self_attn) {
+    lq.add(tgt, qpos, t.a, nq);
+    lq.rowgemm({t.a, D, D, w.sa_w_in, D, 0, w.sa_b_in, 0, -1, D, nullptr, 0, nullptr, 0,
+                t.sa_qkv, 3 * D},
+               2 * D);
+    lq.rowgemm({tgt, D, D, w.sa_w_in + 2 * dd, D, 0, w.sa_b_in + 2 * D, 0, -1, D, nullptr, 0,
+                nullptr, 0, t.sa_qkv + 2 * D, 3 * D},
+               D);
+    lq.attention_fwd(t.sa_qkv, nullptr, t.sa_ctx, B, H, Q);
+    lq.rowgemm({t.sa_ctx, D, D, w.sa_w_out, D, 0, w.sa_b_out, 0, -1, D, nullptr, 0, tgt, D,
+                t.r1, D},
+               D);
+    lq.ln_fwd(t.r1, w.n1_g, w.n1_b, t.t1, t.xh1, t.inv1);
+    t1 = t.t1;
+  }
+  lq.add(t1, qpos, t.a, nq);
+  lq.rowgemm({t.a, D, D, w.ca_w_in, D, 0, w.ca_b_in, 0, -1, D, nullptr, 0, nullptr, 0, t.q, D},
+             D);
+  if (lq.check() && lm.check())
+    cross_attention_kernel<<<dim3(H, B), kThreads, cross_attention_smem_bytes(L), lq.s>>>(
+        t.q, t.kv, mask, t.ctx, Q, L);
+  lq.rowgemm({t.ctx, D, D, w.ca_w_out, D, 0, w.ca_b_out, 0, -1, D, nullptr, 0, t1, D, t.r2, D},
+             D);
+  lq.ln_fwd(t.r2, w.n2_g, w.n2_b, t.t2, t.xh2, t.inv2);
+  lq.rowgemm({t.t2, D, D, w.w1, D, 0, w.b1, kActRelu, -1, F, nullptr, 0, nullptr, 0, t.h1, F},
+             F);
+  lq.rowgemm({t.h1, F, F, w.w2, F, 0, w.b2, 0, -1, D, nullptr, 0, t.t2, D, t.r3, D}, D);
+  lq.ln_fwd(t.r3, w.n3_g, w.n3_b, t.out, t.xh3, t.inv3);
+  return t1;
 }
 
 }  // namespace

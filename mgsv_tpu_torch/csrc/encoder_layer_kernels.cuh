@@ -1,17 +1,12 @@
-// The first design's forward launches of the post-norm DETR encoder layer
-// (GEMMs on mma.sync tiles), which now serve other layers: the decoder
-// layer's forward and recompute (#6, decoder_layer_kernels.cuh: qkv_kernel,
-// ffn_kernel and, for its self-attention, attention_kernel), the temporal
-// layer's forward (#5, fused_temporal_layer.cu: attention_kernel), and the
-// float32 attention of the encoder layer's own forward sequence
-// (layer_bwd_kernels.cuh::encoder_layer_fwd, #1 and #2's recompute at
-// "f32"; its GEMMs run on the wgmma core).
-// Every weight is in torch's [out, in] layout (in_proj_weight rows q|k|v).
+// The float32 attention of the port's layers (attention_kernel, CUDA-core
+// multiply-adds, one block per (head, batch row)), which
+// Launcher::attention_fwd (layer_bwd_kernels.cuh) runs at precision "f32":
+// in the encoder layer's forward sequence (#1 and #2's recompute), the
+// temporal layer's (#5 and its backward's recompute) and the decoder
+// layer's self-attention (#6).
 // Dropout sites, drawn from philox.cuh with stream (batch row b, site):
-// heads 0..H-1 the attention weights (element i L + j), H the attention
-// output (l D + c), H+1 after the ReLU (l F + f), H+2 the FFN output (l D +
-// c).  Every product is float32 (3xTF32 on mma.sync tiles, or CUDA-core
-// multiply-adds in the attention).
+// heads 0..H-1 the attention weights (element i L + j); the layers' other
+// sites (H and up) are drawn in the GEMM core's epilogues.
 #pragma once
 
 #include <initializer_list>
@@ -25,33 +20,6 @@ constexpr int kHeadDim = 32;          // one lane per head channel
 constexpr int kPad = kHeadDim + 1;    // padded [L][kPad] rows: conflict-free columns
 constexpr int kMaxL = 256;            // longest sequence (attention shared memory)
 constexpr int kMaxB = 65535;          // batch rows: grid y of the attention launch
-
-constexpr size_t kGemmSmem = sizeof(float) * (size_t)(kTileFloats + 2 * kWsFloats);
-constexpr size_t kFfnSmem = sizeof(float) * (size_t)(2 * kTileFloats + 2 * kWsFloats);
-
-// (a) [64 rows x 256 cols] tiles of a packed projection over the
-// flattened B*L rows: part p = blockIdx.y of the output (weight rows
-// [p D, p D + D)) from x+pos for p < pos_parts and from x after, into
-// column p D of a [B*L, ld_out] buffer.  The encoder takes q|k|v
-// (pos_parts 2, ld_out 3D); the decoder's cross-attention k|v of its
-// memory (pos_parts 1) and its q (one part).
-__global__ void __launch_bounds__(kThreads, 1)
-qkv_kernel(const float* __restrict__ x, const float* __restrict__ pos,
-           const float* __restrict__ w_in, const float* __restrict__ b_in,
-           float* __restrict__ qkv, int rows, int pos_parts = 2, int ld_out = 3 * kCols) {
-  extern __shared__ float4 smem4[];
-  float* A = reinterpret_cast<float*>(smem4);   // [kRows][kLda]: input, then output
-  float* Ws = A + kTileFloats;                   // [2][kCols][kLdws]
-  const int r0 = blockIdx.x * kRows, part = blockIdx.y;   // encoder: 0 q, 1 k, 2 v
-  load_rows(A, x, part < pos_parts ? pos : nullptr, r0, rows);
-  Acc acc;
-  zero(acc);
-  gemm(acc, A, w_in, kCols, part * kCols, kCols, Ws);
-  const float* bias = b_in + part * kCols;
-  for_each_acc(acc, [&](int r, int c, float& v) { A[r * kLda + c] = v + bias[c]; });
-  __syncthreads();
-  store_rows(qkv, ld_out, part * kCols, A, r0, rows);
-}
 
 // The dropout mask values (k0, k1) of weights (i0, j) and (i1, j), lane's
 // key j = jb + lane: with L a multiple of 4 every row starts a group of four
@@ -92,7 +60,7 @@ __host__ __device__ constexpr size_t attention_smem_bytes(int L) {
   return sizeof(float) * (size_t)(attention_rows_offset(L) + 2 * kWarps * ((L + 3) & ~3));
 }
 
-// (b) One block per (head, batch row).  The head's q, k, v ([L, 32] each)
+// One block per (head, batch row).  The head's q, k, v ([L, 32] each)
 // sit in shared memory; each warp takes two query rows at a time, their
 // scores one key per lane, and writes ctx [B, L, D] (and, given stats, each
 // row's softmax max and sum [B, H, L], for a backward).  Dropout multiplies
@@ -201,71 +169,8 @@ attention_kernel(const float* __restrict__ qkv, const float* __restrict__ mask,
   }
 }
 
-// (c) One block per 64 rows.  Out-proj, dropout, residual and LN1; the FFN
-// in 256-wide slices of the hidden dimension, each ReLU slice (dropped out)
-// kept in shared memory and folded straight into the second GEMM's register
-// accumulators; dropout, residual and LN2.  kDrop as in (b).
-template <bool kDrop>
-__global__ void __launch_bounds__(kThreads, 1)
-ffn_kernel(const float* __restrict__ x, const float* __restrict__ ctx,
-           const float* __restrict__ w_out, const float* __restrict__ b_out,
-           const float* __restrict__ g1, const float* __restrict__ be1,
-           const float* __restrict__ w1, const float* __restrict__ b1,
-           const float* __restrict__ w2, const float* __restrict__ b2,
-           const float* __restrict__ g2, const float* __restrict__ be2,
-           float* __restrict__ out, int rows, int L, int H, int F, Dropout drop) {
-  extern __shared__ float4 smem4[];
-  float* A = reinterpret_cast<float*>(smem4);  // ctx, then each ReLU slice, then y1 + FFN
-  float* Y = A + kTileFloats;                   // x + out-proj, then LN1 output
-  float* Ws = Y + kTileFloats;                  // [2][kCols][kLdws]
-  const int r0 = blockIdx.x * kRows;
-  // mask value of (tile row r, site, element column c of a `width`-wide site)
-  auto site_keep = [&](int r, int site, int width, int c) {
-    if (!kDrop) return 1.f;
-    const int gr = r0 + r;
-    return keep(drop, gr / L, site, (gr % L) * width + c);
-  };
-
-  load_rows(A, ctx, nullptr, r0, rows);
-  Acc acc;
-  zero(acc);
-  gemm(acc, A, w_out, kCols, 0, kCols, Ws);
-  for_each_acc(acc, [&](int r, int c, float& v) {
-    Y[r * kLda + c] = (v + b_out[c]) * site_keep(r, H, kCols, c);
-  });
-  __syncthreads();
-  for (int e = threadIdx.x; e < kRows * kCols / 4; e += kThreads) {
-    const int r = e / (kCols / 4), c4 = e % (kCols / 4), gr = r0 + r;
-    if (gr < rows) {
-      float4* y = reinterpret_cast<float4*>(Y + r * kLda + 4 * c4);
-      const float4 xv = reinterpret_cast<const float4*>(x + (size_t)gr * kCols)[c4];
-      y->x += xv.x; y->y += xv.y; y->z += xv.z; y->w += xv.w;
-    }
-  }
-  __syncthreads();
-  layer_norm_rows(Y, g1, be1);
-
-  Acc acc2;
-  zero(acc2);
-  for (int f0 = 0; f0 < F; f0 += kCols) {
-    zero(acc);
-    gemm(acc, Y, w1, kCols, f0, kCols, Ws);
-    for_each_acc(acc, [&](int r, int c, float& v) {
-      A[r * kLda + c] = fmaxf(v + b1[f0 + c], 0.f) * site_keep(r, H + 1, F, f0 + c);
-    });
-    __syncthreads();
-    gemm(acc2, A, w2 + f0, F, 0, kCols, Ws);
-  }
-  for_each_acc(acc2, [&](int r, int c, float& v) {
-    A[r * kLda + c] = (v + b2[c]) * site_keep(r, H + 2, kCols, c) + Y[r * kLda + c];
-  });
-  __syncthreads();
-  layer_norm_rows(A, g2, be2);
-  store_rows(out, kCols, 0, A, r0, rows);
-}
-
-// Both instantiations of (b): dynamic shared memory for sequences up to
-// max_l.
+// Both instantiations of attention_kernel: dynamic shared memory for
+// sequences up to max_l.
 inline cudaError_t attention_init(int max_l = kMaxL) {
   const int bytes = (int)attention_smem_bytes(max_l);
   cudaError_t err = cudaSuccess;
@@ -275,8 +180,8 @@ inline cudaError_t attention_init(int max_l = kMaxL) {
   return err;
 }
 
-// Launches (b) over B rows on `s`; rate 0 takes the instantiation without
-// mask code.
+// Launches attention_kernel over B rows on `s`; rate 0 takes the
+// instantiation without mask code.
 inline void launch_attention(const float* qkv, const float* mask, float* ctx, int B, int H,
                              int L, const Dropout& drop, cudaStream_t s,
                              float2* stats = nullptr) {
@@ -284,18 +189,6 @@ inline void launch_attention(const float* qkv, const float* mask, float* ctx, in
   const size_t smem = attention_smem_bytes(L);
   auto* kernel = drop.thresh != 0u ? attention_kernel<true> : attention_kernel<false>;
   kernel<<<grid, kThreads, smem, s>>>(qkv, mask, ctx, L, drop, stats);
-}
-
-// The decoder forward's GEMM launches (float32, no dropout): dynamic shared
-// memory.
-inline cudaError_t gemm_launches_init() {
-  cudaError_t err = cudaFuncSetAttribute(qkv_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)kGemmSmem);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(ffn_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kFfnSmem);
-  return err;
 }
 
 }  // namespace

@@ -15,42 +15,45 @@
 // projections of the [B*L, D] memory, the same work at any Q; memory and pos
 // are 2 x 79.7 MB.  At Q=10 the arithmetic bounds it (TF32 tensor cores),
 // at Q=1 the bytes.  The TPU kernel projects k and v per batch row inside a
-// grid step, which its own comment blames for its speed; here they are one
-// GEMM over all B*L rows, [64 rows x 256 cols] tiles of 3xTF32 mma.sync
-// (the encoder's packed-projection launch, qkv_kernel, at two parts), and
-// the rest runs over the B*Q query rows:
+// grid step, which its own comment blames for its speed; here every product
+// is a launch of the GEMM core of wgmma_gemm.cuh (persistent 128 x 128
+// tiles fed by TMA, 3xTF32, bias / ReLU / residual fused on the
+// accumulators), over all B*L memory rows or all B*Q query rows, as one
+// sequence that the backward's recompute shares
+// (decoder_layer_kernels.cuh::decoder_layer_fwd):
 //
-//  (a) qkv_kernel: k = (mem + pos) Wk^T + bk and v = mem Wv^T + bv into a
-//      [B*L, 2D] buffer;
-//  (b) with self-attention: qkv_kernel over the query rows, the encoder's
-//      attention_kernel over Q keys, the wgmma core's row product
-//      (wgmma_gemm.cuh: out-projection with the residual fused) and
-//      ln_fwd_kernel (LN1);
-//  (c) qkv_kernel: the cross-attention's q from t1 + qpos;
+//  (a) mem + pos; k = (mem + pos) Wk^T + bk and v = mem Wv^T + bv into the
+//      [B*L, 2D] k|v buffer, which the caller keeps: the backward takes it
+//      instead of projecting the memory again;
+//  (b) with self-attention: tgt + qpos, its q|k and v, the float32
+//      attention over Q keys (attention_kernel, as the encoder layer's),
+//      the out-projection with the residual tgt, LN1 (one warp per row);
+//  (c) t1 + qpos and the cross-attention's q;
 //  (d) cross_attention_kernel: one block per (head, batch row), the head's
 //      k and v of the row's L memory rows in shared memory, one warp per
 //      query; a masked key scores -1e9, so a row with no valid key gets
 //      uniform weights, as JAX's NEG_INF does;
-//  (e) the encoder's ffn_kernel: out-projection, residual, LN2, the FFN in
-//      256-wide slices of F held in shared memory, residual, LN3.
+//  (e) the out-projection with the residual t1, LN2, FFN1 (bias, ReLU),
+//      FFN2 with the residual t2, LN3 into out.
 //
-// The scratch (k|v, the query-side activations) lives in a workspace the
-// wrapper allocates.  wgmma, TMA and fewer launches are later work.
+// The query-side activations and mem + pos live in a workspace the
+// wrapper allocates (mgsv_fused_decoder_layer_workspace floats).
 
 #include "decoder_layer_kernels.cuh"
 
-// Floats of device workspace mgsv_fused_decoder_layer_fwd needs.
-extern "C" size_t mgsv_fused_decoder_layer_workspace(int B, int Q, int L) {
+// Floats of device workspace mgsv_fused_decoder_layer_fwd needs (D = 256).
+extern "C" size_t mgsv_fused_decoder_layer_workspace(int B, int Q, int L, int F) {
   const size_t nq = (size_t)B * Q, nm = (size_t)B * L, d = kCols;
-  return align4(nm * 2 * d) + align4(nq * 3 * d) + 6 * align4(nq * d) + align4(nq);
+  return align4(nm * d) + align4(nq * 3 * d) + 9 * align4(nq * d) + align4(nq * F);
 }
 
 // Once per device, before the first launch on it: dynamic shared memory.
 extern "C" int mgsv_fused_decoder_layer_init() { return (int)decoder_layer_init(); }
 
 // One decoder layer on `stream`: tgt, qpos [B, Q, D], mem, pos [B, L, D],
-// mask [B, L] (1 = valid) -> out [B, Q, D].  Weights as DecoderWeights
-// (the self-attention's null when self_attn is 0); ws:
+// mask [B, L] (1 = valid) -> out [B, Q, D] and the memory's k|v, kv
+// [B, L, 2D] (what mgsv_fused_decoder_layer_bwd may take).  Weights as
+// DecoderWeights (the self-attention's null when self_attn is 0); ws:
 // mgsv_fused_decoder_layer_workspace floats; every pointer 16-byte aligned.
 // Returns the first CUDA error (0 = ok).
 extern "C" int mgsv_fused_decoder_layer_fwd(
@@ -59,31 +62,35 @@ extern "C" int mgsv_fused_decoder_layer_fwd(
     const float* n1_g, const float* n1_b,
     const float* ca_w_in, const float* ca_b_in, const float* ca_w_out, const float* ca_b_out,
     const float* n2_g, const float* n2_b, const float* w1, const float* b1, const float* w2,
-    const float* b2, const float* n3_g, const float* n3_b, float* out, float* ws, int B, int Q,
-    int L, int D, int H, int F, int self_attn, void* stream) {
+    const float* b2, const float* n3_g, const float* n3_b, float* out, float* kv, float* ws,
+    int B, int Q, int L, int D, int H, int F, int self_attn, void* stream) {
   if (!decoder_shape_ok(B, Q, L, D, H, F)) return (int)cudaErrorInvalidValue;
-  const DecoderWeights w{sa_w_in, sa_b_in, sa_w_out, sa_b_out, n1_g, n1_b,
-                         ca_w_in, ca_b_in, ca_w_out, ca_b_out, n2_g, n2_b,
-                         w1, b1, w2, b2, n3_g, n3_b};
-  const int Nq = B * Q;
-  const size_t nq = (size_t)Nq, nm = (size_t)B * L, d = kCols;
+  const size_t nq = (size_t)B * Q, nm = (size_t)B * L, d = kCols;
   float* cur = ws;
   auto take = [&](size_t count) { float* p = cur; cur += align4(count); return p; };
-  float* kv = take(nm * 2 * d);
-  float* sa_qkv = take(nq * 3 * d);
-  float *sa_ctx = take(nq * d), *r1 = take(nq * d), *t1 = take(nq * d), *xh1 = take(nq * d),
-        *q = take(nq * d), *ctx = take(nq * d);
-  float* inv1 = take(nq);
+  DecoderActs t{};
+  t.mp = take(nm * d);
+  t.kv = kv;
+  t.sa_qkv = take(nq * 3 * d);
+  t.sa_ctx = take(nq * d);
+  t.r1 = take(nq * d);
+  t.t1 = take(nq * d);
+  t.a = take(nq * d);
+  t.q = take(nq * d);
+  t.ctx = take(nq * d);
+  t.r2 = take(nq * d);
+  t.t2 = take(nq * d);
+  t.r3 = take(nq * d);
+  t.h1 = take(nq * F);
+  t.out = out;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dropout none{0u, 0u, 1.f};
-  Launcher lq{s, Nq, Q, none, nullptr}, lm{s, (int)nm, L, none, nullptr};
-  const float* t1p = decoder_attention_fwd(lq, lm, w, tgt, mem, mask, pos, qpos, B, Q, L, H,
-                                           self_attn != 0, kv, sa_qkv, sa_ctx, r1, t1, xh1,
-                                           inv1, q, ctx);
-  if (!lq.check()) return (int)lq.err;
-  if (!lm.check()) return (int)lm.err;
-  ffn_kernel<false><<<(Nq + kRows - 1) / kRows, kThreads, kFfnSmem, s>>>(
-      t1p, ctx, ca_w_out, ca_b_out, n2_g, n2_b, w1, b1, w2, b2, n3_g, n3_b, out, Nq, Q, H, F,
-      none);
-  return (int)cudaGetLastError();
+  Launcher lq{s, B * Q, Q, none, nullptr}, lm{s, B * L, L, none, nullptr};
+  decoder_layer_fwd(lq, lm,
+                    {sa_w_in, sa_b_in, sa_w_out, sa_b_out, n1_g, n1_b, ca_w_in, ca_b_in,
+                     ca_w_out, ca_b_out, n2_g, n2_b, w1, b1, w2, b2, n3_g, n3_b},
+                    tgt, mem, mask, pos, qpos, B, Q, L, H, F, self_attn != 0, false, t);
+  lq.check();
+  lm.check();
+  return (int)(lq.err != cudaSuccess ? lq.err : lm.err);
 }

@@ -3,10 +3,13 @@
 // Replaces the Pallas TPU kernel
 // mgsv_tpu/ops/pallas/fused_decoder_layer.py::_train_bwd (kernel
 // _bwd_kernel): from the layer's inputs and the output cotangent g it
-// recomputes the forward (fused_decoder_layer.cu's launches, with the tail
-// unfused so its activations are at hand) and returns dtgt, dqpos [B, Q, D],
-// dmem, dpos [B, L, D] and the gradients of all the layer's weights (the
-// mask gets none).
+// recomputes the forward (fused_decoder_layer.cu's launch sequence,
+// decoder_layer_kernels.cuh::decoder_layer_fwd, keeping the LayerNorms'
+// statistics) and returns dtgt, dqpos [B, Q, D], dmem, dpos [B, L, D] and
+// the gradients of all the layer's weights (the mask gets none).  Given the
+// forward's memory k|v, the recompute skips mem + pos and the two products
+// over the B*L memory rows, the forward's largest, and the result is the
+// same to the bit: the same launches on the same inputs wrote it.
 //
 // What bounds it on the card: at B=512, Q=10, L=152 the backward is about
 // 61 GFLOP without the recompute, most of it the memory side: dk, dv give
@@ -51,13 +54,15 @@ constexpr int kQueryBufs = 21;
 
 }  // namespace
 
-// Floats of device workspace mgsv_fused_decoder_layer_bwd needs.
-extern "C" size_t mgsv_fused_decoder_layer_bwd_workspace(int B, int Q, int L, int F) {
+// Floats of device workspace mgsv_fused_decoder_layer_bwd needs; kv_saved
+// != 0: it is given the forward's k|v.
+extern "C" size_t mgsv_fused_decoder_layer_bwd_workspace(int B, int Q, int L, int F,
+                                                         int kv_saved) {
   const size_t nq = (size_t)B * Q, nm = (size_t)B * L, d = kCols, f = (size_t)F;
   const size_t zq = (nq + kChunk - 1) / kChunk, zm = (nm + kChunk - 1) / kChunk;
   const size_t partial = std::max<size_t>({zq * std::max<size_t>({f * d, 2 * d * d, 3 * d}),
                                            zm * std::max<size_t>(d * d, 2 * d)});
-  return 2 * align4(nm * 2 * d) + align4(nm * d) + 2 * align4(nq * 3 * d) +
+  return (kv_saved ? 1 : 2) * align4(nm * 2 * d) + align4(nm * d) + 2 * align4(nq * 3 * d) +
          kQueryBufs * align4(nq * d) + 3 * align4(nq) + 2 * align4(nq * f) + align4(partial);
 }
 
@@ -65,11 +70,13 @@ extern "C" size_t mgsv_fused_decoder_layer_bwd_workspace(int B, int Q, int L, in
 extern "C" int mgsv_fused_decoder_layer_bwd_init() { return (int)decoder_layer_init(); }
 
 // Backward of one decoder layer on `stream`: recomputes the forward from
-// tgt, mem, mask, pos, qpos, then writes dtgt, dqpos ([B, Q, D]), dmem,
-// dpos ([B, L, D]) and the weights' gradients in the weights' layout and
-// DecoderWeights' order (the self-attention's six null, and not written,
-// when self_attn is 0).  ws: mgsv_fused_decoder_layer_bwd_workspace floats.
-// Every pointer 16-byte aligned.  Returns the first CUDA error (0 = ok).
+// tgt, mem, mask, pos, qpos (and, where kv is not null, the forward's k|v
+// [B, L, 2D] of mgsv_fused_decoder_layer_fwd on the same inputs), then
+// writes dtgt, dqpos ([B, Q, D]), dmem, dpos ([B, L, D]) and the weights'
+// gradients in the weights' layout and DecoderWeights' order (the
+// self-attention's six null, and not written, when self_attn is 0).  ws:
+// mgsv_fused_decoder_layer_bwd_workspace floats.  Every pointer 16-byte
+// aligned.  Returns the first CUDA error (0 = ok).
 extern "C" int mgsv_fused_decoder_layer_bwd(
     const float* tgt, const float* mem, const float* mask, const float* pos, const float* qpos,
     const float* g, const float* sa_w_in, const float* sa_b_in, const float* sa_w_out,
@@ -80,8 +87,8 @@ extern "C" int mgsv_fused_decoder_layer_bwd(
     float* dsa_w_in, float* dsa_b_in, float* dsa_w_out, float* dsa_b_out, float* dn1_g,
     float* dn1_b, float* dca_w_in, float* dca_b_in, float* dca_w_out, float* dca_b_out,
     float* dn2_g, float* dn2_b, float* dw1, float* db1, float* dw2, float* db2, float* dn3_g,
-    float* dn3_b, float* ws, int B, int Q, int L, int D, int H, int F, int self_attn,
-    void* stream) {
+    float* dn3_b, const float* kv_saved, float* ws, int B, int Q, int L, int D, int H, int F,
+    int self_attn, void* stream) {
   if (!decoder_shape_ok(B, Q, L, D, H, F)) return (int)cudaErrorInvalidValue;
   const DecoderWeights w{sa_w_in, sa_b_in, sa_w_out, sa_b_out, n1_g, n1_b,
                          ca_w_in, ca_b_in, ca_w_out, ca_b_out, n2_g, n2_b,
@@ -90,7 +97,8 @@ extern "C" int mgsv_fused_decoder_layer_bwd(
   const size_t nq = (size_t)Nq, nm = (size_t)Nm, d = kCols;
   float* cur = ws;
   auto take = [&](size_t count) { float* p = cur; cur += align4(count); return p; };
-  float *kv = take(nm * 2 * d), *dkv = take(nm * 2 * d), *mp = take(nm * d);
+  const float* kv = kv_saved ? kv_saved : take(nm * 2 * d);
+  float *dkv = take(nm * 2 * d), *mp = take(nm * d);
   float *sa_qkv = take(nq * 3 * d), *dsa_qkv = take(nq * 3 * d);
   float* qb[kQueryBufs];
   for (float*& p : qb) p = take(nq * d);
@@ -105,14 +113,11 @@ extern "C" int mgsv_fused_decoder_layer_bwd(
   Launcher lq{s, Nq, Q, none, cur}, lm{s, Nm, L, none, cur};
   const bool sa = self_attn != 0;
 
-  // ---- recompute the forward
-  const float* t1p = decoder_attention_fwd(lq, lm, w, tgt, mem, mask, pos, qpos, B, Q, L, H, sa,
-                                           kv, sa_qkv, sa_ctx, r1, t1, xh1, inv1, q, ctx);
-  lq.rowgemm({ctx, D, D, ca_w_out, D, 0, ca_b_out, 0, -1, D, nullptr, 0, t1p, D, r2, D}, D);
-  lq.ln_fwd(r2, n2_g, n2_b, t2, xh2, inv2);
-  lq.rowgemm({t2, D, D, w1, D, 0, b1, 1, -1, F, nullptr, 0, nullptr, 0, h1, F}, F);
-  lq.rowgemm({h1, F, F, w2, F, 0, b2, 0, -1, D, nullptr, 0, t2, D, r3, D}, D);
-  lq.ln_fwd(r3, n3_g, n3_b, nullptr, xh3, inv3);
+  // ---- recompute the forward (#6's sequence; a ends as t1 + qpos)
+  const float* t1p = decoder_layer_fwd(
+      lq, lm, w, tgt, mem, mask, pos, qpos, B, Q, L, H, F, sa, kv_saved != nullptr,
+      {mp, const_cast<float*>(kv), sa_qkv, sa_ctx, r1, t1, a, q, ctx, r2, t2, h1, r3, xh1, inv1,
+       xh2, inv2, xh3, inv3, nullptr});
 
   // ---- LN3, the FFN and LN2
   lq.ln_bwd_sums(g, xh3, inv3, n3_g, dr3, dn3_g, dn3_b);
@@ -133,9 +138,8 @@ extern "C" int mgsv_fused_decoder_layer_bwd(
       q, kv, mask, dctx, dq, dkv, Q, L);
   lq.colsum(dq, D, D, dca_b_in);
   lm.colsum(dkv, 2 * D, 2 * D, dca_b_in + D);
-  lq.add(t1p, qpos, a, nq * d);
   lq.wgrad(dq, D, D, a, D, D, dca_w_in);
-  lm.add(mem, pos, mp, nm * d);
+  if (kv_saved) lm.add(mem, pos, mp, nm * d);      // else the recompute wrote it
   lm.wgrad(dkv, 2 * D, D, mp, D, D, dca_w_in + d * d);
   lm.wgrad(dkv + D, 2 * D, D, mem, D, D, dca_w_in + 2 * d * d);
   const float* w_kv = ca_w_in + d * d;

@@ -20,148 +20,71 @@
 //
 // What bounds it on the card: per batch row 8 L D^2 + 4 L^2 D + 4 L D F
 // FLOP; at B=512, D=256, F=1024 that is 82.1 GFLOP for the audio tower
-// (L=96) and 41.6 GFLOP for the video tower (L=50), against some 100 MB of
-// activations (x, out) and 150 MB more of this design's q/k/v and ctx
-// scratch: several hundred FLOP per byte, so the arithmetic bounds it.  The
-// GEMMs run on the tensor cores in 3xTF32 (tf32_tile.cuh: float32 accuracy),
-// and the [L, L] weights and the [L, F] FFN hidden state never reach device
-// memory.  Three kernels run back to back on the caller's stream:
+// (L=96) and 41.6 GFLOP for the video tower (L=50), 94 % of it the four
+// activation x weight products, against some 100 MB of inputs and output:
+// the tensor cores' rate bounds it (0.17 ms at TF32's 495 TFLOP/s).  So
+// the products run on Hopper's tensor cores through wgmma, as one launch
+// sequence that the backward's recompute shares
+// (layer_bwd_kernels.cuh::temporal_layer_fwd):
 //
-//  (a) ln_qkv_kernel: LN1 of a 64-row tile in shared memory, then one
-//      256-column part (q, k or v) of the packed projection, into a
-//      [B*L, 3D] scratch buffer.
-//  (b) attention_kernel (encoder_layer_kernels.cuh, as the DETR encoder
-//      layer's): one block per (head, batch row) with the head's q, k, v in
-//      shared memory; writes ctx [B, L, D].
-//  (c) temporal_ffn_kernel: per 64 rows, LN1 again (cheaper than storing
-//      y), out-projection + residual, LN2, the FFN in 256-wide slices of the
-//      hidden dimension (each GELU slice, dropped out, kept in shared memory
-//      and folded straight into the second GEMM's register accumulators),
-//      dropout and the residual.
+//  * LN1 (one warp per row); the packed q|k|v product, the out-projection
+//    (residual y) and both FFN products are launches of the GEMM core of
+//    wgmma_gemm.cuh (persistent 128 x 128 tiles fed by TMA, 3xTF32, the
+//    epilogue fused on the accumulators): FFN1 applies its bias, the GELU
+//    and the dropout of site H there, FFN2 its bias, the dropout of site
+//    H+1 and the residual z, and writes out.  LN2 between them.
+//  * The attention runs one block per (head, batch row) on the CUDA cores
+//    in float32 (attention_kernel of encoder_layer_kernels.cuh, faster at
+//    L <= 300 than 3xTF32 on mma.sync), its per-head dropout sites drawn
+//    where the weights are normalized.
 //
-// Dropout is a template parameter of (b) and (c), so the rate-0 evaluation
-// compiles the mask code out.
+// The y, q|k|v, ctx, u, z and [B*L, F] hidden activations pass through
+// device memory (some 0.55 GB at the audio tower's B=512), a workspace the
+// wrapper allocates (mgsv_fused_temporal_layer_workspace floats).
+// Dropout is a compile-time part of the epilogues and of the attention, so
+// the rate-0 evaluation compiles the mask code out.
 
-#include "temporal_layer.cuh"
+#include "layer_bwd_kernels.cuh"
 
-namespace {
-
-// (a) LN1, then [64 rows x 256 cols] of the packed projection.
-__global__ void __launch_bounds__(kThreads, 1)
-ln_qkv_kernel(const float* __restrict__ x, const float* __restrict__ g1,
-              const float* __restrict__ be1, const float* __restrict__ w_in,
-              const float* __restrict__ b_in, float* __restrict__ qkv, int rows) {
-  extern __shared__ float4 smem4[];
-  float* A = reinterpret_cast<float*>(smem4);   // [kRows][kLda]: y, then the output
-  float* Ws = A + kTileFloats;                   // [2][kCols][kLdws]
-  const int r0 = blockIdx.x * kRows, part = blockIdx.y;   // 0 q, 1 k, 2 v
-  load_rows(A, x, nullptr, r0, rows);
-  layer_norm_rows(A, g1, be1);
-  Acc acc;
-  zero(acc);
-  gemm(acc, A, w_in, kCols, part * kCols, kCols, Ws);
-  const float* bias = b_in + part * kCols;
-  for_each_acc(acc, [&](int r, int c, float& v) { A[r * kLda + c] = v + bias[c]; });
-  __syncthreads();
-  store_rows(qkv, 3 * kCols, part * kCols, A, r0, rows);
+// Floats of device workspace mgsv_fused_temporal_layer_fwd needs at B*L rows
+// and FFN width F (D = 256).
+extern "C" size_t mgsv_fused_temporal_layer_workspace(int rows, int F) {
+  const size_t n = (size_t)rows, d = kCols;
+  return 4 * align4(n * d) + align4(n * 3 * d) + align4(n * F);
 }
 
-// (c) One block per 64 rows: u = y + out-proj, z = LN2(u), the FFN in
-// 256-wide slices, out = z + dropped FFN output.
-template <bool kDrop>
-__global__ void __launch_bounds__(kThreads, 1)
-temporal_ffn_kernel(const float* __restrict__ x, const float* __restrict__ ctx,
-                    const float* __restrict__ w_out, const float* __restrict__ b_out,
-                    const float* __restrict__ g1, const float* __restrict__ be1,
-                    const float* __restrict__ w1, const float* __restrict__ b1,
-                    const float* __restrict__ w2, const float* __restrict__ b2,
-                    const float* __restrict__ g2, const float* __restrict__ be2,
-                    float* __restrict__ out, int rows, int L, int H, int F, Dropout drop) {
-  extern __shared__ float4 smem4[];
-  float* A = reinterpret_cast<float*>(smem4);  // ctx, then each GELU slice, then the output
-  float* Y = A + kTileFloats;                   // y = LN1(x), then u, then z = LN2(u)
-  float* Ws = Y + kTileFloats;                  // [2][kCols][kLdws]
-  const int r0 = blockIdx.x * kRows;
-  // mask value of (tile row r, site, element column c of a `width`-wide site)
-  auto site_keep = [&](int r, int site, int width, int c) {
-    if (!kDrop) return 1.f;
-    const int gr = r0 + r;
-    return keep(drop, gr / L, site, (gr % L) * width + c);
-  };
-
-  load_rows(Y, x, nullptr, r0, rows);
-  layer_norm_rows(Y, g1, be1);
-  load_rows(A, ctx, nullptr, r0, rows);
-  Acc acc;
-  zero(acc);
-  gemm(acc, A, w_out, kCols, 0, kCols, Ws);
-  for_each_acc(acc, [&](int r, int c, float& v) { Y[r * kLda + c] += v + b_out[c]; });
-  __syncthreads();
-  layer_norm_rows(Y, g2, be2);
-
-  Acc acc2;
-  zero(acc2);
-  for (int f0 = 0; f0 < F; f0 += kCols) {
-    zero(acc);
-    gemm(acc, Y, w1, kCols, f0, kCols, Ws);
-    for_each_acc(acc, [&](int r, int c, float& v) {
-      A[r * kLda + c] = gelu(v + b1[f0 + c]) * site_keep(r, H, F, f0 + c);
-    });
-    __syncthreads();
-    gemm(acc2, A, w2 + f0, F, 0, kCols, Ws);
-  }
-  for_each_acc(acc2, [&](int r, int c, float& v) {
-    A[r * kLda + c] = (v + b2[c]) * site_keep(r, H + 1, kCols, c) + Y[r * kLda + c];
-  });
-  __syncthreads();
-  store_rows(out, kCols, 0, A, r0, rows);
-}
-
-}  // namespace
-
-// Once per device, before the first launch on it: lets each kernel take its
-// dynamic shared memory (the attention kernel's for the longest L).
-// Returns the first CUDA error (0 = ok).
-extern "C" int mgsv_fused_temporal_layer_init() {
-  cudaError_t err;
-  if ((err = cudaFuncSetAttribute(ln_qkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)kGemmSmem)) != cudaSuccess ||
-      (err = attention_init(kTemporalMaxL)) != cudaSuccess ||
-      (err = cudaFuncSetAttribute(temporal_ffn_kernel<false>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)kFfnSmem)) != cudaSuccess ||
-      (err = cudaFuncSetAttribute(temporal_ffn_kernel<true>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)kFfnSmem)) != cudaSuccess)
-    return (int)err;
-  return 0;
-}
+// Once per device, before the first launch on it: lets the attention
+// launches take their dynamic shared memory (for the longest L).  Returns
+// the first CUDA error (0 = ok).
+extern "C" int mgsv_fused_temporal_layer_init() { return (int)attention_init(kTemporalMaxL); }
 
 // One temporal layer on `stream`, dropout (seed, thresh, scale) as in
 // philox.cuh (thresh 0: none), after mgsv_fused_temporal_layer_init on that
-// device.  qkv ([B, L, 3D]) and ctx ([B, L, D]) are scratch buffers, out the
-// [B, L, D] result; every pointer 16-byte aligned.  Returns
-// cudaGetLastError() (0 = ok).
+// device.  out is the [B, L, D] result, ws mgsv_fused_temporal_layer_workspace
+// floats of scratch; every pointer 16-byte aligned.  Returns the first CUDA
+// error (0 = ok).
 extern "C" int mgsv_fused_temporal_layer_fwd(
     const float* x, const float* mask,
     const float* w_in, const float* b_in, const float* w_out, const float* b_out,
     const float* g1, const float* be1, const float* w1, const float* b1,
     const float* w2, const float* b2, const float* g2, const float* be2,
-    float* qkv, float* ctx, float* out, int B, int L, int D, int H, int F,
+    float* ws, float* out, int B, int L, int D, int H, int F,
     unsigned seed, unsigned thresh, float scale, void* stream) {
   if (!temporal_shape_ok(B, L, D, H, F)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Dropout drop{seed, thresh, scale};
-  const int rows = B * L, row_tiles = (rows + kRows - 1) / kRows;
-  cudaError_t err;
-  ln_qkv_kernel<<<dim3(row_tiles, 3), kThreads, kGemmSmem, s>>>(x, g1, be1, w_in, b_in, qkv,
-                                                                 rows);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  launch_attention(qkv, mask, ctx, B, H, L, drop, s);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  // rate 0 (evaluation) takes the instantiation without mask code
-  auto* ffn = thresh != 0u ? temporal_ffn_kernel<true> : temporal_ffn_kernel<false>;
-  ffn<<<row_tiles, kThreads, kFfnSmem, s>>>(x, ctx, w_out, b_out, g1, be1, w1, b1, w2, b2, g2,
-                                            be2, out, rows, L, H, F, drop);
-  return (int)cudaGetLastError();
+  const size_t n = (size_t)B * L, d = kCols;
+  float* cur = ws;
+  auto take = [&](size_t count) { float* p = cur; cur += align4(count); return p; };
+  TemporalActs t{};
+  t.y = take(n * d);
+  t.qkv = take(n * 3 * d);
+  t.ctx = take(n * d);
+  t.u = take(n * d);
+  t.z = take(n * d);
+  t.h1 = take(n * F);
+  t.out = out;
+  Launcher k{static_cast<cudaStream_t>(stream), B * L, L, Dropout{seed, thresh, scale}, nullptr};
+  temporal_layer_fwd(k, x, mask, {w_in, b_in, w_out, b_out, g1, be1, w1, b1, w2, b2, g2, be2}, t,
+                     B, H, F);
+  k.check();
+  return (int)k.err;
 }

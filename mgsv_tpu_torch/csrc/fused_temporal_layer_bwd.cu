@@ -3,7 +3,8 @@
 // Replaces the Pallas TPU kernel
 // mgsv_tpu/ops/pallas/fused_temporal_layer.py::_bwd_pallas (kernel
 // _bwd_kernel): from the layer's inputs, the dropout seed and the output
-// cotangent g, it recomputes the forward (fused_temporal_layer.cu) and
+// cotangent g, it recomputes the forward (fused_temporal_layer.cu's launch
+// sequence, layer_bwd_kernels.cuh::temporal_layer_fwd) and
 // returns dx and all 12 parameter gradients.  The three dropout masks are
 // drawn again from philox.cuh at each use site with the forward's (seed,
 // batch row, site), never stored; the GELU's derivative Phi(a) + a phi(a)
@@ -82,14 +83,9 @@ extern "C" int mgsv_fused_temporal_layer_bwd(
   float* da1 = take(n * F);
   Launcher k{static_cast<cudaStream_t>(stream), rows, L, Dropout{seed, thresh, scale}, cur};
 
-  // ---- recompute the forward
-  k.ln_fwd(x, g1, be1, y, xh1, inv1);
-  k.rowgemm({y, D, D, w_in, D, 0, b_in, 0, -1, D, nullptr, 0, nullptr, 0, qkv, 3 * D}, 3 * D);
-  k.attention_fwd(qkv, mask, ctx, B, H, L, stats);
-  k.rowgemm({ctx, D, D, w_out, D, 0, b_out, 0, -1, D, nullptr, 0, y, D, u, D}, D);
-  k.ln_fwd(u, g2, be2, z, xh2, inv2);
-  k.rowgemm({z, D, D, w1, D, 0, b1, 0, -1, F, nullptr, 0, nullptr, 0, a1, F}, F);
-  k.dropout(a1, h1, F, H, /*gelu_in=*/true);
+  // ---- recompute the forward (#5's sequence, keeping a1 and the statistics)
+  temporal_layer_fwd(k, x, mask, {w_in, b_in, w_out, b_out, g1, be1, w1, b1, w2, b2, g2, be2},
+                     {y, qkv, ctx, u, z, h1, xh1, inv1, xh2, inv2, a1, nullptr, stats}, B, H, F);
 
   // ---- the FFN
   k.dropout(g_out, dh2, D, H + 1);

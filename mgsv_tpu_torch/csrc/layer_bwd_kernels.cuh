@@ -1,8 +1,10 @@
-// The launches of a transformer layer's backward by recompute, shared by
-// fused_encoder_layer_bwd.cu (the post-norm DETR encoder layer),
-// fused_temporal_layer_bwd.cu (the temporal-tower layer) and
-// fused_decoder_layer_bwd.cu (the DETR decoder layer, whose forward also
-// runs rowgemm):
+// The launches of the port's transformer layers, forward and backward by
+// recompute: the post-norm DETR encoder layer (fused_encoder_layer{,_bwd}.cu),
+// the temporal-tower layer (fused_temporal_layer{,_bwd}.cu) and the DETR
+// decoder layer (fused_decoder_layer{,_bwd}.cu).  Each layer's forward is
+// one launch sequence (encoder_layer_fwd and temporal_layer_fwd here,
+// decoder_layer_fwd in decoder_layer_kernels.cuh) that its backward's
+// recompute runs too:
 //
 //  * rowgemm: activation x weight products over all rows on the wgmma core
 //    of wgmma_gemm.cuh (128 x 128 tiles fed by TMA), the weight read as a
@@ -46,14 +48,15 @@ constexpr int kVec = kCols / 32;      // LayerNorm row values per lane
 
 // C[r][n] = epilogue(A[r][0..K) . W^T), n < Nout.  W is a torch [Nout][K]
 // weight (row stride ldw), or with wt a row-major [K][Nout] matrix.
-// Epilogue, in order: + bias, ReLU, * dropout mask of `site` (element
-// l * width + column), the gate (zero where gate <= 0: the ReLU's
-// derivative; with gelu_gate, times gelu'(gate): the GELU's at its input),
-// + res, + res2 (RowEpi compiles only the parts a launch applies).
+// Epilogue, in order: + bias, the activation `act` (kActRelu or
+// kActGelu), * dropout mask of `site` (element l * width + column), the
+// gate (zero where gate <= 0: the ReLU's derivative; with gelu_gate, times
+// gelu'(gate): the GELU's at its input), + res, + res2 (RowEpi compiles
+// only the parts a launch applies).
 struct RowGemm {
   const float* A; int lda; int K;
   const float* W; int ldw; int wt;
-  const float* bias; int relu; int site; int width;
+  const float* bias; int act; int site; int width;
   const float* gate; int ldgate;
   const float* res; int ldres;
   float* C; int ldc;
@@ -64,7 +67,9 @@ struct RowGemm {
 // The epilogue's parts, as compile-time flags, so an epilogue compiles only
 // what it applies (and keeps its registers for the accumulators).
 enum : unsigned { kEpiBias = 1, kEpiRelu = 2, kEpiDrop = 4, kEpiGate = 8, kEpiGelu = 16,
-                  kEpiRes = 32, kEpiRes2 = 64 };
+                  kEpiRes = 32, kEpiRes2 = 64, kEpiGeluAct = 128 };
+// RowGemm::act
+enum : int { kActRelu = 1, kActGelu = 2 };
 
 // Mask values kp[h][e] of columns c + e (c even, a multiple of 4 apart
 // between the quads) of rows r0 (h = 0) and r1 (h = 1) of a GEMM
@@ -122,6 +127,10 @@ struct RowEpi {
     if (F & kEpiRelu) {
       o.x = fmaxf(o.x, 0.f);
       o.y = fmaxf(o.y, 0.f);
+    }
+    if (F & kEpiGeluAct) {
+      o.x = gelu(o.x);
+      o.y = gelu(o.y);
     }
     if (F & kEpiDrop) {
       o.x *= kp[0];
@@ -914,11 +923,12 @@ struct Launcher {
     return bf16 ? rowgemm_as<true, F>(p, nout) : rowgemm_as<false, F>(p, nout);
   }
   // The epilogues the layers use: a torch weight ([N][K]) alone or with
-  // bias, then ReLU, dropout or the residual; a transposed weight (dX = dY W) with a
-  // gate, dropout or one or two residuals.
+  // bias, then ReLU or GELU, dropout or the residual; a transposed weight
+  // (dX = dY W) with a gate, dropout or one or two residuals.
   void rowgemm(const RowGemm& p, int nout) {
     if (!check()) return;
-    const unsigned f = (p.bias ? kEpiBias : 0u) | (p.relu ? kEpiRelu : 0u) |
+    const unsigned f = (p.bias ? kEpiBias : 0u) | (p.act == kActRelu ? kEpiRelu : 0u) |
+                       (p.act == kActGelu ? kEpiGeluAct : 0u) |
                        (p.site >= 0 && drop.thresh != 0u ? kEpiDrop : 0u) |
                        (p.gate ? kEpiGate : 0u) | (p.gate && p.gelu_gate ? kEpiGelu : 0u) |
                        (p.res ? kEpiRes : 0u) | (p.res2 ? kEpiRes2 : 0u);
@@ -934,6 +944,10 @@ struct Launcher {
           break;
         case kEpiBias | kEpiRelu | kEpiDrop:
           e = rowgemm_f<kEpiBias | kEpiRelu | kEpiDrop>(p, nout);
+          break;
+        case kEpiBias | kEpiGeluAct: e = rowgemm_f<kEpiBias | kEpiGeluAct>(p, nout); break;
+        case kEpiBias | kEpiGeluAct | kEpiDrop:
+          e = rowgemm_f<kEpiBias | kEpiGeluAct | kEpiDrop>(p, nout);
           break;
       }
     } else {
@@ -1000,13 +1014,11 @@ struct Launcher {
                                                epi, s));
     reduce(zs(), (size_t)nout * K, out);
   }
-  // the attention forward (ctx) of B sequences of len rows, for the recompute
   // the attention forward (ctx; with stats, each row's softmax max and sum
-  // [B, H, len]) of B sequences of len rows, for the recompute: at "bf16"
-  // on the tensor cores; at "f32" the forward kernel's own float32 attention
-  // (encoder_layer_kernels.cuh), which computes the scores and p v with
-  // float32 multiply-adds: faster at these lengths than 3xTF32 on mma.sync,
-  // and ctx is then the forward's to the bit
+  // [B, H, len]) of B sequences of len rows: at "bf16" on the tensor cores;
+  // at "f32" the float32 attention_kernel (encoder_layer_kernels.cuh), which
+  // computes the scores and p v with float32 multiply-adds: faster at these
+  // lengths than 3xTF32 on mma.sync
   void attention_fwd(const float* qkv, const float* mask, float* ctx, int B, int H, int len,
                      float2* stats = nullptr) {
     if (!check()) return;
@@ -1017,7 +1029,6 @@ struct Launcher {
     attention_fwd_tc_kernel<<<dim3(H, B), kAttThreads, attention_tc_smem_bytes(len, 3), s>>>(
         qkv, mask, ctx, stats, len, drop);
   }
-  // the attention backward over B sequences of len rows
   // the attention backward over B sequences of len rows; with the
   // recompute's ctx and stats at precision "f32", D_i from dctx_i . ctx_i
   void attention_bwd(const float* qkv, const float* dctx, const float* mask, float* dqkv, int B,
@@ -1030,7 +1041,8 @@ struct Launcher {
   }
 };
 
-// The layer's tensors in torch's [out, in] layout (in_proj_weight rows q|k|v).
+// The layer's tensors in torch's [out, in] layout (in_proj_weight rows q|k|v);
+// the temporal layer's in the same order.
 struct EncoderWeights {
   const float *w_in, *b_in, *w_out, *b_out, *g1, *be1, *w1, *b1, *w2, *b2, *g2, *be2;
 };
@@ -1066,9 +1078,50 @@ inline void encoder_layer_fwd(Launcher& k, const float* x, const float* pos, con
   k.attention_fwd(t.qkv, mask, t.ctx, B, H, k.L, t.stats);
   k.rowgemm({t.ctx, D, D, w.w_out, D, 0, w.b_out, 0, H, D, nullptr, 0, x, D, t.r, D}, D);
   k.ln_fwd(t.r, w.g1, w.be1, t.y1, t.xh1, t.inv1);
-  k.rowgemm({t.y1, D, D, w.w1, D, 0, w.b1, 1, H + 1, F, nullptr, 0, nullptr, 0, t.h1, F}, F);
+  k.rowgemm({t.y1, D, D, w.w1, D, 0, w.b1, kActRelu, H + 1, F, nullptr, 0, nullptr, 0, t.h1, F},
+            F);
   k.rowgemm({t.h1, F, F, w.w2, F, 0, w.b2, 0, H + 2, D, nullptr, 0, t.y1, D, t.r, D}, D);
   k.ln_fwd(t.r, w.g2, w.be2, t.out, t.xh2, t.inv2);
+}
+
+// What temporal_layer_fwd writes, per row: y = LN1(x), qkv [3D], ctx,
+// u = y + ctx Wo^T + bo, z = LN2(u), h1 [F] = drop_H(gelu(z W1^T + b1));
+// and, where not null, LN1's and LN2's xhat and 1 / std, the attention
+// rows' softmax statistics [B, H, L], a1 [F] = z W1^T + b1 (h1 then comes
+// from it in a second launch: the backward reads both) and out.
+struct TemporalActs {
+  float *y, *qkv, *ctx, *u, *z, *h1;
+  float *xh1, *inv1, *xh2, *inv2, *a1, *out;
+  float2* stats;
+};
+
+// The temporal-tower layer's forward: LN1; the packed q|k|v product; the
+// float32 attention with its per-head dropout sites; the out-projection
+// with the residual y; LN2; FFN1 with the GELU and dropout (site H) in its
+// epilogue, or, given a1, into a1 and then a GELU-and-dropout launch; FFN2
+// with dropout (H + 1) and the residual z into out.  Kernel #5
+// (fused_temporal_layer.cu) keeps `out`, its backward's recompute
+// (fused_temporal_layer_bwd.cu) a1 and the statistics: both run this one
+// sequence.
+inline void temporal_layer_fwd(Launcher& k, const float* x, const float* mask,
+                               const EncoderWeights& w, const TemporalActs& t, int B, int H,
+                               int F) {
+  const int D = kCols;
+  k.ln_fwd(x, w.g1, w.be1, t.y, t.xh1, t.inv1);
+  k.rowgemm({t.y, D, D, w.w_in, D, 0, w.b_in, 0, -1, D, nullptr, 0, nullptr, 0, t.qkv, 3 * D},
+            3 * D);
+  k.attention_fwd(t.qkv, mask, t.ctx, B, H, k.L, t.stats);
+  k.rowgemm({t.ctx, D, D, w.w_out, D, 0, w.b_out, 0, -1, D, nullptr, 0, t.y, D, t.u, D}, D);
+  k.ln_fwd(t.u, w.g2, w.be2, t.z, t.xh2, t.inv2);
+  if (t.a1) {
+    k.rowgemm({t.z, D, D, w.w1, D, 0, w.b1, 0, -1, F, nullptr, 0, nullptr, 0, t.a1, F}, F);
+    k.dropout(t.a1, t.h1, F, H, /*gelu_in=*/true);
+  } else {
+    k.rowgemm({t.z, D, D, w.w1, D, 0, w.b1, kActGelu, H, F, nullptr, 0, nullptr, 0, t.h1, F},
+              F);
+  }
+  if (t.out)
+    k.rowgemm({t.h1, F, F, w.w2, F, 0, w.b2, 0, H + 1, D, nullptr, 0, t.z, D, t.out, D}, D);
 }
 
 // The dynamic shared memory of encoder_layer_fwd's attention launches at

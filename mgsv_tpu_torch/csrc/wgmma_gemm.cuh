@@ -24,7 +24,7 @@
 // runs while slice i multiplies (two converted buffers).  The tensor cores
 // truncate a float32 sum to the running sum's exponent, so each slice is
 // summed from zero into a second set of accumulators and then added to the
-// first with a rounded add, as the mma.sync tiles of tf32_tile.cuh do:
+// first with a rounded add, which keeps the sum at float32 accuracy:
 //
 //  * precision "f32" (3xTF32, wgmma .tf32, k = 8): x = big + small with
 //    big = rna_tf32(x) and small = rna_tf32(x - big), in 128-byte-swizzled

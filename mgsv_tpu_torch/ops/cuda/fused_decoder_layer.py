@@ -18,7 +18,10 @@ and eval steps and `evaluate`).  On a CUDA tensor it launches
 csrc/fused_decoder_layer.cu and, for the gradient,
 csrc/fused_decoder_layer_bwd.cu (built at first use, see runtime/kernels.py),
 or raises; on a CPU tensor it runs `fused_decoder_layer_reference`, the
-layer's own plain forward, and autograd differentiates that.  The kernel
+layer's own plain forward, and autograd differentiates that.  When the
+layer needs a gradient, the forward keeps the memory's k|v ([B, L, 2D],
+the cross-attention's k and v projections, 159 MB at B=512 and L=152) for
+the backward, which then does not project the memory again.  The kernel
 sources say what bounds them on the card and how they split the work.
 """
 
@@ -38,7 +41,7 @@ if TYPE_CHECKING:
 
 # The shapes the kernels take; csrc/decoder_layer_kernels.cuh guards the same.
 HEAD_DIM = 32      # the attention maps one lane to one head channel
-DIM = 256          # the GEMM tiles span a full row of D = 256 (for LayerNorm)
+DIM = 256          # the LayerNorm launches take rows of D = 256, 8 values a lane
 MAX_L = 256        # memory rows and queries: the attention's shared memory
 MAX_B = 65535      # grid y of the attention launches
 
@@ -145,10 +148,10 @@ def _launcher(device_index: int):
     lib = kernels.load_initialized("fused_decoder_layer", device_index)
     size = lib.mgsv_fused_decoder_layer_workspace
     size.restype = ctypes.c_size_t
-    size.argtypes = [ctypes.c_int] * 3
+    size.argtypes = [ctypes.c_int] * 4
     fn = lib.mgsv_fused_decoder_layer_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 25 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 26 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     return size, fn
 
 
@@ -158,10 +161,10 @@ def _bwd_launcher(device_index: int):
     lib = kernels.load_initialized("fused_decoder_layer_bwd", device_index)
     size = lib.mgsv_fused_decoder_layer_bwd_workspace
     size.restype = ctypes.c_size_t
-    size.argtypes = [ctypes.c_int] * 4
+    size.argtypes = [ctypes.c_int] * 5
     fn = lib.mgsv_fused_decoder_layer_bwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 47 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 48 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     return size, fn
 
 
@@ -173,29 +176,61 @@ def _slots(tensors, self_attn: bool) -> list:
 
 
 def _forward_kernel(tgt, memory, mask, pos, query_pos, layer, weights, self_attn):
+    """(out, the memory's k|v [B, L, 2D])."""
     (b, q, d), length, f = tgt.shape, memory.shape[1], weights[-6].shape[0]
     out = torch.empty_like(tgt)
+    kv = memory.new_empty(b, length, 2 * d)
     with torch.cuda.device(tgt.device):
         size, launch = _launcher(tgt.device.index)
-        ws = tgt.new_empty(int(size(b, q, length)))
+        ws = tgt.new_empty(int(size(b, q, length, f)))
         stream = torch.cuda.current_stream(tgt.device).cuda_stream
         args = ([t.data_ptr() for t in (tgt, memory, mask, pos, query_pos)]
-                + _slots(weights, self_attn) + [out.data_ptr(), ws.data_ptr()])
+                + _slots(weights, self_attn) + [out.data_ptr(), kv.data_ptr(), ws.data_ptr()])
         err = launch(*args, b, q, length, d, layer.multihead_attn.heads, f, int(self_attn),
                      stream)
     if err != 0:
         raise RuntimeError(f"fused_decoder_layer: CUDA error {err} at launch")
     fused_decoder_layer.launches += 1
-    return out
+    return out, kv
+
+
+def fused_decoder_layer_fwd(tgt: torch.Tensor, memory: torch.Tensor, mask: torch.Tensor,
+                            pos: torch.Tensor, query_pos: torch.Tensor,
+                            layer: DetrDecoderLayer):
+    """The forward kernel alone, outside autograd: (out, the memory's k|v
+    [B, L, 2D] that `fused_decoder_layer_bwd` may take).  CUDA tensors
+    only, contiguous (`fused_decoder_layer` is the layer's entry point)."""
+    if tgt.device.type != "cuda":
+        raise ValueError("fused_decoder_layer_fwd: the kernel takes CUDA tensors; "
+                         "on the CPU run fused_decoder_layer_reference")
+    _check_inputs(tgt, memory, mask, pos, query_pos, layer)
+    return _forward_kernel(tgt, memory, mask, pos, query_pos, layer,
+                           _weights(layer, tgt.device), layer.self_attn is not None)
+
+
+def _check_kv(kv: torch.Tensor, memory: torch.Tensor) -> None:
+    """A k|v the backward takes: the forward's, [B, L, 2D] float32 on
+    memory's device, contiguous and 16-byte aligned."""
+    b, length, d = memory.shape
+    if (kv.dtype != torch.float32 or tuple(kv.shape) != (b, length, 2 * d)
+            or kv.device != memory.device or not kv.is_contiguous() or kv.data_ptr() % 16):
+        raise ValueError(f"fused_decoder_layer_bwd: kv {tuple(kv.shape)} {kv.dtype} on "
+                         f"{kv.device} is not the forward's k|v of memory "
+                         f"{tuple(memory.shape)}: needs [{b}, {length}, {2 * d}] float32 on "
+                         f"{memory.device}, contiguous")
 
 
 def fused_decoder_layer_bwd(tgt: torch.Tensor, memory: torch.Tensor, mask: torch.Tensor,
                             pos: torch.Tensor, query_pos: torch.Tensor, g: torch.Tensor,
-                            layer: DetrDecoderLayer):
+                            layer: DetrDecoderLayer, kv: Optional[torch.Tensor] = None):
     """Backward of the layer by recompute: (dtgt, dmemory, dpos, dquery_pos,
     gradients of the tensors of `_layer_tensors(layer)`, in that order).
-    CUDA tensors only: the plain version of this kernel is autograd through
-    `fused_decoder_layer_reference`."""
+    Given `kv`, the forward's k|v of the same inputs (`fused_decoder_layer_fwd`),
+    the recompute takes it instead of projecting the memory again; the
+    result is the same to the bit.  CUDA tensors only: the plain version of
+    this kernel is autograd through `fused_decoder_layer_reference`."""
+    if kv is not None:
+        _check_kv(kv, memory)
     if tgt.device.type != "cuda":
         raise ValueError("fused_decoder_layer_bwd: the kernel takes CUDA tensors; "
                          "on the CPU differentiate fused_decoder_layer_reference")
@@ -212,12 +247,13 @@ def fused_decoder_layer_bwd(tgt: torch.Tensor, memory: torch.Tensor, mask: torch
     dmem, dpos = torch.empty_like(memory), torch.empty_like(memory)
     with torch.cuda.device(tgt.device):
         size, launch = _bwd_launcher(tgt.device.index)
-        ws = tgt.new_empty(int(size(b, q, length, f)))
+        ws = tgt.new_empty(int(size(b, q, length, f, int(kv is not None))))
         stream = torch.cuda.current_stream(tgt.device).cuda_stream
         args = ([t.data_ptr() for t in (tgt, memory, mask, pos, query_pos, g)]
                 + _slots(weights, self_attn)
                 + [t.data_ptr() for t in (dtgt, dmem, dpos, dqpos)]
-                + _slots(grads, self_attn) + [ws.data_ptr()])
+                + _slots(grads, self_attn)
+                + [0 if kv is None else kv.data_ptr(), ws.data_ptr()])
         err = launch(*args, b, q, length, d, layer.multihead_attn.heads, f, int(self_attn),
                      stream)
     if err != 0:
@@ -230,21 +266,24 @@ fused_decoder_layer_bwd.launches = 0
 
 
 class _DecoderLayerFn(torch.autograd.Function):
-    """Forward kernel, backward kernel; saves only the inputs and the
-    weights (the backward recomputes the rest)."""
+    """Forward kernel, backward kernel; saves the inputs and, when a
+    gradient is needed, the memory's k|v (the backward recomputes the
+    rest)."""
 
     @staticmethod
     def forward(ctx, tgt, memory, mask, pos, query_pos, layer, *weights):
         ctx.layer = layer
-        ctx.save_for_backward(tgt, memory, mask, pos, query_pos)
-        return _forward_kernel(tgt, memory, mask, pos, query_pos, layer, weights,
-                               layer.self_attn is not None)
+        out, kv = _forward_kernel(tgt, memory, mask, pos, query_pos, layer, weights,
+                                  layer.self_attn is not None)
+        ctx.save_for_backward(tgt, memory, mask, pos, query_pos,
+                              kv if any(ctx.needs_input_grad) else None)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        tgt, memory, mask, pos, query_pos = ctx.saved_tensors
+        tgt, memory, mask, pos, query_pos, kv = ctx.saved_tensors
         dtgt, dmem, dpos, dqpos, grads = fused_decoder_layer_bwd(
-            tgt, memory, mask, pos, query_pos, g.contiguous(), ctx.layer)
+            tgt, memory, mask, pos, query_pos, g.contiguous(), ctx.layer, kv)
         return (dtgt, dmem, None, dpos, dqpos, None, *grads)
 
 

@@ -37,7 +37,7 @@ if TYPE_CHECKING:
 
 # The shapes the kernels take; csrc/temporal_layer.cuh guards the same.
 HEAD_DIM = 32      # the attention maps one lane to one head channel
-DIM = 256          # the GEMM tiles span a full row of D = 256 (for LayerNorm)
+DIM = 256          # the LayerNorm launches take rows of D = 256, 8 values a lane
 # The longer of the towers' sinusoidal tables (audio_pe_len 300; video 250):
 # no tower input is longer.  The attention's shared memory would allow up
 # to 500 (forward, 464 L bytes) and 382 (backward, 608 L bytes).
@@ -125,14 +125,18 @@ def _weights(layer: TemporalLayer, device: torch.device) -> tuple:
 
 @functools.cache
 def _launcher(device_index: int):
-    """The forward's C entry point, with its kernels' shared-memory limits
-    set once on this device (call with the device current)."""
+    """The forward's C entry points (workspace size, launch), with its
+    kernels' shared-memory limits set once on this device (call with the
+    device current)."""
     lib = kernels.load_initialized("fused_temporal_layer", device_index)
+    size = lib.mgsv_fused_temporal_layer_workspace
+    size.restype = ctypes.c_size_t
+    size.argtypes = [ctypes.c_int, ctypes.c_int]
     fn = lib.mgsv_fused_temporal_layer_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 5
                    + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p])
-    return fn
+    return size, fn
 
 
 @functools.cache
@@ -151,12 +155,11 @@ def _bwd_launcher(device_index: int):
 
 def _forward_kernel(x, mask, layer, weights, rate, seed) -> torch.Tensor:
     (b, L, d), f = x.shape, weights[6].shape[0]
-    qkv = x.new_empty(b, L, 3 * d)
-    ctx = torch.empty_like(x)
     out = torch.empty_like(x)
-    args = [t.data_ptr() for t in (x, mask) + tuple(weights) + (qkv, ctx, out)]
     with torch.cuda.device(x.device):
-        launch = _launcher(x.device.index)
+        size, launch = _launcher(x.device.index)
+        ws = x.new_empty(int(size(b * L, f)))
+        args = [t.data_ptr() for t in (x, mask) + tuple(weights) + (ws, out)]
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = launch(*args, b, L, d, layer[1].heads, f, *philox.kernel_args(rate, seed), stream)
     if err != 0:

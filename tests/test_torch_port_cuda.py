@@ -313,13 +313,14 @@ def _temporal_layer(dev):
     return _perturbed(layer, 6).to(dev)
 
 
-@pytest.mark.parametrize("b,L", [(4, 96), (12, 50), (3, 21), (2, 300)])
+@pytest.mark.parametrize("b,L", [(4, 96), (12, 50), (3, 21), (2, 300), (40, 96), (40, 50)])
 @pytest.mark.parametrize("rate", [0.0, 0.8])
 def test_cuda_temporal_kernels_match_plain_version(dev, rate, b, L):
     """The temporal layer's forward and backward kernels (#5) against
     autograd through the plain version: the towers' L = 96 and 50 (B*L of
-    384 and 600 rows, a ragged last 64-row tile), fewer rows than one tile,
-    and the longest L; ragged key masks with a row that keeps no key."""
+    384 and 600 rows, the second a ragged last 128-row tile), fewer rows
+    than one tile, the longest L, and the evaluation's B=40 at both towers'
+    L; ragged key masks with a row that keeps no key."""
     rng = np.random.default_rng(b * L)
     x, g = _randn(rng, (b, L, 256), dev), _randn(rng, (b, L, 256), dev)
     mask = _ragged(rng, b, L, dev)
@@ -414,12 +415,15 @@ def _decoder_layer(dev, self_attn):
 
 
 @pytest.mark.parametrize("b,q,L,self_attn", [(4, 1, 152, True), (6, 10, 152, True),
-                                             (3, 3, 21, False), (300, 10, 8, True)])
+                                             (3, 3, 21, False), (300, 10, 8, True),
+                                             (3, 1, 21, False), (3, 10, 21, False),
+                                             (300, 1, 8, True), (40, 1, 152, True)])
 def test_cuda_decoder_kernels_match_plain_version(dev, b, q, L, self_attn):
-    """Kernel #6, forward and backward: Q=1 and Q=10 at L=152 with ragged
-    key masks (a row with one valid key), no self-attention, and 2,400
-    memory rows (two split-K chunks) at a short L.  Two backward calls are
-    bit-identical."""
+    """Kernel #6, forward and backward (given the forward's k|v, as autograd
+    runs it): Q=1 and Q=10 at L=152 with ragged key masks (a row with one
+    valid key), no self-attention, 2,400 memory rows (two split-K chunks)
+    at a short L, and the evaluation's B=40 at Q=1.  Two recomputing
+    backward calls are bit-identical."""
     rng = np.random.default_rng(b * q + L)
     tgt, qpos, g = (_randn(rng, (b, q, 256), dev) for _ in range(3))
     mem, pos = _randn(rng, (b, L, 256), dev), _randn(rng, (b, L, 256), dev)
@@ -446,6 +450,59 @@ def test_cuda_decoder_kernels_match_plain_version(dev, b, q, L, self_attn):
     first = fdl.fused_decoder_layer_bwd(tgt, mem, mask, pos, qpos, g, layer)
     for a, c in zip([*again[:4], *again[4]], [*first[:4], *first[4]]):
         assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("b,L,rate", [(40, 96, 0.0), (13, 50, 0.8)])
+def test_cuda_temporal_forward_is_bit_reproducible(dev, b, L, rate):
+    """Two identical calls of #5's forward give the same output to the bit
+    (every product is owned by one tile, no atomics)."""
+    rng = np.random.default_rng(b + L)
+    x, mask = _randn(rng, (b, L, 256), dev), _ragged(rng, b, L, dev)
+    layer = _temporal_layer(dev)
+    with torch.no_grad():
+        first = ftl.fused_temporal_layer(x, mask, layer, rate, 4)
+        second = ftl.fused_temporal_layer(x, mask, layer, rate, 4)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("b,q,L,self_attn", [(40, 1, 152, True), (5, 10, 152, True),
+                                             (3, 3, 21, False)])
+def test_cuda_decoder_forward_is_bit_reproducible(dev, b, q, L, self_attn):
+    """Two identical calls of #6's forward give the same output and the same
+    memory k|v to the bit."""
+    rng = np.random.default_rng(b * q + L)
+    tgt, qpos = _randn(rng, (b, q, 256), dev), _randn(rng, (b, q, 256), dev)
+    mem, pos = _randn(rng, (b, L, 256), dev), _randn(rng, (b, L, 256), dev)
+    mask = _ragged(rng, b, L, dev)
+    layer = _decoder_layer(dev, self_attn)
+    first = fdl.fused_decoder_layer_fwd(tgt, mem, mask, pos, qpos, layer)
+    second = fdl.fused_decoder_layer_fwd(tgt, mem, mask, pos, qpos, layer)
+    with torch.no_grad():
+        out = fdl.fused_decoder_layer(tgt, mem, mask, pos, qpos, layer)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    assert torch.equal(out, first[0])
+
+
+@pytest.mark.parametrize("b,q,L,self_attn", [(6, 10, 152, True), (40, 1, 152, True),
+                                             (3, 3, 21, False)])
+def test_cuda_decoder_backward_takes_the_forward_kv(dev, b, q, L, self_attn):
+    """#6's backward given the forward's memory k|v equals the recomputing
+    backward to the bit (the same launches wrote it), and refuses a k|v of
+    another shape or dtype."""
+    rng = np.random.default_rng(3 * b + q + L)
+    tgt, qpos, g = (_randn(rng, (b, q, 256), dev) for _ in range(3))
+    mem, pos = _randn(rng, (b, L, 256), dev), _randn(rng, (b, L, 256), dev)
+    mask = _ragged(rng, b, L, dev)
+    layer = _decoder_layer(dev, self_attn)
+    kv = fdl.fused_decoder_layer_fwd(tgt, mem, mask, pos, qpos, layer)[1]
+    assert kv.shape == (b, L, 512)
+    saved = fdl.fused_decoder_layer_bwd(tgt, mem, mask, pos, qpos, g, layer, kv=kv)
+    recomputed = fdl.fused_decoder_layer_bwd(tgt, mem, mask, pos, qpos, g, layer)
+    for a, c in zip([*saved[:4], *saved[4]], [*recomputed[:4], *recomputed[4]]):
+        assert torch.equal(a, c)
+    for bad in (kv[:, :-1].contiguous(), kv.double()):
+        with pytest.raises(ValueError, match="kv"):
+            fdl.fused_decoder_layer_bwd(tgt, mem, mask, pos, qpos, g, layer, kv=bad)
 
 
 @pytest.mark.parametrize("precision", ["f32", "bf16"])

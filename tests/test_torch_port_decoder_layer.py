@@ -128,6 +128,25 @@ def test_self_attn_argument_must_match_the_layer():
         fdl.fused_decoder_layer_bwd(tgt, mem, mask, pos, qpos, tgt, layer)
 
 
+@pytest.mark.parametrize("bad", ["shape", "dtype", "length"])
+def test_backward_refuses_a_kv_that_is_not_the_forwards(bad):
+    """fused_decoder_layer_bwd checks a given k|v (the forward's [B, L, 2D]
+    float32) before anything else, so a wrong one raises a ValueError that
+    names it, here on the CPU as on the card, before any launch; the right
+    one passes that check and meets the CPU refusal."""
+    tgt, mem, mask, pos, qpos, cot = (torch.from_numpy(a) for a in _inputs(2, seed=1))
+    layer = DetrDecoderLayer(D, HEADS, 4 * D)
+    kv = torch.zeros(B, L, 2 * D)
+    bad_kv = {"shape": torch.zeros(B, L, D), "dtype": kv.double(),
+              "length": torch.zeros(B, L + 1, 2 * D)}[bad]
+    before = fdl.fused_decoder_layer_bwd.launches
+    with pytest.raises(ValueError, match="kv"):
+        fdl.fused_decoder_layer_bwd(tgt, mem, mask, pos, qpos, cot, layer, kv=bad_kv)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fdl.fused_decoder_layer_bwd(tgt, mem, mask, pos, qpos, cot, layer, kv=kv)
+    assert fdl.fused_decoder_layer_bwd.launches == before
+
+
 @pytest.mark.parametrize("bad", ["dtype", "shape", "batch", "head_dim", "width", "queries",
                                  "length", "contiguous"])
 def test_wrapper_rejects_what_the_kernels_do_not_take(bad):
