@@ -26,10 +26,16 @@ failure:
   4. temporal-kernel  the temporal-tower layer's kernels (#5, forward and
               backward) against their plain version at B=512 for the audio
               (L=96) and video (L=50) towers, rates 0 and 0.8, a row with no
-              valid key included; two identical backward calls bit-identical;
-              kernel and plain times in turns beside the bound, and the
-              audio tower's forward and backward by kernel name
-              ([breakdown]); the forward also at the evaluation's B=40, rate 0
+              valid key included; the training forward's saved activations
+              against their plain version, and the backward given them
+              equal to the recomputing one bit for bit, two calls
+              bit-identical, and held against the plain backward from the
+              saved set, at both towers and at two ragged small shapes;
+              kernel and plain times in turns beside the bound (the
+              backward given the saved set, as a step runs it), and by
+              kernel name ([breakdown]: the forwards, and the backward
+              given the saved set and recomputing); the forward also at the
+              evaluation's B=40, rate 0
   5. decoder-kernel  the DETR decoder layer's kernels (#6, forward and
               backward) against their plain version at B=512, L=152 for
               Q=1 and Q=10 queries, self-attention on, ragged key masks with
@@ -41,7 +47,8 @@ failure:
   6. train    one float32 training step of MaDe (Config() widths, dropout
               on) through the kernels and one through the plain versions,
               from the same weights, batch and seed: the loss and every
-              parameter's gradient compared; launches per step read; then
+              parameter's gradient compared; launches per step, the step's
+              device operations and peak memory read; then
               the same for Config(fused_temporal=True) (temporal-train) and
               for ten moment queries with fused_decoder=True (train-q: the
               decoder on #6, detr_dropout 0, every LSAP solve of the step
@@ -731,22 +738,25 @@ def check_temporal(device: torch.device) -> list:
                   plain_f32_err=perr, rtol_of_max=GRAD_RTOL)
             fwd_err, bwd_err = max(fwd_err, err), max(bwd_err, gerr)
             del outs, grads
-        first, second = (ftl.fused_temporal_layer_bwd(x, mask, g, layer, rate, DROPOUT_SEED)
-                         for _ in range(2))
-        if not all(torch.equal(a, b) for a, b in zip([first[0], *first[1]],
-                                                     [second[0], *second[1]])):
-            raise AssertionError(f"fused_temporal_layer_bwd {tower}: two calls differ")
-        del first, second
+        with torch.no_grad():
+            _, acts = ftl.fused_temporal_layer_fwd(x, mask, layer, rate, DROPOUT_SEED)
+        bwd_err = max(bwd_err, check_temporal_saved(f"{tower} B={TRAIN_B}", layer, layer64, names,
+                                                    x, mask, g, rate, acts))
 
         with torch.no_grad():
             ms, plain_ms = in_turns(
                 lambda: ftl.fused_temporal_layer(x, mask, layer, rate, DROPOUT_SEED),
                 lambda: ftl.fused_temporal_layer_reference(x, mask, layer, rate, DROPOUT_SEED))
+            train_ms = cuda_ms(lambda: ftl.fused_temporal_layer_fwd(
+                x, mask, layer, rate, DROPOUT_SEED), 5)
         xi = x.clone().requires_grad_()
         out = ftl.fused_temporal_layer_reference(xi, mask, layer, rate, DROPOUT_SEED)
-        bms, plain_bms = in_turns(
-            lambda: ftl.fused_temporal_layer_bwd(x, mask, g, layer, rate, DROPOUT_SEED),
+        bms, plain_bms = in_turns(      # given the saved set, as a training step runs it
+            lambda: ftl.fused_temporal_layer_bwd(x, mask, g, layer, rate, DROPOUT_SEED,
+                                                 acts=acts),
             lambda: torch.autograd.grad(out, [xi, *params], g, retain_graph=True))
+        recompute_ms = cuda_ms(lambda: ftl.fused_temporal_layer_bwd(
+            x, mask, g, layer, rate, DROPOUT_SEED), 5)
         del out
         flops = temporal_flops(TRAIN_B, length, d, ffn)
         fwd_bytes, bwd_bytes = nbytes(x, mask, x, *params), nbytes(x, mask, g, *params, x, *params)
@@ -757,12 +767,22 @@ def check_temporal(device: torch.device) -> list:
             phase("temporal-kernel-time", name=name, tower=tower, B=TRAIN_B, L=length, rate=rate,
                   ms=f"{t:.4f}", plain_ms=f"{pt:.4f}", bound_ms=f"{b_ms:.4f}", bound_by=by,
                   gflop=f"{fl / 1e9:.1f}", tflops=f"{fl / t / 1e9:.1f}")
-        if tower == "audio":
-            with torch.no_grad():
+        phase("temporal-kernel-time", name="fused_temporal_layer_bwd", tower=tower, B=TRAIN_B,
+              L=length, rate=rate, recomputing_ms=f"{recompute_ms:.4f}",
+              training_forward_ms=f"{train_ms:.4f}")
+        with torch.no_grad():
+            if tower == "audio":
                 breakdown("fused_temporal_layer", lambda: ftl.fused_temporal_layer(
                     x, mask, layer, rate, DROPOUT_SEED), tower=tower, B=TRAIN_B, rate=rate)
-            breakdown("fused_temporal_layer_bwd", lambda: ftl.fused_temporal_layer_bwd(
-                x, mask, g, layer, rate, DROPOUT_SEED), tower=tower, B=TRAIN_B, rate=rate)
+            breakdown("fused_temporal_layer training", lambda: ftl.fused_temporal_layer_fwd(
+                x, mask, layer, rate, DROPOUT_SEED), tower=tower, B=TRAIN_B, rate=rate)
+        breakdown("fused_temporal_layer_bwd", lambda: ftl.fused_temporal_layer_bwd(
+            x, mask, g, layer, rate, DROPOUT_SEED, acts=acts), tower=tower, B=TRAIN_B, rate=rate,
+            given="saved")
+        breakdown("fused_temporal_layer_bwd", lambda: ftl.fused_temporal_layer_bwd(
+            x, mask, g, layer, rate, DROPOUT_SEED), tower=tower, B=TRAIN_B, rate=rate,
+            given="recomputing")
+        del acts
 
         xs = randn(rng, (EVAL_B, length, d), device)             # the evaluation's shape
         ms_ = torch.from_numpy(ragged_mask(rng, EVAL_B, length, 1)).to(device)
@@ -787,7 +807,58 @@ def check_temporal(device: torch.device) -> list:
                       "mgsv_tpu/ops/pallas/fused_temporal_layer.py:381", bwd_err, bms, plain_bms,
                       2 * flops, bwd_bytes)]
         del x, g, mask, xs, ms_
+    rng = np.random.default_rng(SEED + 15)            # a ragged last tile, fewer rows than one
+    for b, length in ((13, 37), (3, 21)):
+        x, g = (randn(rng, (b, length, d), device) for _ in range(2))
+        mask = torch.from_numpy(ragged_mask(rng, b, length, 1)).to(device)
+        mask[-1] = 0.0
+        with torch.no_grad():
+            _, acts = ftl.fused_temporal_layer_fwd(x, mask, layer, rate, DROPOUT_SEED)
+        check_temporal_saved(f"B={b} L={length}", layer, layer64, names, x, mask, g, rate, acts)
     return out_entries
+
+
+def check_temporal_saved(what: str, layer, layer64, names, x, mask, g, rate, acts) -> float:
+    """#5's training forward's saved set against its plain version, and the
+    backward given it: equal to the recomputing backward bit for bit, two
+    calls bit-identical, and held against the plain backward from the saved
+    set (`temporal_layer_bwd_from_acts_reference`, float32 and float64) as
+    check_grads holds gradients.  Returns the gradients' largest error."""
+    with torch.no_grad():
+        _, exact_acts = ftl.temporal_layer_acts_reference(x.double(), mask.double(), layer64,
+                                                          rate, DROPOUT_SEED)
+    act_err = 0.0
+    for name, got, want in zip(ftl.SAVED, acts, exact_acts):
+        err = (got.double() - want).abs().max().item()
+        tol = KERNEL_ATOL * max(1.0, want.abs().max().item())
+        if not torch.isfinite(got).all() or not err <= tol:
+            raise AssertionError(f"fused_temporal_layer {what} saved {name}: max abs error {err}")
+        act_err = max(act_err, err)
+    saved, again, recomputed = (
+        ftl.fused_temporal_layer_bwd(x, mask, g, layer, rate, DROPOUT_SEED, acts=a)
+        for a in (acts, acts, None))
+    flat = lambda r: [r[0], *r[1]]
+    if not all(torch.equal(a, b) for a, b in zip(flat(saved), flat(recomputed))):
+        raise AssertionError(f"fused_temporal_layer_bwd {what}: the saved set's backward differs "
+                             f"from the recomputing one")
+    if not all(torch.equal(a, b) for a, b in zip(flat(saved), flat(again))):
+        raise AssertionError(f"fused_temporal_layer_bwd {what}: two calls differ")
+    with torch.no_grad():
+        plain = flat(ftl.temporal_layer_bwd_from_acts_reference(
+            x, mask, g, layer, ftl.temporal_layer_acts_reference(x, mask, layer, rate,
+                                                                 DROPOUT_SEED)[1],
+            rate, DROPOUT_SEED))
+        exact = flat(ftl.temporal_layer_bwd_from_acts_reference(
+            x.double(), mask.double(), g.double(), layer64, exact_acts, rate, DROPOUT_SEED))
+    by_name = dict(zip(map(id, ftl._layer_tensors(layer)), range(1, 13)))
+    order = [0] + [by_name[id(p)] for p in layer.parameters()]     # names' order
+    gerr, perr, gname, _ = check_grads(f"fused_temporal_layer_bwd {what} from the saved set",
+                                       names, *([r[i] for i in order]
+                                                for r in (flat(saved), plain, exact)))
+    phase("temporal-kernel", name="fused_temporal_layer_bwd", shape=what, rate=rate,
+          saved_equals_recomputing=True, two_calls_equal=True, saved_set_max_abs_err=act_err,
+          vs_plain_from_saved_set_err=gerr, at=gname, plain_f32_err=perr)
+    return gerr
 
 
 def train_setup(cfg: Config, device: torch.device, model=None, fused_decoder: bool = False):
@@ -864,9 +935,18 @@ def check_train(device: torch.device, fused_temporal: bool = False,
     for kind, (mdl, b, plain) in runs.items():
         _, step = train_setup(cfg, device, model=mdl, fused_decoder=fused_decoder)
         reset_counts()
-        with plain_kernels() if plain else recording_lsap(solves):
-            log = step(b)
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        acts = [torch.profiler.ProfilerActivity.CUDA]
+        with plain_kernels() if plain else recording_lsap(solves), \
+                torch.profiler.profile(activities=acts) if kind == "kernel" else \
+                contextlib.nullcontext() as prof:
+            log = step(b)
+            torch.cuda.synchronize()
+        if kind == "kernel":         # the step's device operations and its peak memory
+            device_ops = sum(e.count for e in prof.key_averages()
+                             if e.device_type == torch.autograd.DeviceType.CUDA)
+            peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
         launches[kind] = read_counts()
         logs[kind] = {k: float(v.double().mean()) for k, v in log.items()}
         grads[kind] = {n: p.grad for n, p in mdl.named_parameters() if p.grad is not None}
@@ -896,7 +976,8 @@ def check_train(device: torch.device, fused_temporal: bool = False,
     phase(tag, dtype="float32", B=TRAIN_B, fused_temporal=fused_temporal, **extra,
           loss=loss["kernel"], plain_loss=loss["plain"], float64_loss=loss["exact"],
           params=len(names), grad_max_abs_err=worst, plain_f32_grad_err=worst_plain,
-          train_iou=logs["kernel"]["train_iou"], grad_norm=logs["kernel"]["grad_norm"])
+          train_iou=logs["kernel"]["train_iou"], grad_norm=logs["kernel"]["grad_norm"],
+          device_ops=device_ops, peak_mem_gb=f"{peak_gb:.2f}")
     phase("launches", path="train step" + (" fused_temporal" if fused_temporal else "")
           + (f" Q={Q_MULTI} fused_decoder" if fused_decoder else ""), **launches["kernel"])
     if fused_decoder:

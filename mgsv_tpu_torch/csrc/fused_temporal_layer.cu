@@ -40,16 +40,23 @@
 //
 // The y, q|k|v, ctx, u, z and [B*L, F] hidden activations pass through
 // device memory (some 0.55 GB at the audio tower's B=512), a workspace the
-// wrapper allocates (mgsv_fused_temporal_layer_workspace floats).
+// wrapper allocates (mgsv_fused_temporal_layer_workspace floats).  When a
+// gradient will be taken, the wrapper passes tensors of its own for them
+// (TemporalSaved, layer_bwd_kernels.cuh): the same launches then also
+// keep both LayerNorms' xhat and 1 / std, the attention rows' softmax
+// statistics and FFN1's pre-activation (a second store of its epilogue),
+// and the backward (fused_temporal_layer_bwd.cu) reads them instead of
+// recomputing the forward.
 // Dropout is a compile-time part of the epilogues and of the attention, so
 // the rate-0 evaluation compiles the mask code out.
 
 #include "layer_bwd_kernels.cuh"
 
 // Floats of device workspace mgsv_fused_temporal_layer_fwd needs at B*L rows
-// and FFN width F (D = 256).
-extern "C" size_t mgsv_fused_temporal_layer_workspace(int rows, int F) {
+// and FFN width F (D = 256), with (saved 1) or without the saved set.
+extern "C" size_t mgsv_fused_temporal_layer_workspace(int rows, int F, int saved) {
   const size_t n = (size_t)rows, d = kCols;
+  if (saved) return align4(n * d);                       // u alone
   return 4 * align4(n * d) + align4(n * 3 * d) + align4(n * F);
 }
 
@@ -61,26 +68,31 @@ extern "C" int mgsv_fused_temporal_layer_init() { return (int)attention_init(kTe
 // One temporal layer on `stream`, dropout (seed, thresh, scale) as in
 // philox.cuh (thresh 0: none), after mgsv_fused_temporal_layer_init on that
 // device.  out is the [B, L, D] result, ws mgsv_fused_temporal_layer_workspace
-// floats of scratch; every pointer 16-byte aligned.  Returns the first CUDA
-// error (0 = ok).
+// floats of scratch; `saved`, when not null, the TemporalSaved pointers
+// (layer_bwd_kernels.cuh) the backward takes, written here.  Every pointer
+// 16-byte aligned.  Returns the first CUDA error (0 = ok).
 extern "C" int mgsv_fused_temporal_layer_fwd(
     const float* x, const float* mask,
     const float* w_in, const float* b_in, const float* w_out, const float* b_out,
     const float* g1, const float* be1, const float* w1, const float* b1,
     const float* w2, const float* b2, const float* g2, const float* be2,
-    float* ws, float* out, int B, int L, int D, int H, int F,
+    float* ws, float* out, float* const* saved, int B, int L, int D, int H, int F,
     unsigned seed, unsigned thresh, float scale, void* stream) {
   if (!temporal_shape_ok(B, L, D, H, F)) return (int)cudaErrorInvalidValue;
   const size_t n = (size_t)B * L, d = kCols;
   float* cur = ws;
   auto take = [&](size_t count) { float* p = cur; cur += align4(count); return p; };
   TemporalActs t{};
-  t.y = take(n * d);
-  t.qkv = take(n * 3 * d);
-  t.ctx = take(n * d);
+  if (saved) {
+    t = temporal_saved(saved);
+  } else {
+    t.y = take(n * d);
+    t.qkv = take(n * 3 * d);
+    t.ctx = take(n * d);
+    t.z = take(n * d);
+    t.h1 = take(n * F);
+  }
   t.u = take(n * d);
-  t.z = take(n * d);
-  t.h1 = take(n * F);
   t.out = out;
   Launcher k{static_cast<cudaStream_t>(stream), B * L, L, Dropout{seed, thresh, scale}, nullptr};
   temporal_layer_fwd(k, x, mask, {w_in, b_in, w_out, b_out, g1, be1, w1, b1, w2, b2, g2, be2}, t,

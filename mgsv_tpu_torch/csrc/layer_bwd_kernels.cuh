@@ -13,13 +13,15 @@
 //    residual epilogue on the accumulators.
 //  * wgrad: weight gradients dW = G^T H over all B*L rows on the same core,
 //    both operands MN-major, K (the rows) split into 1024-row slices whose
-//    partials reduce_kernel then sums in slice order; bias gradients
-//    (column sums, 32 columns per block) take the same two passes.  No
-//    float atomics: a step is reproducible from run to run.
+//    partials reduce_kernel then sums in slice order; a bias gradient (the
+//    column sums of G) is summed in the same product as G's slices are
+//    converted (PartialSumEpi, the temporal layer's backward) or, with
+//    colsum, in two passes of its own (32 columns per block).  No float
+//    atomics: a step is reproducible from run to run.
 //  * ln_fwd_kernel: LayerNorm statistics, one warp per row;
 //    ln_bwd_sum_kernel: its backward with the gradients of its parameters
 //    (column sums per 256-row block, summed in block order);
-//    dropout_kernel: a mask (after a GELU) over a tensor.
+//    dropout_kernel: a mask over a tensor.
 //  * attention_bwd_tc_kernel (and, at "bf16", the recompute's
 //    attention_fwd_tc_kernel): the attention of one (head, batch row) on
 //    the tensor cores (mma.sync: m16n8k16 bf16, or 3xTF32 m16n8k8), q, k,
@@ -28,7 +30,9 @@
 //    registers.  The backward runs two sweeps, over query rows (statistics,
 //    D_i = sum_j p_ij m_ij dp_ij, then dq) and over key rows (dk, dv), so
 //    every sum has one owner: no atomics.  At "f32" the recompute takes the
-//    forward kernel's float32 attention, with its statistics.
+//    forward kernel's float32 attention, with its statistics.  (The
+//    temporal layer's backward runs attention_bwd_wg.cuh's wgmma kernel up
+//    to its kWgaMaxL instead.)
 //
 // Launcher strings them on one stream and keeps the first CUDA error.  Its
 // bf16 flag takes every product with bf16 operands and float32 sums
@@ -48,11 +52,12 @@ constexpr int kVec = kCols / 32;      // LayerNorm row values per lane
 
 // C[r][n] = epilogue(A[r][0..K) . W^T), n < Nout.  W is a torch [Nout][K]
 // weight (row stride ldw), or with wt a row-major [K][Nout] matrix.
-// Epilogue, in order: + bias, the activation `act` (kActRelu or
-// kActGelu), * dropout mask of `site` (element l * width + column), the
-// gate (zero where gate <= 0: the ReLU's derivative; with gelu_gate, times
-// gelu'(gate): the GELU's at its input), + res, + res2 (RowEpi compiles
-// only the parts a launch applies).
+// Epilogue, in order: + bias, the store of that pre-activation to pre
+// (same layout as C), the activation `act` (kActRelu or kActGelu), *
+// dropout mask of `site` (element l * width + column), the gate (zero where
+// gate <= 0: the ReLU's derivative; with gelu_gate, times gelu'(gate): the
+// GELU's at its input), + res, + res2 (RowEpi compiles only the parts a
+// launch applies).
 struct RowGemm {
   const float* A; int lda; int K;
   const float* W; int ldw; int wt;
@@ -62,12 +67,13 @@ struct RowGemm {
   float* C; int ldc;
   int gelu_gate;
   const float* res2; int ldres2;   // a second residual, added last
+  float* pre;
 };
 
 // The epilogue's parts, as compile-time flags, so an epilogue compiles only
 // what it applies (and keeps its registers for the accumulators).
 enum : unsigned { kEpiBias = 1, kEpiRelu = 2, kEpiDrop = 4, kEpiGate = 8, kEpiGelu = 16,
-                  kEpiRes = 32, kEpiRes2 = 64, kEpiGeluAct = 128 };
+                  kEpiRes = 32, kEpiRes2 = 64, kEpiGeluAct = 128, kEpiPre = 256 };
 // RowGemm::act
 enum : int { kActRelu = 1, kActGelu = 2 };
 
@@ -119,10 +125,18 @@ struct RowEpi {
       in.res2 = *reinterpret_cast<const float2*>(p.res2 + (size_t)r * p.ldres2 + n);
     return in;
   }
-  __device__ float2 apply(int r, int n, float2 o, const In& in, const float (&kp)[2]) const {
+  __device__ float2 apply(int r, int n, float2 o, const In& in, const float (&kp)[2],
+                         bool two = true) const {
     if (F & kEpiBias) {
       o.x += in.bias.x;
       o.y += in.bias.y;
+    }
+    if (F & kEpiPre) {
+      float* pre = p.pre + (size_t)r * p.ldc + n;
+      if (two)
+        *reinterpret_cast<float2*>(pre) = o;
+      else
+        *pre = o.x;
     }
     if (F & kEpiRelu) {
       o.x = fmaxf(o.x, 0.f);
@@ -170,7 +184,7 @@ struct RowEpi {
     in.bias.y = in.gate.y = in.res.y = in.res2.y = 0.f;
     float kp[2] = {1.f, 1.f};
     if (F & kEpiDrop) kp[0] = keep(drop, r / L, p.site, (r % L) * p.width + n);
-    p.C[(size_t)r * p.ldc + n] = apply(r, n, make_float2(v, 0.f), in, kp).x;
+    p.C[(size_t)r * p.ldc + n] = apply(r, n, make_float2(v, 0.f), in, kp, false).x;
   }
 };
 
@@ -281,18 +295,16 @@ ln_bwd_sum_kernel(const float* __restrict__ dy, const float* __restrict__ xhat,
   write_block_sums<NQ>(acc, part, stride);
 }
 
-// out = in (gelu(in) with gelu_in) * dropout mask of `site` over a
-// [rows][width] tensor (width a multiple of 4), four elements per thread:
-// one Philox call gives a group's four mask words.
+// out = in * dropout mask of `site` over a [rows][width] tensor (width a
+// multiple of 4), four elements per thread: one Philox call gives a group's
+// four mask words.
 __global__ void dropout_kernel(const float* __restrict__ in, float* __restrict__ out,
-                               int rows, int width, int L, int site, Dropout drop,
-                               int gelu_in) {
+                               int rows, int width, int L, int site, Dropout drop) {
   const size_t n4 = (size_t)rows * width / 4;
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n4;
        i += (size_t)gridDim.x * blockDim.x) {
     const int gr = (int)(4 * i / width), c = (int)(4 * i % width);
     float4 v = reinterpret_cast<const float4*>(in)[i];
-    if (gelu_in) v = make_float4(gelu(v.x), gelu(v.y), gelu(v.z), gelu(v.w));
     if (drop.thresh != 0u) {
       const uint4 w = philox4(drop.seed, gr / L, site, ((gr % L) * width + c) >> 2);
       v.x *= w.x >= drop.thresh ? drop.scale : 0.f;
@@ -341,6 +353,29 @@ __global__ void reduce_kernel(const float* __restrict__ P, int Z, size_t n,
     float s = 0.f;
     for (int z = 0; z < Z; ++z) s += P[(size_t)z * n + i];
     out[i] = s;
+  }
+}
+
+// The same for a weight gradient with its bias (PartialSumEpi): out[i] as
+// above for i < n, and bias[m] = sum_z (Pb[z][0][m] + Pb[z][1][m]), z in
+// order, Pb = P + Z n.
+__global__ void reduce_wb_kernel(const float* __restrict__ P, int Z, size_t n, int M,
+                                 float* __restrict__ out, float* __restrict__ bias) {
+  const float* Pb = P + (size_t)Z * n;
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n + M;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float s = 0.f;
+    if (i < n) {
+      for (int z = 0; z < Z; ++z) s += P[(size_t)z * n + i];
+      out[i] = s;
+    } else {
+      const size_t m = i - n;
+      for (int z = 0; z < Z; ++z) {
+        s += Pb[(size_t)2 * z * M + m];
+        s += Pb[(size_t)(2 * z + 1) * M + m];
+      }
+      bias[m] = s;
+    }
   }
 }
 
@@ -931,7 +966,8 @@ struct Launcher {
                        (p.act == kActGelu ? kEpiGeluAct : 0u) |
                        (p.site >= 0 && drop.thresh != 0u ? kEpiDrop : 0u) |
                        (p.gate ? kEpiGate : 0u) | (p.gate && p.gelu_gate ? kEpiGelu : 0u) |
-                       (p.res ? kEpiRes : 0u) | (p.res2 ? kEpiRes2 : 0u);
+                       (p.res ? kEpiRes : 0u) | (p.res2 ? kEpiRes2 : 0u) |
+                       (p.pre ? kEpiPre : 0u);
     cudaError_t e = cudaErrorNotSupported;
     if (!p.wt) {
       switch (f) {
@@ -948,6 +984,12 @@ struct Launcher {
         case kEpiBias | kEpiGeluAct: e = rowgemm_f<kEpiBias | kEpiGeluAct>(p, nout); break;
         case kEpiBias | kEpiGeluAct | kEpiDrop:
           e = rowgemm_f<kEpiBias | kEpiGeluAct | kEpiDrop>(p, nout);
+          break;
+        case kEpiBias | kEpiPre | kEpiGeluAct:
+          e = rowgemm_f<kEpiBias | kEpiPre | kEpiGeluAct>(p, nout);
+          break;
+        case kEpiBias | kEpiPre | kEpiGeluAct | kEpiDrop:
+          e = rowgemm_f<kEpiBias | kEpiPre | kEpiGeluAct | kEpiDrop>(p, nout);
           break;
       }
     } else {
@@ -982,11 +1024,11 @@ struct Launcher {
     if (!check()) return;
     sum_blocks_kernel<2><<<2, kCols, 0, s>>>(partial, blocks, 2 * kCols, SumOut<2>{{dg, dbeta}});
   }
-  // out = in (gelu(in) with gelu_in) * the dropout mask of `site`
-  void dropout(const float* in, float* out, int width, int site, bool gelu_in = false) {
+  // out = in * the dropout mask of `site`
+  void dropout(const float* in, float* out, int width, int site) {
     if (!check()) return;
     dropout_kernel<<<grid1d((size_t)rows * width / 4), kThreads, 0, s>>>(in, out, rows, width,
-                                                                         L, site, drop, gelu_in);
+                                                                         L, site, drop);
   }
   // out = a + b over n floats
   void add(const float* a, const float* b, float* out, size_t n) {
@@ -1003,16 +1045,31 @@ struct Launcher {
     colsum_kernel<<<dim3((cols + 31) / 32, zs()), kThreads, 0, s>>>(G, ld, cols, rows, partial);
     reduce(zs(), cols, out);
   }
-  // out[n][k] = sum over all rows of G[r][n] H[r][k]  (out [nout][K])
-  void wgrad(const float* G, int ldg, int nout, const float* H, int ldh, int K, float* out) {
+  // out[n][k] = sum over all rows of G[r][n] H[r][k]  (out [nout][K]); with
+  // bias, also bias[n] = sum over all rows of G[r][n], taken in the same
+  // pass (PartialSumEpi) and summed with the partials: no launch over G of
+  // its own.  The partials need zs() (nout K + 2 nout) floats.
+  void wgrad(const float* G, int ldg, int nout, const float* H, int ldh, int K, float* out,
+             float* bias = nullptr) {
     if (!check()) return;
     const Operand a{G, ldg, rows, nout}, b{H, ldh, rows, K};
+    const size_t n = (size_t)nout * K;
+    if (bias) {
+      const PartialSumEpi epi{{partial, nout, K}, partial + zs() * n};
+      keep_err(bf16 ? wg_gemm<true, true, true>(a, b, nout, K, rows, zs(), kChunk, false, false,
+                                                epi, s)
+                    : wg_gemm<false, true, true>(a, b, nout, K, rows, zs(), kChunk, false,
+                                                 false, epi, s));
+      if (!check()) return;
+      reduce_wb_kernel<<<grid1d(n + nout), kThreads, 0, s>>>(partial, zs(), n, nout, out, bias);
+      return;
+    }
     const PartialEpi epi{partial, nout, K};
     keep_err(bf16 ? wg_gemm<true, true, true>(a, b, nout, K, rows, zs(), kChunk, false, false,
                                               epi, s)
                   : wg_gemm<false, true, true>(a, b, nout, K, rows, zs(), kChunk, false, false,
                                                epi, s));
-    reduce(zs(), (size_t)nout * K, out);
+    reduce(zs(), n, out);
   }
   // the attention forward (ctx; with stats, each row's softmax max and sum
   // [B, H, len]) of B sequences of len rows: at "bf16" on the tensor cores;
@@ -1087,22 +1144,45 @@ inline void encoder_layer_fwd(Launcher& k, const float* x, const float* pos, con
 // What temporal_layer_fwd writes, per row: y = LN1(x), qkv [3D], ctx,
 // u = y + ctx Wo^T + bo, z = LN2(u), h1 [F] = drop_H(gelu(z W1^T + b1));
 // and, where not null, LN1's and LN2's xhat and 1 / std, the attention
-// rows' softmax statistics [B, H, L], a1 [F] = z W1^T + b1 (h1 then comes
-// from it in a second launch: the backward reads both) and out.
+// rows' softmax statistics [B, H, L], a1 [F] = z W1^T + b1 (a second store
+// of FFN1's epilogue: the backward reads both) and out.
 struct TemporalActs {
   float *y, *qkv, *ctx, *u, *z, *h1;
   float *xh1, *inv1, *xh2, *inv2, *a1, *out;
   float2* stats;
 };
 
+// What kernel #5's forward keeps for its backward when a gradient will be
+// taken, in the order both C entries take the pointers and the wrapper
+// allocates the tensors (ops/cuda/fused_temporal_layer.py::SAVED): all of
+// TemporalActs but u and out.
+enum TemporalSaved : int { kSavedY, kSavedQkv, kSavedCtx, kSavedZ, kSavedXh1, kSavedInv1,
+                           kSavedXh2, kSavedInv2, kSavedA1, kSavedH1, kSavedStats };
+
+inline TemporalActs temporal_saved(float* const* s) {
+  TemporalActs t{};
+  t.y = s[kSavedY];
+  t.qkv = s[kSavedQkv];
+  t.ctx = s[kSavedCtx];
+  t.z = s[kSavedZ];
+  t.xh1 = s[kSavedXh1];
+  t.inv1 = s[kSavedInv1];
+  t.xh2 = s[kSavedXh2];
+  t.inv2 = s[kSavedInv2];
+  t.a1 = s[kSavedA1];
+  t.h1 = s[kSavedH1];
+  t.stats = reinterpret_cast<float2*>(s[kSavedStats]);
+  return t;
+}
+
 // The temporal-tower layer's forward: LN1; the packed q|k|v product; the
 // float32 attention with its per-head dropout sites; the out-projection
 // with the residual y; LN2; FFN1 with the GELU and dropout (site H) in its
-// epilogue, or, given a1, into a1 and then a GELU-and-dropout launch; FFN2
+// epilogue (given a1, which stores the pre-activation there too); FFN2
 // with dropout (H + 1) and the residual z into out.  Kernel #5
-// (fused_temporal_layer.cu) keeps `out`, its backward's recompute
-// (fused_temporal_layer_bwd.cu) a1 and the statistics: both run this one
-// sequence.
+// (fused_temporal_layer.cu) keeps `out` (and, for a gradient, the
+// TemporalSaved set), its backward's recompute (fused_temporal_layer_bwd.cu)
+// that set: both run this one sequence, so the two give the same bits.
 inline void temporal_layer_fwd(Launcher& k, const float* x, const float* mask,
                                const EncoderWeights& w, const TemporalActs& t, int B, int H,
                                int F) {
@@ -1113,13 +1193,9 @@ inline void temporal_layer_fwd(Launcher& k, const float* x, const float* mask,
   k.attention_fwd(t.qkv, mask, t.ctx, B, H, k.L, t.stats);
   k.rowgemm({t.ctx, D, D, w.w_out, D, 0, w.b_out, 0, -1, D, nullptr, 0, t.y, D, t.u, D}, D);
   k.ln_fwd(t.u, w.g2, w.be2, t.z, t.xh2, t.inv2);
-  if (t.a1) {
-    k.rowgemm({t.z, D, D, w.w1, D, 0, w.b1, 0, -1, F, nullptr, 0, nullptr, 0, t.a1, F}, F);
-    k.dropout(t.a1, t.h1, F, H, /*gelu_in=*/true);
-  } else {
-    k.rowgemm({t.z, D, D, w.w1, D, 0, w.b1, kActGelu, H, F, nullptr, 0, nullptr, 0, t.h1, F},
-              F);
-  }
+  k.rowgemm({t.z, D, D, w.w1, D, 0, w.b1, kActGelu, H, F, nullptr, 0, nullptr, 0, t.h1, F, 0,
+             nullptr, 0, t.a1},
+            F);
   if (t.out)
     k.rowgemm({t.h1, F, F, w.w2, F, 0, w.b2, 0, H + 1, D, nullptr, 0, t.z, D, t.out, D}, D);
 }

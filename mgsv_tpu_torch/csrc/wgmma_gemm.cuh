@@ -62,6 +62,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 namespace {
 
@@ -228,12 +229,20 @@ __device__ __forceinline__ void put_operand(char* hi, char* lo, int r, int c, fl
   }
 }
 
+// The identity on a staged value group (convert_slice's default).
+struct NoOp {
+  __device__ float4 operator()(int, int, float4 x) const { return x; }
+};
+
 // Converts rows [64 wg, 64 wg + 64) of one staged slice (kT: a plain
 // [32 k][128 rows] tile; else 128 rows of 32 floats in the 128-byte
-// swizzle) into the operand tile(s) at hi / lo.  tid: 0..127 in the group.
-template <bool kBf16, bool kT>
+// swizzle) into the operand tile(s) at hi / lo, each group of four values
+// (row r of the tile, k = 4 c .. 4 c + 3) passed through op(r, c, x) first.
+// tid: 0..127 in the group.  With kT a thread's row is 64 wg + tid mod 64
+// and its groups c = tid / 64 + 2 i, i = 0..3, in that order.
+template <bool kBf16, bool kT, class Op = NoOp>
 __device__ __forceinline__ void convert_slice(const char* stage, char* hi, char* lo, int wg,
-                                              int tid) {
+                                              int tid, Op op = {}) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int item = tid + 128 * i;
@@ -241,14 +250,26 @@ __device__ __forceinline__ void convert_slice(const char* stage, char* hi, char*
       const int r = 64 * wg + (item & 63), c = item >> 6;
       const float* src = reinterpret_cast<const float*>(stage) + (4 * c) * kGemmBM + r;
       put_operand<kBf16>(hi, lo, r, c,
-                         make_float4(src[0], src[kGemmBM], src[2 * kGemmBM], src[3 * kGemmBM]));
+                         op(r, c, make_float4(src[0], src[kGemmBM], src[2 * kGemmBM],
+                                              src[3 * kGemmBM])));
     } else {
       const int off = 64 * wg * 128 + 16 * item;
       const int r = off >> 7, c = ((off >> 4) & 7) ^ (r & 7);
-      put_operand<kBf16>(hi, lo, r, c, *reinterpret_cast<const float4*>(stage + off));
+      put_operand<kBf16>(hi, lo, r, c, op(r, c, *reinterpret_cast<const float4*>(stage + off)));
     }
   }
 }
+
+// An epilogue type that declares kColSum true also takes the column sums
+// of its MN-major A (sum over k of A[m][k]: the bias gradient beside a
+// weight gradient), summed as A's slices are converted; the tiles of the
+// first column block hand each thread's sum to epi.colsum(z, half, m, v),
+// half = which of the two threads of row m it is.  A type that does not
+// declare it takes none.
+template <class E, class = void>
+struct EpiColSum : std::false_type {};
+template <class E>
+struct EpiColSum<E, std::void_t<decltype(E::kColSum)>> : std::bool_constant<E::kColSum> {};
 
 template <class Epi>
 struct GemmParams {
@@ -388,6 +409,7 @@ wg_gemm_kernel(const __grid_constant__ GemmParams<Epi> p) {
     float acc[64], part[64];
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
+    float colsum = 0.f;   // EpiColSum: this thread's row of A, summed over the tile's k
     // slice i converts (buffer i mod 2) while slice i - 1 multiplies; the
     // tensor cores truncate a float32 sum to the running sum's exponent,
     // so each slice is summed from zero (small cross terms first) and only
@@ -396,7 +418,17 @@ wg_gemm_kernel(const __grid_constant__ GemmParams<Epi> p) {
       const int s = it % kStages;
       mbar_wait(smem_addr(full + s), (unsigned)(it / kStages) & 1u);
       const char* st = stages + s * 2 * kGemmTileBytes;
-      convert_slice<kBf16, kAT>(st, buf(it, 0), buf(it, 1), wg, tid);
+      if constexpr (EpiColSum<Epi>::value) {
+        convert_slice<kBf16, kAT>(st, buf(it, 0), buf(it, 1), wg, tid, [&](int, int, float4 x) {
+          colsum += x.x;
+          colsum += x.y;
+          colsum += x.z;
+          colsum += x.w;
+          return x;
+        });
+      } else {
+        convert_slice<kBf16, kAT>(st, buf(it, 0), buf(it, 1), wg, tid);
+      }
       convert_slice<kBf16, kBT>(st + kGemmTileBytes, buf(it, 2), buf(it, 3), wg, tid);
       mbar_arrive(smem_addr(empty + s));
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -413,6 +445,10 @@ wg_gemm_kernel(const __grid_constant__ GemmParams<Epi> p) {
     wg_wait_all();
 #pragma unroll
     for (int i2 = 0; i2 < 64; ++i2) acc[i2] += part[i2];
+    if constexpr (EpiColSum<Epi>::value) {
+      const int m = m0 + 64 * wg + (tid & 63);
+      if (n0 == 0 && m < p.M) epi.colsum(z, tid >> 6, m, colsum);
+    }
 
     // epilogue on the registers: accumulators 4 j + 2 h + {0, 1} hold row
     // 16 warp + lane / 4 + 8 h, columns 8 j + 2 (lane mod 4) + {0, 1}; the
@@ -561,6 +597,16 @@ struct PartialEpi {
   }
   __device__ void pair(int z, int m, int n, float v0, float v1, In, const float (&)[2]) const {
     *reinterpret_cast<float2*>(P + ((size_t)z * M + m) * N + n) = make_float2(v0, v1);
+  }
+};
+
+// PartialEpi, and the column sums of A (a bias gradient beside its weight
+// gradient): Pb[z][half][m], the two halves of row m's sum over slice z.
+struct PartialSumEpi : PartialEpi {
+  float* Pb;
+  static constexpr bool kColSum = true;
+  __device__ void colsum(int z, int half, int m, float v) const {
+    Pb[((size_t)z * 2 + half) * M + m] = v;
   }
 };
 

@@ -14,7 +14,8 @@ the host's time by operator and its kernel launches, then traces the two
 backward kernels alone at the step's shapes, so their launches can be read
 apart.  With --fused-temporal the configurations set fused_temporal (both
 temporal towers on the temporal-layer kernels, float32), and the temporal
-backward at the audio tower's shape is traced too.  With --queries Q the
+backward at the audio tower's shape is traced too (given the training
+forward's saved activations, where the checkout keeps them).  With --queries Q the
 configurations have Q moment queries and detr_dropout 0 (the matcher on
 the batched LSAP), and with --fused-decoder the step runs the DETR decoder
 layers on the decoder-layer kernels (float32), whose backward at the
@@ -202,8 +203,13 @@ def main() -> int:
         trm.reset_parameters(torch.Generator().manual_seed(0))
         tlayer = trm.layers[0].to(device)
         tx, tg = (torch.randn(BATCH, s, d, device=device) for _ in range(2))
+        # given the training forward's saved activations, as the step runs it,
+        # where the checkout keeps them
+        acts = ({"acts": ftl.fused_temporal_layer_fwd(tx, smask, tlayer, m.temporal_dropout, 1)[1]}
+                if hasattr(ftl, "fused_temporal_layer_fwd") else {})
         calls[f"fused_temporal_layer_bwd B={BATCH} L={s} rate={m.temporal_dropout}"] = (
-            lambda: ftl.fused_temporal_layer_bwd(tx, smask, tg, tlayer, m.temporal_dropout, 1))
+            lambda: ftl.fused_temporal_layer_bwd(tx, smask, tg, tlayer, m.temporal_dropout, 1,
+                                                 **acts))
     if args.fused_decoder:
         dlayer = DetrDecoderLayer(d, m.detr_heads, f, self_attn=m.decoder_self_attn)
         dlayer.reset_parameters(torch.Generator().manual_seed(0))

@@ -2,13 +2,17 @@
 at the port's shapes, on one CUDA GPU.
 
     python3 scripts/time_layers_cuda.py [--iters 5] [--rounds 2] [--breakdown]
+        [--layer temporal|decoder|both]
 
 Builds csrc/fused_{temporal,decoder}_layer{,_bwd}.cu from the checkout this
 script lies in and times, with CUDA events, `iters` calls per round of
   * #5's forward and backward (`fused_temporal_layer`,
-    `fused_temporal_layer_bwd`) for the audio (L = 96) and video (L = 50)
-    towers at B = 512, rate 0.8 (a training step of Config(fused_temporal=
-    True)), and both at the evaluation's B = 40, rate 0;
+    `fused_temporal_layer_bwd`, recomputing) for the audio (L = 96) and
+    video (L = 50) towers at B = 512, rate 0.8 (a training step of
+    Config(fused_temporal=True)), and both at the evaluation's B = 40,
+    rate 0; where the checkout has `fused_temporal_layer_fwd`, at rate 0.8
+    also its training forward (which keeps the saved activations) and the
+    backward given them (what a training step runs);
   * #6's forward and backward (`fused_decoder_layer`,
     `fused_decoder_layer_bwd`, recomputing) at B = 512, L = 152 for Q = 10
     and Q = 1 moment queries, and Q = 1 at B = 40; where the checkout has
@@ -20,9 +24,11 @@ each round's ms, their median, TFLOP/s, the least time (chip_smoke.py's
 bound: the operations at 495 TFLOP/s TF32 or the bytes at 3.35 TB/s,
 whichever is larger) and the max error against the plain version (of the
 output, abs; of the gradients, over the largest gradient magnitude).
-With --breakdown, one call of each under torch.profiler, its device time
-by kernel name ([breakdown] lines).  Run from two checkouts in one call
-(parent, change, change, parent) to compare two versions on the same card.
+With --breakdown, one call of each at rate 0.8 (#5) and of each of #6's
+under torch.profiler, its device time by kernel name ([breakdown] lines).
+--layer times one of the two layers alone.  Run from two checkouts in one
+call (parent, change, change, parent) to compare two versions on the same
+card.
 """
 
 from __future__ import annotations
@@ -128,6 +134,7 @@ def time_temporal(dev, args) -> None:
     trm.reset_parameters(gen)
     layer = perturbed(trm.layers[0], gen).to(dev)
     params = list(ftl._layer_tensors(layer))   # the order of the backward's gradients
+    saved_acts = hasattr(ftl, "fused_temporal_layer_fwd")
     rng = np.random.default_rng(5)
     for tower, b, length, rate in TEMPORAL:
         randn = lambda: torch.from_numpy(
@@ -136,7 +143,6 @@ def time_temporal(dev, args) -> None:
         tag = f"{tower} B={b} L={length} rate={rate}"
         flops = b * (8 * length * D * D + 4 * length * length * D + 4 * length * D * FFN)
         fwd = lambda: ftl.fused_temporal_layer(x, mask, layer, rate, 7)
-        bwd = lambda: ftl.fused_temporal_layer_bwd(x, mask, g, layer, rate, 7)
         with torch.no_grad():
             err = (fwd() - ftl.fused_temporal_layer_reference(x, mask, layer, rate, 7)).abs().max()
             cuda_ms(fwd, 1)
@@ -147,18 +153,32 @@ def time_temporal(dev, args) -> None:
         out = ftl.fused_temporal_layer_reference(xi, mask, layer, rate, 7)
         plain = torch.autograd.grad(out, [xi, *params], g)
         del out, xi
-        dx, grads = bwd()
-        err = grad_err([dx, *grads], plain)
-        del plain, dx, grads
-        cuda_ms(bwd, 1)
-        times = [cuda_ms(bwd, args.iters) for _ in range(args.rounds)]
-        report(f"fused_temporal_layer_bwd {tag}", times, 2 * flops,
-               nbytes(x, mask, g, *params, x, *params), err)
-        if args.breakdown:
+        calls = [("fused_temporal_layer_bwd", None)]
+        if saved_acts and rate > 0.0:
+            train_fwd = lambda: ftl.fused_temporal_layer_fwd(x, mask, layer, rate, 7)
+            with torch.no_grad():
+                cuda_ms(train_fwd, 1)
+                times = [cuda_ms(train_fwd, args.iters) for _ in range(args.rounds)]
+                report(f"fused_temporal_layer training forward (saves acts) {tag}", times, flops,
+                       nbytes(x, mask, x, *params), 0.0)
+                acts = train_fwd()[1]
+            calls.append(("fused_temporal_layer_bwd saved acts", acts))
+        bwd_bytes = nbytes(x, mask, g, *params, x, *params)
+        for name, acts in calls:
+            bwd = lambda: ftl.fused_temporal_layer_bwd(x, mask, g, layer, rate, 7, **(
+                {} if acts is None else {"acts": acts}))
+            dx, grads = bwd()
+            err = grad_err([dx, *grads], plain)
+            del dx, grads
+            cuda_ms(bwd, 1)
+            times = [cuda_ms(bwd, args.iters) for _ in range(args.rounds)]
+            report(f"{name} {tag}", times, 2 * flops, bwd_bytes, err)
+            if args.breakdown and rate > 0.0:
+                breakdown(f"{name} {tag}", bwd)
+        if args.breakdown and rate > 0.0:
             with torch.no_grad():
                 breakdown(f"fused_temporal_layer {tag}", fwd)
-            breakdown(f"fused_temporal_layer_bwd {tag}", bwd)
-        del x, g, mask
+        del plain, calls, x, g, mask
 
 
 def time_decoder(dev, args) -> None:
@@ -220,6 +240,7 @@ def main() -> int:
     parser.add_argument("--rounds", type=int, default=2)
     parser.add_argument("--breakdown", action="store_true",
                         help="also each call's device time by kernel name")
+    parser.add_argument("--layer", choices=("temporal", "decoder", "both"), default="both")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("time_layers_cuda: no CUDA device", file=sys.stderr)
@@ -228,8 +249,10 @@ def main() -> int:
                          capture_output=True, text=True).stdout.strip(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    time_temporal(dev, args)
-    time_decoder(dev, args)
+    if args.layer != "decoder":
+        time_temporal(dev, args)
+    if args.layer != "temporal":
+        time_decoder(dev, args)
     return 0
 
 

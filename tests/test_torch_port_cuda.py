@@ -353,6 +353,65 @@ def test_cuda_temporal_backward_is_bit_reproducible(dev):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("b,L", [(4, 96), (12, 50), (3, 21), (2, 300), (40, 96), (40, 50)])
+@pytest.mark.parametrize("rate", [0.0, 0.8])
+def test_cuda_temporal_backward_from_saved_acts_equals_recompute(dev, rate, b, L):
+    """The training forward's saved activations (#5) against their plain
+    version, and the backward given them (what autograd runs) equal to the
+    recomputing backward bit for bit: both run one forward sequence.  The
+    same shapes as test_cuda_temporal_kernels_match_plain_version, a row
+    that keeps no key included."""
+    rng = np.random.default_rng(b * L + 1)
+    x, g = _randn(rng, (b, L, 256), dev), _randn(rng, (b, L, 256), dev)
+    mask = _ragged(rng, b, L, dev)
+    mask[-1] = 0.0
+    layer = _temporal_layer(dev)
+    with torch.no_grad():
+        out, acts = ftl.fused_temporal_layer_fwd(x, mask, layer, rate, 7)
+        want_out, want = ftl.temporal_layer_acts_reference(x, mask, layer, rate, 7)
+    torch.testing.assert_close(out, want_out, atol=1e-4, rtol=0)
+    for name, got, ref in zip(ftl.SAVED, acts, want):
+        torch.testing.assert_close(got, ref, atol=1e-4 * max(1.0, ref.abs().max().item()),
+                                   rtol=0, msg=name)
+    before = ftl.fused_temporal_layer_bwd.launches
+    saved = ftl.fused_temporal_layer_bwd(x, mask, g, layer, rate, 7, acts=acts)
+    recomputed = ftl.fused_temporal_layer_bwd(x, mask, g, layer, rate, 7)
+    assert ftl.fused_temporal_layer_bwd.launches == before + 2
+    for a, c in zip([saved[0], *saved[1]], [recomputed[0], *recomputed[1]]):
+        assert torch.equal(a, c)
+    with pytest.raises(ValueError, match="acts"):
+        ftl.fused_temporal_layer_bwd(x, mask, g, layer, rate, 7, acts=acts[:-1])
+
+
+@pytest.mark.parametrize("L", [96, 50])
+def test_cuda_temporal_forward_saves_only_for_a_gradient(dev, L):
+    """Under torch.no_grad() (the evaluation's B=40) the forward allocates
+    its output alone and keeps nothing; with a gradient to take it keeps
+    the SAVED set for the backward."""
+    rng = np.random.default_rng(L)
+    x, mask = _randn(rng, (40, L, 256), dev), _ragged(rng, 40, L, dev)
+    layer = _temporal_layer(dev)
+    with torch.no_grad():
+        ftl.fused_temporal_layer(x, mask, layer)         # first use: libraries, workspace
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated(dev)
+        plain = torch.empty_like(x)
+        one_output = torch.cuda.memory_allocated(dev) - start
+        del plain
+        start = torch.cuda.memory_allocated(dev)
+        out = ftl.fused_temporal_layer(x, mask, layer)
+        torch.cuda.synchronize()
+        assert torch.cuda.memory_allocated(dev) - start == one_output
+        assert out.grad_fn is None
+        del out
+    start = torch.cuda.memory_allocated(dev)
+    out = ftl.fused_temporal_layer(x, mask, layer, 0.8, 3)
+    saved = sum(4 * int(np.prod(s)) for s in ftl._saved_shapes(40, L, 1024, 8))
+    assert torch.cuda.memory_allocated(dev) - start >= one_output + saved
+    del out
+    assert torch.cuda.memory_allocated(dev) == start
+
+
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_cuda_encoder_bf16_matches_plain_version(dev, rate):
     """Kernels #1 and #2 at precision "bf16" against the bf16 plain version
