@@ -39,11 +39,14 @@ failure:
   5. decoder-kernel  the DETR decoder layer's kernels (#6, forward and
               backward) against their plain version at B=512, L=152 for
               Q=1 and Q=10 queries, self-attention on, ragged key masks with
-              a row of one valid key; two identical backward calls
-              bit-identical, and equal to the bit to the backward given the
-              forward's memory k|v (what autograd runs, and what is timed);
-              kernel and plain times in turns beside the bound, [breakdown]
-              lines at Q=10; the forward also at the evaluation's B=40, Q=1
+              a row of one valid key; the training forward's saved set
+              against its float64 plain version, and the backward given it
+              (what autograd runs, and what is timed) equal to the bit to
+              the backward given the forward's memory k|v alone and to two
+              recomputing calls; kernel and plain times in turns beside the
+              bound, the training forward's and the other backwards' times,
+              [breakdown] lines with their launch counts; the forward also
+              at the evaluation's B=40, Q=1
   6. train    one float32 training step of MaDe (Config() widths, dropout
               on) through the kernels and one through the plain versions,
               from the same weights, batch and seed: the loss and every
@@ -307,7 +310,8 @@ def breakdown(name: str, fn, **fields) -> None:
     first launches of the call): its device time summed by kernel name,
     one [breakdown] line per kernel (ms, launches), largest first, beside
     the call's time from CUDA events; where the profiler saw no device
-    time, one line per kernel wrapper the call launched."""
+    time, one line per kernel wrapper the call launched.  The first line
+    counts the kernel names and their launches."""
     fn()
     torch.cuda.synchronize()
     events_ms = cuda_ms(fn, 1)
@@ -334,7 +338,7 @@ def breakdown(name: str, fn, **fields) -> None:
         rows = [(f"{kernel} (CUDA events, the whole call)", events_ms, count - before[kernel])
                 for kernel, count in read_counts().items() if count != before[kernel]]
     phase("breakdown", name=name, **fields, device_ms=f"{sum(r[1] for r in rows):.4f}",
-          events_ms=f"{events_ms:.4f}", kernels=len(rows))
+          events_ms=f"{events_ms:.4f}", kernels=len(rows), launches=sum(r[2] for r in rows))
     for kernel, ms, count in rows:
         print(f"[breakdown]   {ms:9.4f} ms {count:4d} x {kernel[:120]}", flush=True)
 
@@ -1429,12 +1433,13 @@ def gate_flip_slack(layer64, grads_of) -> tuple:
 def check_decoder(device: torch.device) -> list:
     """Kernel #6 (forward and backward) against autograd through the plain
     version at B=512, L=152, Q=1 and Q_MULTI queries, self-attention on,
-    ragged key masks with a row of one valid key; the recomputing backward
-    twice, bit for bit, and equal to the bit to the backward given the
-    forward's memory k|v (what autograd runs); kernel and plain timed in
-    turns, and by kernel name at Q_MULTI; then the forward at the
-    evaluation's B=40, Q=1.  Returns the kernels-line entries at Q_MULTI,
-    the backward's given the forward's k|v."""
+    ragged key masks with a row of one valid key; the training forward's
+    saved set against its float64 plain version; the backward given that
+    set (what autograd runs) equal to the bit to the backward given the
+    forward's memory k|v alone and to the recomputing one, run twice;
+    kernel and plain timed in turns, and by kernel name with the launch
+    count; then the forward at the evaluation's B=40, Q=1.  Returns the
+    kernels-line entries at Q_MULTI, the backward's given the saved set."""
     m = Config().model
     d, heads, ffn = m.dim_input, m.detr_heads, m.detr_ffn_dim
     gen = torch.Generator().manual_seed(SEED + 6)
@@ -1472,27 +1477,46 @@ def check_decoder(device: torch.device) -> list:
               grads=len(names), max_abs_err=gerr, at=gname, its_max=gmax, plain_f32_err=perr,
               rtol_of_max=GRAD_RTOL, gates_within_flip_eps=flips, flip_eps=FLIP_EPS)
         del out_k, out_p, grads_k, grads_p, exact, slack
-        kv = fdl.fused_decoder_layer_fwd(tgt, mem, mask, pos, qpos, layer)[1]
-        first, second, saved = (fdl.fused_decoder_layer_bwd(tgt, mem, mask, pos, qpos, g, layer,
-                                                            kv=k) for k in (None, None, kv))
-        flat = [[*r[:4], *r[4]] for r in (first, second, saved)]
-        if not all(torch.equal(a, b) for a, b in zip(flat[0], flat[1])):
-            raise AssertionError(f"fused_decoder_layer_bwd Q={q}: two calls differ")
-        if not all(torch.equal(a, b) for a, b in zip(flat[0], flat[2])):
-            raise AssertionError(f"fused_decoder_layer_bwd Q={q}: given the forward's k|v, "
-                                 f"it differs from the recomputing backward")
+        with torch.no_grad():
+            acts = fdl.fused_decoder_layer_fwd(tgt, mem, mask, pos, qpos, layer)[1]
+            _, exact_acts = fdl.decoder_layer_acts_reference(
+                *(t.double() for t in (tgt, mem, mask, pos, qpos)), layer64)
+        act_err = 0.0
+        for name, got, want in zip(fdl.SAVED, acts, exact_acts):
+            e = (got.double() - want).abs().max().item()
+            if not torch.isfinite(got).all() or not e <= KERNEL_ATOL * max(1.0,
+                                                                          want.abs().max().item()):
+                raise AssertionError(f"fused_decoder_layer Q={q} saved {name}: max abs error {e}")
+            act_err = max(act_err, e)
+        del exact_acts
+        given = {"saved set": {"acts": acts}, "k|v": {"kv": acts[0]}, "nothing": {},
+                 "nothing, again": {}}
+        runs = {k: fdl.fused_decoder_layer_bwd(tgt, mem, mask, pos, qpos, g, layer, **kw)
+                for k, kw in given.items()}
+        flat = {k: [*r[:4], *r[4]] for k, r in runs.items()}
+        for k in list(given)[1:]:
+            if not all(torch.equal(a, b) for a, b in zip(flat["saved set"], flat[k])):
+                raise AssertionError(f"fused_decoder_layer_bwd Q={q}: given the saved set, it "
+                                     f"differs from the backward given {k}")
         phase("decoder-kernel", name="fused_decoder_layer_bwd", B=TRAIN_B, Q=q, L=TRAIN_L,
-              saved_kv_equal_to_recompute_bitwise=True, kv_mbytes=f"{nbytes(kv) / 1e6:.1f}")
-        del first, second, saved, flat
+              saved_set_equal_to_kv_and_recompute_bitwise=True, two_recomputes_equal=True,
+              saved_set_max_abs_err=act_err,
+              saved_set_mbytes=f"{nbytes(*(a for a in acts if a is not None)) / 1e6:.1f}",
+              query_side_mbytes=f"{nbytes(*(a for a in acts[1:] if a is not None)) / 1e6:.1f}")
+        del runs, flat
         with torch.no_grad():
             ms, plain_ms = in_turns(
                 lambda: fdl.fused_decoder_layer(tgt, mem, mask, pos, qpos, layer),
                 lambda: fdl.fused_decoder_layer_reference(tgt, mem, mask, pos, qpos, layer))
+            train_ms = cuda_ms(lambda: fdl.fused_decoder_layer_fwd(tgt, mem, mask, pos, qpos,
+                                                                   layer), 5)
         ins = [t.clone().requires_grad_() for t in (tgt, mem, pos, qpos)]
         out = fdl.fused_decoder_layer_reference(ins[0], ins[1], mask, ins[2], ins[3], layer)
-        bms, plain_bms = in_turns(
-            lambda: fdl.fused_decoder_layer_bwd(tgt, mem, mask, pos, qpos, g, layer, kv=kv),
+        bms, plain_bms = in_turns(      # given the saved set, as a training step runs it
+            lambda: fdl.fused_decoder_layer_bwd(tgt, mem, mask, pos, qpos, g, layer, acts=acts),
             lambda: torch.autograd.grad(out, [*ins, *params], g, retain_graph=True))
+        kms = cuda_ms(lambda: fdl.fused_decoder_layer_bwd(tgt, mem, mask, pos, qpos, g, layer,
+                                                          kv=acts[0]), 5)
         rms = cuda_ms(lambda: fdl.fused_decoder_layer_bwd(tgt, mem, mask, pos, qpos, g, layer),
                       5)
         del out, ins
@@ -1507,14 +1531,18 @@ def check_decoder(device: torch.device) -> list:
                   plain_ms=f"{pt:.4f}", bound_ms=f"{b_ms:.4f}", bound_by=by,
                   gflop=f"{fl / 1e9:.2f}", mbytes=f"{nb / 1e6:.1f}",
                   tflops=f"{fl / t / 1e9:.1f}",
-                  **({"saved_kv": True, "recomputing_ms": f"{rms:.4f}"}
-                     if name.endswith("_bwd") else {}))
-        if q == Q_MULTI:
-            with torch.no_grad():
+                  **({"given": "saved set", "given_kv_ms": f"{kms:.4f}",
+                      "recomputing_ms": f"{rms:.4f}"} if name.endswith("_bwd")
+                     else {"training_forward_ms": f"{train_ms:.4f}"}))
+        with torch.no_grad():
+            if q == Q_MULTI:
                 breakdown("fused_decoder_layer", lambda: fdl.fused_decoder_layer(
                     tgt, mem, mask, pos, qpos, layer), B=TRAIN_B, Q=q)
-            breakdown("fused_decoder_layer_bwd", lambda: fdl.fused_decoder_layer_bwd(
-                tgt, mem, mask, pos, qpos, g, layer, kv=kv), B=TRAIN_B, Q=q, saved_kv=True)
+            breakdown("fused_decoder_layer training", lambda: fdl.fused_decoder_layer_fwd(
+                tgt, mem, mask, pos, qpos, layer), B=TRAIN_B, Q=q)
+        breakdown("fused_decoder_layer_bwd", lambda: fdl.fused_decoder_layer_bwd(
+            tgt, mem, mask, pos, qpos, g, layer, acts=acts), B=TRAIN_B, Q=q, given="saved set")
+        if q == Q_MULTI:
             src = "mgsv_tpu_torch/csrc/fused_decoder_layer"
             entries = [
                 entry("fused_decoder_layer", f"{src}.cu",
@@ -1523,7 +1551,7 @@ def check_decoder(device: torch.device) -> list:
                 entry("fused_decoder_layer_bwd", f"{src}_bwd.cu",
                       "mgsv_tpu/ops/pallas/fused_decoder_layer.py:329", gerr, bms, plain_bms,
                       2 * flops, bwd_bytes)]
-        del tgt, qpos, g, kv
+        del tgt, qpos, g, acts
 
     b, q = EVAL_B, 1                               # the evaluation's shape
     tgt, qpos = (randn(rng, (b, q, d), device) for _ in range(2))

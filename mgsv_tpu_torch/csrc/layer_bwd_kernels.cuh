@@ -10,13 +10,15 @@
 //    of wgmma_gemm.cuh (128 x 128 tiles fed by TMA), the weight read as a
 //    torch [N][K] weight or, for dX = dY W, as W[k][n] (MN-major, transposed
 //    in shared memory), with the bias / ReLU / dropout / ReLU or GELU gate /
-//    residual epilogue on the accumulators.
+//    residual epilogue on the accumulators, and optionally a second tensor
+//    added to A as it is converted (x + pos entering its product).
 //  * wgrad: weight gradients dW = G^T H over all B*L rows on the same core,
 //    both operands MN-major, K (the rows) split into 1024-row slices whose
 //    partials reduce_kernel then sums in slice order; a bias gradient (the
 //    column sums of G) is summed in the same product as G's slices are
-//    converted (PartialSumEpi, the temporal layer's backward) or, with
-//    colsum, in two passes of its own (32 columns per block).  No float
+//    converted (PartialSumEpi: the temporal and decoder layers' backwards,
+//    with PartialSumAddEpi H + pos for some of the outputs) or, with colsum,
+//    in two passes of its own (32 columns per block).  No float
 //    atomics: a step is reproducible from run to run.
 //  * ln_fwd_kernel: LayerNorm statistics, one warp per row;
 //    ln_bwd_sum_kernel: its backward with the gradients of its parameters
@@ -57,7 +59,9 @@ constexpr int kVec = kCols / 32;      // LayerNorm row values per lane
 // dropout mask of `site` (element l * width + column), the gate (zero where
 // gate <= 0: the ReLU's derivative; with gelu_gate, times gelu'(gate): the
 // GELU's at its input), + res, + res2 (RowEpi compiles only the parts a
-// launch applies).
+// launch applies).  With add, A + add (same layout, row stride ldadd) takes
+// A's place in the output columns n < add_cols (a multiple of 128), summed
+// as the GEMM core converts A's slices.
 struct RowGemm {
   const float* A; int lda; int K;
   const float* W; int ldw; int wt;
@@ -68,12 +72,14 @@ struct RowGemm {
   int gelu_gate;
   const float* res2; int ldres2;   // a second residual, added last
   float* pre;
+  const float* add; int ldadd; int add_cols;
 };
 
 // The epilogue's parts, as compile-time flags, so an epilogue compiles only
 // what it applies (and keeps its registers for the accumulators).
 enum : unsigned { kEpiBias = 1, kEpiRelu = 2, kEpiDrop = 4, kEpiGate = 8, kEpiGelu = 16,
-                  kEpiRes = 32, kEpiRes2 = 64, kEpiGeluAct = 128, kEpiPre = 256 };
+                  kEpiRes = 32, kEpiRes2 = 64, kEpiGeluAct = 128, kEpiPre = 256,
+                  kEpiAddA = 512 };
 // RowGemm::act
 enum : int { kActRelu = 1, kActGelu = 2 };
 
@@ -107,6 +113,11 @@ struct RowEpi {
   int L;
   Dropout drop;
   static constexpr bool kWarpKeep = (F & kEpiDrop) != 0;
+  static constexpr bool kAddA = (F & kEpiAddA) != 0;
+  __host__ __device__ const float* add_a(int n0) const {
+    return n0 < p.add_cols ? p.add : nullptr;
+  }
+  __host__ __device__ long add_a_ld() const { return p.ldadd; }
   __device__ void warp_keep(int, int r0, int r1, int c, float (&kp)[2][2]) const {
     pair_keep(drop, [&](int r, int c4) {
       return philox4(drop.seed, r / L, p.site, ((r % L) * p.width + c4) >> 2);
@@ -967,12 +978,13 @@ struct Launcher {
                        (p.site >= 0 && drop.thresh != 0u ? kEpiDrop : 0u) |
                        (p.gate ? kEpiGate : 0u) | (p.gate && p.gelu_gate ? kEpiGelu : 0u) |
                        (p.res ? kEpiRes : 0u) | (p.res2 ? kEpiRes2 : 0u) |
-                       (p.pre ? kEpiPre : 0u);
+                       (p.pre ? kEpiPre : 0u) | (p.add ? kEpiAddA : 0u);
     cudaError_t e = cudaErrorNotSupported;
     if (!p.wt) {
       switch (f) {
         case 0: e = rowgemm_f<0>(p, nout); break;
         case kEpiBias: e = rowgemm_f<kEpiBias>(p, nout); break;
+        case kEpiBias | kEpiAddA: e = rowgemm_f<kEpiBias | kEpiAddA>(p, nout); break;
         case kEpiBias | kEpiRes: e = rowgemm_f<kEpiBias | kEpiRes>(p, nout); break;
         case kEpiBias | kEpiRelu: e = rowgemm_f<kEpiBias | kEpiRelu>(p, nout); break;
         case kEpiBias | kEpiDrop | kEpiRes:
@@ -997,6 +1009,7 @@ struct Launcher {
         case 0: e = rowgemm_f<0>(p, nout); break;
         case kEpiRes: e = rowgemm_f<kEpiRes>(p, nout); break;
         case kEpiRes | kEpiRes2: e = rowgemm_f<kEpiRes | kEpiRes2>(p, nout); break;
+        case kEpiRes | kEpiPre: e = rowgemm_f<kEpiRes | kEpiPre>(p, nout); break;
         case kEpiGate: e = rowgemm_f<kEpiGate>(p, nout); break;
         case kEpiDrop | kEpiGate: e = rowgemm_f<kEpiDrop | kEpiGate>(p, nout); break;
         case kEpiGate | kEpiGelu: e = rowgemm_f<kEpiGate | kEpiGelu>(p, nout); break;
@@ -1048,18 +1061,30 @@ struct Launcher {
   // out[n][k] = sum over all rows of G[r][n] H[r][k]  (out [nout][K]); with
   // bias, also bias[n] = sum over all rows of G[r][n], taken in the same
   // pass (PartialSumEpi) and summed with the partials: no launch over G of
-  // its own.  The partials need zs() (nout K + 2 nout) floats.
+  // its own; with bias and add, H + add (row stride ldadd) takes H's place
+  // for the outputs n < add_rows (a multiple of 128), summed as the GEMM
+  // core converts H's slices (PartialSumAddEpi).  The partials need zs()
+  // (nout K + 2 nout) floats.
   void wgrad(const float* G, int ldg, int nout, const float* H, int ldh, int K, float* out,
-             float* bias = nullptr) {
+             float* bias = nullptr, const float* add = nullptr, int ldadd = 0,
+             int add_rows = 0) {
     if (!check()) return;
     const Operand a{G, ldg, rows, nout}, b{H, ldh, rows, K};
     const size_t n = (size_t)nout * K;
     if (bias) {
       const PartialSumEpi epi{{partial, nout, K}, partial + zs() * n};
-      keep_err(bf16 ? wg_gemm<true, true, true>(a, b, nout, K, rows, zs(), kChunk, false, false,
-                                                epi, s)
-                    : wg_gemm<false, true, true>(a, b, nout, K, rows, zs(), kChunk, false,
-                                                 false, epi, s));
+      if (add) {
+        const PartialSumAddEpi add_epi{epi, add, ldadd, add_rows};
+        keep_err(bf16 ? wg_gemm<true, true, true>(a, b, nout, K, rows, zs(), kChunk, false,
+                                                  false, add_epi, s)
+                      : wg_gemm<false, true, true>(a, b, nout, K, rows, zs(), kChunk, false,
+                                                   false, add_epi, s));
+      } else {
+        keep_err(bf16 ? wg_gemm<true, true, true>(a, b, nout, K, rows, zs(), kChunk, false,
+                                                  false, epi, s)
+                      : wg_gemm<false, true, true>(a, b, nout, K, rows, zs(), kChunk, false,
+                                                   false, epi, s));
+      }
       if (!check()) return;
       reduce_wb_kernel<<<grid1d(n + nout), kThreads, 0, s>>>(partial, zs(), n, nout, out, bias);
       return;

@@ -48,11 +48,14 @@
 // The epilogue is a functor called on the registers, pair(z, m, n, v0, v1,
 // inputs, mask) for columns n, n + 1 (n even) and (z, m, n, v) for a last
 // odd column: bias, activations, dropout, gates and residuals are
-// fused there.  TMA descriptors hold device pointers, so the host encodes
-// them per launch (cuTensorMapEncodeTiled, looked up in libcuda.so.1 with
-// dlopen: the library links no libcuda) and passes them by value as
-// __grid_constant__ kernel parameters.  A descriptor that fails to encode
-// is an error of the launch; nothing falls back.
+// fused there.  Its type may also ask for a second tensor to be added to A
+// or B as their slices are converted (EpiAddA, EpiAddB).  TMA descriptors
+// hold device pointers, so the host encodes them (cuTensorMapEncodeTiled,
+// looked up in libcuda.so.1 with dlopen: the library links no libcuda),
+// keeps each by its pointer and geometry for later launches (MapCache), and
+// passes them by value as __grid_constant__ kernel parameters.  A
+// descriptor that fails to encode is an error of the launch; nothing falls
+// back.
 #pragma once
 
 #include <cuda.h>
@@ -62,6 +65,8 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <initializer_list>
+#include <mutex>
 #include <type_traits>
 
 namespace {
@@ -231,31 +236,45 @@ __device__ __forceinline__ void put_operand(char* hi, char* lo, int r, int c, fl
 
 // The identity on a staged value group (convert_slice's default).
 struct NoOp {
-  __device__ float4 operator()(int, int, float4 x) const { return x; }
+  __device__ float4 operator()(int, float4 x) const { return x; }
 };
 
-// Converts rows [64 wg, 64 wg + 64) of one staged slice (kT: a plain
-// [32 k][128 rows] tile; else 128 rows of 32 floats in the 128-byte
-// swizzle) into the operand tile(s) at hi / lo, each group of four values
-// (row r of the tile, k = 4 c .. 4 c + 3) passed through op(r, c, x) first.
-// tid: 0..127 in the group.  With kT a thread's row is 64 wg + tid mod 64
-// and its groups c = tid / 64 + 2 i, i = 0..3, in that order.
+// Group i (0..3) of thread tid (0..127 in the warpgroup wg) in a staged
+// slice: row r of the tile and k = 4 c .. 4 c + 3 of the slice.  kT (a
+// plain [32 k][128 rows] tile): row 64 wg + tid mod 64, c = tid / 64 + 2 i;
+// else (128 rows of 32 floats in the 128-byte swizzle) the i-th of the
+// warpgroup's 16-byte chunks from tid on, at byte off of the stage.
+template <bool kT>
+__device__ __forceinline__ void slice_group(int wg, int tid, int i, int& r, int& c, int& off) {
+  const int item = tid + 128 * i;
+  if constexpr (kT) {
+    r = 64 * wg + (item & 63);
+    c = item >> 6;
+    off = 0;
+  } else {
+    off = 64 * wg * 128 + 16 * item;
+    r = off >> 7;
+    c = ((off >> 4) & 7) ^ (r & 7);
+  }
+}
+
+// Converts rows [64 wg, 64 wg + 64) of one staged slice into the operand
+// tile(s) at hi / lo, group i of the thread's four (slice_group) passed
+// through op(i, x) first.
 template <bool kBf16, bool kT, class Op = NoOp>
 __device__ __forceinline__ void convert_slice(const char* stage, char* hi, char* lo, int wg,
                                               int tid, Op op = {}) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int item = tid + 128 * i;
+    int r, c, off;
+    slice_group<kT>(wg, tid, i, r, c, off);
     if constexpr (kT) {
-      const int r = 64 * wg + (item & 63), c = item >> 6;
       const float* src = reinterpret_cast<const float*>(stage) + (4 * c) * kGemmBM + r;
       put_operand<kBf16>(hi, lo, r, c,
-                         op(r, c, make_float4(src[0], src[kGemmBM], src[2 * kGemmBM],
-                                              src[3 * kGemmBM])));
+                         op(i, make_float4(src[0], src[kGemmBM], src[2 * kGemmBM],
+                                           src[3 * kGemmBM])));
     } else {
-      const int off = 64 * wg * 128 + 16 * item;
-      const int r = off >> 7, c = ((off >> 4) & 7) ^ (r & 7);
-      put_operand<kBf16>(hi, lo, r, c, op(r, c, *reinterpret_cast<const float4*>(stage + off)));
+      put_operand<kBf16>(hi, lo, r, c, op(i, *reinterpret_cast<const float4*>(stage + off)));
     }
   }
 }
@@ -271,25 +290,47 @@ struct EpiColSum : std::false_type {};
 template <class E>
 struct EpiColSum<E, std::void_t<decltype(E::kColSum)>> : std::bool_constant<E::kColSum> {};
 
+// An epilogue type that declares kAddA (kAddB) true adds a second tensor of
+// A's (B's) shape to that operand as its slices are converted, so a sum
+// such as memory + pos enters a product without a pass of its own:
+// epi.add_a(n0) (epi.add_b(m0)) is the addend of the tiles whose columns
+// (rows) start at n0 (m0), or null, and epi.add_a_ld() (add_b_ld()) its
+// row stride.  The addend's slices arrive by TMA as a third tile of each
+// stage, in its operand's layout (the ring then has two stages, not three),
+// and the sum is rounded once, as an add kernel would round it.
+template <class E, class = void>
+struct EpiAddA : std::false_type {};
+template <class E>
+struct EpiAddA<E, std::void_t<decltype(E::kAddA)>> : std::bool_constant<E::kAddA> {};
+template <class E, class = void>
+struct EpiAddB : std::false_type {};
+template <class E>
+struct EpiAddB<E, std::void_t<decltype(E::kAddB)>> : std::bool_constant<E::kAddB> {};
+template <class E>
+constexpr bool kEpiAdds = EpiAddA<E>::value || EpiAddB<E>::value;
+
 template <class Epi>
 struct GemmParams {
   CUtensorMap a, b;        // 3-D maps: (inner, outer, batch)
+  CUtensorMap add;         // EpiAddA / EpiAddB: the addend's, as its operand's
   int M, N, K, Z;
   int kz;                  // > 0: z splits K into slices of kz; else z is a batch index
   int za, zb;              // 1: the operand's batch coordinate is z; 0: shared
   Epi epi;
 };
 
-template <bool kBf16>
+template <bool kBf16, bool kAdd = false>
 struct GemmLayout {
   // bf16: 4 stages, two 16 KB converted buffers (A and B, 8 KB each);
   // 3xTF32: 3 stages, two 64 KB converted buffers (A big, A small, B big,
   // B small), 225 KB in all: the next slice converts while this one
-  // multiplies.
-  static constexpr int kStages = kBf16 ? 4 : 3;
+  // multiplies.  With an addend a stage holds its tile too, and there are
+  // two stages.
+  static constexpr int kStages = kAdd ? 2 : kBf16 ? 4 : 3;
+  static constexpr int kStageTiles = kAdd ? 3 : 2;
   static constexpr int kCvtTile = kBf16 ? kGemmTileBytes / 2 : kGemmTileBytes;
   static constexpr int kCvtBytes = kBf16 ? 2 * kCvtTile : 4 * kCvtTile;
-  static constexpr size_t kSmem = 1024 + (size_t)kStages * 2 * kGemmTileBytes +
+  static constexpr size_t kSmem = 1024 + (size_t)kStages * kStageTiles * kGemmTileBytes +
                                   2 * (size_t)kCvtBytes + 2 * kStages * sizeof(uint64_t);
   static_assert(kSmem <= 232448, "shared memory of one block");
 };
@@ -297,13 +338,16 @@ struct GemmLayout {
 template <bool kBf16, bool kAT, bool kBT, class Epi>
 __global__ void __launch_bounds__(kGemmThreads, 1)
 wg_gemm_kernel(const __grid_constant__ GemmParams<Epi> p) {
-  using Lay = GemmLayout<kBf16>;
+  constexpr bool kAdd = kEpiAdds<Epi>, kAddA = EpiAddA<Epi>::value;
+  static_assert(!(EpiAddA<Epi>::value && EpiAddB<Epi>::value), "one addend a product");
+  using Lay = GemmLayout<kBf16, kAdd>;
   constexpr int kStages = Lay::kStages;
+  constexpr int kStageBytes = Lay::kStageTiles * kGemmTileBytes;
   extern __shared__ uint8_t gemm_smem_raw[];
   char* smem = reinterpret_cast<char*>(
       (reinterpret_cast<uintptr_t>(gemm_smem_raw) + 1023) & ~(uintptr_t)1023);
   char* stages = smem;
-  char* cvt = stages + kStages * 2 * kGemmTileBytes;   // [2][A big, (A small), B big, (B small)]
+  char* cvt = stages + kStages * kStageBytes;   // [2][A big, (A small), B big, (B small)]
   uint64_t* full = reinterpret_cast<uint64_t*>(cvt + 2 * Lay::kCvtBytes);
   uint64_t* empty = full + kStages;
 
@@ -320,6 +364,12 @@ wg_gemm_kernel(const __grid_constant__ GemmParams<Epi> p) {
     k_begin = p.kz > 0 ? z * p.kz : 0;
     const int k_end = p.kz > 0 ? min(p.K, k_begin + p.kz) : p.K;
     nk = (k_end - k_begin + kGemmBK - 1) / kGemmBK;
+  };
+  // EpiAddA / EpiAddB: whether tile (m0, n0) takes the addend
+  auto adds = [&](int m0, int n0) {
+    if constexpr (EpiAddA<Epi>::value) return p.epi.add_a(n0) != nullptr;
+    if constexpr (EpiAddB<Epi>::value) return p.epi.add_b(m0) != nullptr;
+    return false;
   };
 
   if (threadIdx.x == 0) {
@@ -343,14 +393,15 @@ wg_gemm_kernel(const __grid_constant__ GemmParams<Epi> p) {
         int z, m0, n0, k_begin, nk;
         tile_of(t, z, m0, n0, k_begin, nk);
         const int za = p.za ? z : 0, zb = p.zb ? z : 0;
+        const bool add = adds(m0, n0);
         for (int i = 0; i < nk; ++i, ++it) {
           const int s = it % kStages;
           const unsigned ph = (unsigned)(it / kStages) & 1u;
           mbar_wait(smem_addr(empty + s), ph ^ 1u);
           const uint32_t bar = smem_addr(full + s);
-          mbar_expect_tx(bar, 2 * kGemmTileBytes);
+          mbar_expect_tx(bar, (add ? 3 : 2) * kGemmTileBytes);
           const int k = k_begin + i * kGemmBK;
-          const uint32_t dst = smem_addr(stages + s * 2 * kGemmTileBytes);
+          const uint32_t dst = smem_addr(stages + s * kStageBytes);
           if constexpr (kAT)
             tma_load_3d(dst, &p.a, bar, m0, k, za);
           else
@@ -359,6 +410,11 @@ wg_gemm_kernel(const __grid_constant__ GemmParams<Epi> p) {
             tma_load_3d(dst + kGemmTileBytes, &p.b, bar, n0, k, zb);
           else
             tma_load_3d(dst + kGemmTileBytes, &p.b, bar, k, n0, zb);
+          if (add) {            // the addend, in its operand's coordinates
+            const bool t = kAddA ? kAT : kBT;
+            const int row = kAddA ? m0 : n0, zz = kAddA ? za : zb;
+            tma_load_3d(dst + 2 * kGemmTileBytes, &p.add, bar, t ? row : k, t ? k : row, zz);
+          }
         }
       }
     }
@@ -410,6 +466,7 @@ wg_gemm_kernel(const __grid_constant__ GemmParams<Epi> p) {
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
     float colsum = 0.f;   // EpiColSum: this thread's row of A, summed over the tile's k
+    const bool add = adds(m0, n0);
     // slice i converts (buffer i mod 2) while slice i - 1 multiplies; the
     // tensor cores truncate a float32 sum to the running sum's exponent,
     // so each slice is summed from zero (small cross terms first) and only
@@ -417,19 +474,43 @@ wg_gemm_kernel(const __grid_constant__ GemmParams<Epi> p) {
     for (int i = 0; i < nk; ++i, ++it) {
       const int s = it % kStages;
       mbar_wait(smem_addr(full + s), (unsigned)(it / kStages) & 1u);
-      const char* st = stages + s * 2 * kGemmTileBytes;
+      const char* st = stages + s * kStageBytes;
+      // the addend's group at the same place of its staged tile
+      const auto plus_add = [&](int g, float4 x) {
+        constexpr bool kT = kAddA ? kAT : kBT;
+        int r, c, off;
+        slice_group<kT>(wg, tid, g, r, c, off);
+        const char* at = st + 2 * kGemmTileBytes;
+        float4 v;
+        if constexpr (kT) {
+          const float* src = reinterpret_cast<const float*>(at) + (4 * c) * kGemmBM + r;
+          v = make_float4(src[0], src[kGemmBM], src[2 * kGemmBM], src[3 * kGemmBM]);
+        } else {
+          v = *reinterpret_cast<const float4*>(at + off);
+        }
+        x.x += v.x;
+        x.y += v.y;
+        x.z += v.z;
+        x.w += v.w;
+        return x;
+      };
       if constexpr (EpiColSum<Epi>::value) {
-        convert_slice<kBf16, kAT>(st, buf(it, 0), buf(it, 1), wg, tid, [&](int, int, float4 x) {
+        convert_slice<kBf16, kAT>(st, buf(it, 0), buf(it, 1), wg, tid, [&](int, float4 x) {
           colsum += x.x;
           colsum += x.y;
           colsum += x.z;
           colsum += x.w;
           return x;
         });
+      } else if (kAddA && add) {
+        convert_slice<kBf16, kAT>(st, buf(it, 0), buf(it, 1), wg, tid, plus_add);
       } else {
         convert_slice<kBf16, kAT>(st, buf(it, 0), buf(it, 1), wg, tid);
       }
-      convert_slice<kBf16, kBT>(st + kGemmTileBytes, buf(it, 2), buf(it, 3), wg, tid);
+      if (kAdd && !kAddA && add)
+        convert_slice<kBf16, kBT>(st + kGemmTileBytes, buf(it, 2), buf(it, 3), wg, tid, plus_add);
+      else
+        convert_slice<kBf16, kBT>(st + kGemmTileBytes, buf(it, 2), buf(it, 3), wg, tid);
       mbar_arrive(smem_addr(empty + s));
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       if (i > 0) {
@@ -519,21 +600,70 @@ struct Operand {
   int batch = 1;
 };
 
+// Everything a map's encoding takes: a map stays valid for as long as the
+// same geometry is asked of the same pointer.
+struct MapKey {
+  const void* p;
+  cuuint64_t dims[3], strides[2];
+  cuuint32_t box[2];
+  int swizzle;
+  bool operator==(const MapKey& o) const {
+    return p == o.p && std::equal(dims, dims + 3, o.dims) &&
+           std::equal(strides, strides + 2, o.strides) && box[0] == o.box[0] &&
+           box[1] == o.box[1] && swizzle == o.swizzle;
+  }
+  size_t hash() const {
+    size_t h = (size_t)p;
+    for (cuuint64_t v : {dims[0], dims[1], dims[2], strides[0], strides[1], (cuuint64_t)box[0],
+                         (cuuint64_t)box[1], (cuuint64_t)swizzle})
+      h = (h ^ (size_t)v) * 0x100000001b3ull;
+    return h;
+  }
+};
+
+// The maps encoded so far, direct-mapped by MapKey (a miss encodes again):
+// the launches of a layer's step ask for the same maps at every call, and
+// a launch that finds its maps here spends no host time encoding them.
+constexpr int kMapCache = 1024;
+struct MapCache {
+  std::mutex mu;
+  MapKey key[kMapCache];
+  CUtensorMap map[kMapCache];
+  bool used[kMapCache];
+};
+
 // A 3-D map of the operand with a box of box_inner x box_outer values (one
 // matrix of the batch) and the given swizzle.
 inline bool encode_map(CUtensorMap* map, const Operand& o, int box_inner, int box_outer,
                        CUtensorMapSwizzle swizzle) {
+  static MapCache cache;
+  const MapKey key{o.p,
+                   {(cuuint64_t)o.inner, (cuuint64_t)o.outer, (cuuint64_t)o.batch},
+                   {(cuuint64_t)o.ld * 4,
+                    (cuuint64_t)(o.batch > 1 ? o.bstride : (long)o.outer * o.ld) * 4},
+                   {(cuuint32_t)box_inner, (cuuint32_t)box_outer},
+                   (int)swizzle};
+  const size_t slot = key.hash() % kMapCache;
+  {
+    std::lock_guard<std::mutex> lock(cache.mu);
+    if (cache.used[slot] && cache.key[slot] == key) {
+      *map = cache.map[slot];
+      return true;
+    }
+  }
   TensorMapEncodeFn enc = tensor_map_encoder();
   if (enc == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)o.inner, (cuuint64_t)o.outer, (cuuint64_t)o.batch};
-  const cuuint64_t strides[2] = {
-      (cuuint64_t)o.ld * 4,
-      (cuuint64_t)(o.batch > 1 ? o.bstride : (long)o.outer * o.ld) * 4};
-  const cuuint32_t box[3] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer, 1};
+  const cuuint32_t box[3] = {key.box[0], key.box[1], 1};
   const cuuint32_t estr[3] = {1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(o.p), dims, strides, box,
-             estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  if (enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(o.p), key.dims, key.strides,
+          box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  std::lock_guard<std::mutex> lock(cache.mu);
+  cache.key[slot] = key;
+  cache.map[slot] = *map;
+  cache.used[slot] = true;
+  return true;
 }
 
 // A 3-D map of the operand with a box of one staged slice: K-major
@@ -555,6 +685,18 @@ cudaError_t wg_gemm(const Operand& A, const Operand& B, int M, int N, int K, int
   GemmParams<Epi> p;
   if (!encode_operand(&p.a, A, kAT) || !encode_operand(&p.b, B, kBT))
     return cudaErrorInvalidValue;
+  if constexpr (kEpiAdds<Epi>) {   // the addend: its operand's shape, its own pointer and stride
+    constexpr bool kA = EpiAddA<Epi>::value;
+    Operand o = kA ? A : B;
+    if constexpr (kA) {
+      o.p = epi.add_a(0);
+      o.ld = epi.add_a_ld();
+    } else {
+      o.p = epi.add_b(0);
+      o.ld = epi.add_b_ld();
+    }
+    if (!encode_operand(&p.add, o, kA ? kAT : kBT)) return cudaErrorInvalidValue;
+  }
   p.M = M;
   p.N = N;
   p.K = K;
@@ -564,6 +706,7 @@ cudaError_t wg_gemm(const Operand& A, const Operand& B, int M, int N, int K, int
   p.zb = zb;
   p.epi = epi;
   auto* kernel = wg_gemm_kernel<kBf16, kAT, kBT, Epi>;
+  constexpr size_t kSmem = GemmLayout<kBf16, kEpiAdds<Epi>>::kSmem;
   // once per device and instantiation: the shared-memory limit; and the
   // device's SM count (the persistent grid)
   static int ready[64], sm_count[64];
@@ -572,7 +715,7 @@ cudaError_t wg_gemm(const Operand& A, const Operand& B, int M, int N, int K, int
   if (err != cudaSuccess || dev >= 64) return err != cudaSuccess ? err : cudaErrorInvalidDevice;
   if (!ready[dev]) {
     if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    (int)GemmLayout<kBf16>::kSmem)) != cudaSuccess ||
+                                    (int)kSmem)) != cudaSuccess ||
         (err = cudaDeviceGetAttribute(&sm_count[dev], cudaDevAttrMultiProcessorCount, dev)) !=
             cudaSuccess)
       return err;
@@ -580,8 +723,7 @@ cudaError_t wg_gemm(const Operand& A, const Operand& B, int M, int N, int K, int
   }
   const int sms = sm_count[dev];
   const long tiles = (long)((M + kGemmBM - 1) / kGemmBM) * ((N + kGemmBN - 1) / kGemmBN) * Z;
-  kernel<<<(unsigned)std::min<long>(tiles, sms), kGemmThreads, GemmLayout<kBf16>::kSmem, s>>>(
-      p);
+  kernel<<<(unsigned)std::min<long>(tiles, sms), kGemmThreads, kSmem, s>>>(p);
   return cudaGetLastError();
 }
 
@@ -608,6 +750,17 @@ struct PartialSumEpi : PartialEpi {
   __device__ void colsum(int z, int half, int m, float v) const {
     Pb[((size_t)z * 2 + half) * M + m] = v;
   }
+};
+
+// PartialSumEpi with an addend of B for the output rows m < rows (a
+// multiple of the tile's 128): dW = G^T (H + add) there, G^T H below.
+struct PartialSumAddEpi : PartialSumEpi {
+  const float* add;
+  long ld;
+  int rows;
+  static constexpr bool kAddB = true;
+  __host__ __device__ const float* add_b(int m0) const { return m0 < rows ? add : nullptr; }
+  __host__ __device__ long add_b_ld() const { return ld; }
 };
 
 }  // namespace

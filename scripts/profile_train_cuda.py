@@ -19,7 +19,8 @@ forward's saved activations, where the checkout keeps them).  With --queries Q t
 configurations have Q moment queries and detr_dropout 0 (the matcher on
 the batched LSAP), and with --fused-decoder the step runs the DETR decoder
 layers on the decoder-layer kernels (float32), whose backward at the
-step's shape is traced too.  Prints the card's name and power limit first.
+step's shape is traced too (given the training forward's saved set, where
+the checkout keeps one).  Prints the card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -215,8 +216,12 @@ def main() -> int:
         dlayer.reset_parameters(torch.Generator().manual_seed(0))
         dlayer = dlayer.to(device)
         tq, qp, dg = (torch.randn(BATCH, args.queries, d, device=device) for _ in range(3))
+        # given the training forward's saved set, as the step runs it, where
+        # the checkout keeps one
+        dacts = ({"acts": fdl.fused_decoder_layer_fwd(tq, x, mask, pos, qp, dlayer)[1]}
+                 if hasattr(fdl, "SAVED") else {})
         calls[f"fused_decoder_layer_bwd B={BATCH} Q={args.queries} L=152"] = (
-            lambda: fdl.fused_decoder_layer_bwd(tq, x, mask, pos, qp, dg, dlayer))
+            lambda: fdl.fused_decoder_layer_bwd(tq, x, mask, pos, qp, dg, dlayer, **dacts))
     for name, fn in calls.items():
         fn()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:

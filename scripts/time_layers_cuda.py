@@ -16,8 +16,9 @@ script lies in and times, with CUDA events, `iters` calls per round of
   * #6's forward and backward (`fused_decoder_layer`,
     `fused_decoder_layer_bwd`, recomputing) at B = 512, L = 152 for Q = 10
     and Q = 1 moment queries, and Q = 1 at B = 40; where the checkout has
-    `fused_decoder_layer_fwd`, also the backward given the forward's memory
-    k|v (what a training step runs),
+    `fused_decoder_layer_fwd`, also its training forward and the backward
+    given the forward's memory k|v, and where it has a saved set (SAVED),
+    the backward given that set (what a training step then runs),
 on seeded inputs (the layers' weights off their initial values, ragged key
 masks).  Prints the card's name and power limit, then one line per call:
 each round's ms, their median, TFLOP/s, the least time (chip_smoke.py's
@@ -89,7 +90,8 @@ def breakdown(what: str, fn) -> None:
                    and e.self_device_time_total > 0
                    and not e.key.startswith("ProfilerStep")), key=lambda r: -r[1])
     print(f"[breakdown] {what}: device_ms={sum(r[1] for r in rows):.4f} "
-          f"events_ms={events_ms:.4f} kernels={len(rows)}", flush=True)
+          f"events_ms={events_ms:.4f} kernels={len(rows)} "
+          f"launches={sum(r[2] for r in rows)}", flush=True)
     for kernel, ms, count in rows:
         print(f"[breakdown]   {ms:9.4f} ms {count:4d} x {kernel[:120]}", flush=True)
 
@@ -187,7 +189,8 @@ def time_decoder(dev, args) -> None:
     layer.reset_parameters(gen)
     layer = perturbed(layer, gen).to(dev)
     params = list(fdl._layer_tensors(layer))   # the order of the backward's gradients
-    saved_kv = hasattr(fdl, "fused_decoder_layer_fwd")
+    train_fwd = getattr(fdl, "fused_decoder_layer_fwd", None)
+    saved_set = hasattr(fdl, "SAVED")        # else the training forward returns (out, k|v)
     rng = np.random.default_rng(6)
     for b, q in DECODER:
         randn = lambda n: torch.from_numpy(
@@ -211,15 +214,26 @@ def time_decoder(dev, args) -> None:
                                                 leaves[3], layer)
         plain = torch.autograd.grad(out, [*leaves, *params], g)
         del out, leaves
-        calls = [("fused_decoder_layer_bwd", None)]
-        if saved_kv:
+        calls = [("fused_decoder_layer_bwd", {})]
+        if train_fwd is not None:
             with torch.no_grad():
-                kv = fdl.fused_decoder_layer_fwd(*ins, layer)[1]
-            calls.append(("fused_decoder_layer_bwd saved k|v", kv))
+                cuda_ms(lambda: train_fwd(*ins, layer), 1)
+                times = [cuda_ms(lambda: train_fwd(*ins, layer), args.iters)
+                         for _ in range(args.rounds)]
+                report(f"fused_decoder_layer training forward {tag}", times, flops,
+                       nbytes(tgt, qpos, mem, pos, mask, *params, tgt), 0.0)
+                saved = train_fwd(*ins, layer)[1]
+            kv = saved[0] if saved_set else saved
+            calls.append(("fused_decoder_layer_bwd saved k|v", {"kv": kv}))
+            if saved_set:
+                calls.append(("fused_decoder_layer_bwd saved set", {"acts": saved}))
+            if args.breakdown:
+                with torch.no_grad():
+                    breakdown(f"fused_decoder_layer training forward {tag}",
+                              lambda: train_fwd(*ins, layer))
         bwd_bytes = nbytes(tgt, qpos, mem, pos, mask, g, *params, tgt, qpos, mem, pos, *params)
-        for name, kv in calls:
-            bwd = lambda: fdl.fused_decoder_layer_bwd(*ins, g, layer, **(
-                {} if kv is None else {"kv": kv}))
+        for name, given in calls:
+            bwd = lambda: fdl.fused_decoder_layer_bwd(*ins, g, layer, **given)
             res = bwd()
             err = grad_err([*res[:4], *res[4]], plain)
             del res
@@ -232,6 +246,8 @@ def time_decoder(dev, args) -> None:
             with torch.no_grad():
                 breakdown(f"fused_decoder_layer {tag}", fwd)
         del plain, calls, tgt, qpos, g, mem, pos, mask, ins
+        if train_fwd is not None:
+            del saved, kv
 
 
 def main() -> int:

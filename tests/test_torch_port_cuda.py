@@ -527,8 +527,9 @@ def test_cuda_temporal_forward_is_bit_reproducible(dev, b, L, rate):
 @pytest.mark.parametrize("b,q,L,self_attn", [(40, 1, 152, True), (5, 10, 152, True),
                                              (3, 3, 21, False)])
 def test_cuda_decoder_forward_is_bit_reproducible(dev, b, q, L, self_attn):
-    """Two identical calls of #6's forward give the same output and the same
-    memory k|v to the bit."""
+    """Two identical calls of #6's training forward give the same output and
+    the same saved set (the memory k|v first) to the bit, and the
+    evaluation forward the same output."""
     rng = np.random.default_rng(b * q + L)
     tgt, qpos = _randn(rng, (b, q, 256), dev), _randn(rng, (b, q, 256), dev)
     mem, pos = _randn(rng, (b, L, 256), dev), _randn(rng, (b, L, 256), dev)
@@ -538,7 +539,9 @@ def test_cuda_decoder_forward_is_bit_reproducible(dev, b, q, L, self_attn):
     second = fdl.fused_decoder_layer_fwd(tgt, mem, mask, pos, qpos, layer)
     with torch.no_grad():
         out = fdl.fused_decoder_layer(tgt, mem, mask, pos, qpos, layer)
-    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    assert torch.equal(first[0], second[0])
+    assert all((a is None and c is None) or torch.equal(a, c)
+               for a, c in zip(first[1], second[1]))
     assert torch.equal(out, first[0])
 
 
@@ -553,7 +556,7 @@ def test_cuda_decoder_backward_takes_the_forward_kv(dev, b, q, L, self_attn):
     mem, pos = _randn(rng, (b, L, 256), dev), _randn(rng, (b, L, 256), dev)
     mask = _ragged(rng, b, L, dev)
     layer = _decoder_layer(dev, self_attn)
-    kv = fdl.fused_decoder_layer_fwd(tgt, mem, mask, pos, qpos, layer)[1]
+    kv = fdl.fused_decoder_layer_fwd(tgt, mem, mask, pos, qpos, layer)[1][0]
     assert kv.shape == (b, L, 512)
     saved = fdl.fused_decoder_layer_bwd(tgt, mem, mask, pos, qpos, g, layer, kv=kv)
     recomputed = fdl.fused_decoder_layer_bwd(tgt, mem, mask, pos, qpos, g, layer)
@@ -562,6 +565,114 @@ def test_cuda_decoder_backward_takes_the_forward_kv(dev, b, q, L, self_attn):
     for bad in (kv[:, :-1].contiguous(), kv.double()):
         with pytest.raises(ValueError, match="kv"):
             fdl.fused_decoder_layer_bwd(tgt, mem, mask, pos, qpos, g, layer, kv=bad)
+
+
+# (B, Q, L, self-attention): Q = 1, Q > L, L = Q = 256 (the attention
+# backward's shared memory at its largest), odd B, one memory row
+_DECODER_SAVED_SHAPES = [(6, 10, 152, True), (40, 1, 152, True), (7, 30, 21, True),
+                         (3, 256, 256, True), (5, 3, 1, False), (9, 1, 37, False),
+                         (2, 256, 256, False)]
+
+
+def _decoder_inputs(dev, b, q, L, seed):
+    """tgt, mem, mask, pos, qpos, g; row 0 of the mask keeps one key and
+    the last row none (uniform weights)."""
+    rng = np.random.default_rng(seed)
+    tgt, qpos, g = (_randn(rng, (b, q, 256), dev) for _ in range(3))
+    mem, pos = _randn(rng, (b, L, 256), dev), _randn(rng, (b, L, 256), dev)
+    mask = _ragged(rng, b, L, dev)
+    mask[0] = 0.0
+    mask[0, min(3, L - 1)] = 1.0
+    if b > 1:
+        mask[-1] = 0.0
+    return tgt, mem, mask, pos, qpos, g
+
+
+@pytest.mark.parametrize("b,q,L,self_attn", _DECODER_SAVED_SHAPES)
+def test_cuda_decoder_backward_from_saved_set_equals_recompute(dev, b, q, L, self_attn):
+    """#6's training forward's saved set against its float64 plain version
+    (`decoder_layer_acts_reference`), and the backward given it (what
+    autograd runs) equal to the backward given the forward's k|v alone and
+    to the wholly recomputing one, bit for bit: all three run one forward
+    sequence.  A saved set that is not the forward's is refused."""
+    tgt, mem, mask, pos, qpos, g = _decoder_inputs(dev, b, q, L, b * q + L)
+    layer = _decoder_layer(dev, self_attn)
+    layer64 = copy.deepcopy(layer).double()
+    with torch.no_grad():
+        out, acts = fdl.fused_decoder_layer_fwd(tgt, mem, mask, pos, qpos, layer)
+        want_out, want = fdl.decoder_layer_acts_reference(
+            *(t.double() for t in (tgt, mem, mask, pos, qpos)), layer64)
+    torch.testing.assert_close(out.double(), want_out, atol=1e-4, rtol=0)
+    for name, got, ref in zip(fdl.SAVED, acts, want):
+        assert (got is None) == (ref is None), name
+        if got is not None:
+            torch.testing.assert_close(got.double(), ref,
+                                       atol=1e-4 * max(1.0, ref.abs().max().item()), rtol=0,
+                                       msg=name)
+    before = fdl.fused_decoder_layer_bwd.launches
+    runs = [fdl.fused_decoder_layer_bwd(tgt, mem, mask, pos, qpos, g, layer, **kw)
+            for kw in ({"acts": acts}, {"kv": acts[0]}, {})]
+    assert fdl.fused_decoder_layer_bwd.launches == before + 3
+    flat = [[*r[:4], *r[4]] for r in runs]
+    for other in flat[1:]:
+        for a, c in zip(flat[0], other):
+            assert torch.equal(a, c)
+    bad = list(acts)
+    bad[7] = acts[7][:, :-1].contiguous() if q > 1 else acts[7].double()
+    with pytest.raises(ValueError, match="acts"):
+        fdl.fused_decoder_layer_bwd(tgt, mem, mask, pos, qpos, g, layer, acts=bad)
+
+
+@pytest.mark.parametrize("b,q,L,self_attn", _DECODER_SAVED_SHAPES)
+def test_cuda_decoder_backward_from_saved_set_against_float64(dev, b, q, L, self_attn):
+    """The backward given the saved set against a float64 autograd run of
+    the plain layer, as test_cuda_decoder_kernels_match_plain_version holds
+    it (the gate-flip slack included), at the shapes above: D_i from
+    dctx . ctx on the rows with one valid key and with none."""
+    tgt, mem, mask, pos, qpos, g = _decoder_inputs(dev, b, q, L, 7 * b + q + L)
+    layer = _decoder_layer(dev, self_attn)
+    layer64 = copy.deepcopy(layer).double()
+
+    def run(lay, dt):
+        ins = [t.to(dt).requires_grad_() for t in (tgt, mem, pos, qpos)]
+        out = fdl.fused_decoder_layer_reference(ins[0], ins[1], mask.to(dt), ins[2], ins[3], lay)
+        return torch.autograd.grad(out, [*ins, *fdl._layer_tensors(lay)], g.to(dt))
+
+    with torch.no_grad():
+        acts = fdl.fused_decoder_layer_fwd(tgt, mem, mask, pos, qpos, layer)[1]
+    got = fdl.fused_decoder_layer_bwd(tgt, mem, mask, pos, qpos, g, layer, acts=acts)
+    exact, slack = _gate_flip_slack(layer64, lambda: run(layer64, torch.float64))
+    _assert_grads_vs_float64([*got[:4], *got[4]], run(layer, torch.float32), exact, slack=slack)
+
+
+@pytest.mark.parametrize("self_attn", [True, False])
+def test_cuda_decoder_forward_saves_only_for_a_gradient(dev, self_attn):
+    """Under torch.no_grad() (the evaluation's B=40) the forward allocates
+    its output alone and keeps nothing; with a gradient to take it keeps
+    the SAVED set for the backward, and frees it with the graph."""
+    b, q, L = 40, 1, 152
+    tgt, mem, mask, pos, qpos, _ = _decoder_inputs(dev, b, q, L, 11)
+    layer = _decoder_layer(dev, self_attn)
+    with torch.no_grad():
+        fdl.fused_decoder_layer(tgt, mem, mask, pos, qpos, layer)     # first use
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated(dev)
+        plain = torch.empty_like(tgt)
+        one_output = torch.cuda.memory_allocated(dev) - start
+        del plain
+        start = torch.cuda.memory_allocated(dev)
+        out = fdl.fused_decoder_layer(tgt, mem, mask, pos, qpos, layer)
+        torch.cuda.synchronize()
+        assert torch.cuda.memory_allocated(dev) - start == one_output
+        assert out.grad_fn is None
+        del out
+    start = torch.cuda.memory_allocated(dev)
+    out = fdl.fused_decoder_layer(tgt, mem, mask, pos, qpos.clone().requires_grad_(), layer)
+    saved = sum(4 * int(np.prod(s)) for s in fdl._saved_shapes(b, q, L, 1024, 8, self_attn)
+                if s is not None)
+    assert torch.cuda.memory_allocated(dev) - start >= one_output + saved
+    del out
+    assert torch.cuda.memory_allocated(dev) == start
 
 
 @pytest.mark.parametrize("precision", ["f32", "bf16"])
