@@ -9,7 +9,8 @@ failure:
 
   1. device   card name, and its name and power limit from nvidia-smi
   2. build    compiles the CUDA kernels from mgsv_tpu_torch/csrc, one nvcc
-              per source, all started together; registers and spills
+              per source, all started together; registers and spills; then
+              the native gather (runtime/mgsv_io.cc) with g++, timed
   3. kernels  each kernel against its plain PyTorch version on the card
               (float32, TF32 off) at the training shapes, at rate 0 and at
               the configuration's dropout rate: the forward output and every
@@ -71,26 +72,46 @@ failure:
               scan's shape (V = 32, M = 4,096) for information
  11. train-cli  `cli.train` in-process on 2,048 generated rows of the
               default bf16 Config(): 4 steps at B=512, then an evaluation
-              at B=40 (52 batches, one corpus similarity); history.json,
-              the best_* and last checkpoints and every launch count read
- 12. train-cli-fused  `cli.train --model.fused_temporal true` on the same
+              at B=40 (52 batches, one corpus similarity), the data resident
+              on the card through train.device_data "auto" (no host
+              pipeline call); history.json, the best_* and last checkpoints
+              and every launch count read
+ 12. native-io  the native gather against the numpy memmap gather on those
+              rows, a B=512 batch's store rows and every row, float32 and
+              raw, bit for bit; ms per B=512 host batch both ways, in turns
+ 13. device-data  DeviceResidentData of those rows: bytes uploaded, every
+              resident batch of a B=512 epoch and a B=40 evaluation pass
+              torch.equal to the host pipeline's; ms per batch of the device
+              gather (CUDA events) and of the host pipeline
+ 14. train-cli-host  `cli.train --train.device_data off` on the same rows:
+              the resident run's record and last weights, bit for bit
+ 15. train-cli-fused  `cli.train --model.fused_temporal true` on the same
               rows: 4 steps and one evaluation, #5's launches per step and
               per evaluation read
- 13. evaluate-cli  `cli.evaluate` on that run's best_r1 checkpoint: its
+ 16. train-accum  `cli.train --train.gradient_accumulation_steps 2`: 4
+              micro-batches, 2 updates, weights equal bit for bit to an
+              independent accumulation (the port's forward and backward per
+              micro-batch, the gradients' running mean, a k = 1 update per
+              two); preempted at micro-step 3 and resumed, equal to the
+              uninterrupted run; peak memory
+ 17. evaluate-cli  `cli.evaluate` on that run's best_r1 checkpoint: its
               metrics equal the trainer's record; then `evaluate` with the
               kernel and with the plain corpus similarity on the same
-              weights, timed: similarities, localization and ranks compared
- 14. eval-q   `evaluate` of the same rows at ten moment queries (float32),
+              weights, timed: similarities, localization and ranks compared;
+              then resident and from the host in turns: ranks, IoUs and
+              spans equal, no host sync in the resident pass, wall times
+              and each path's device busy share under torch.profiler
+ 18. eval-q   `evaluate` of the same rows at ten moment queries (float32),
               with the decoder on #6 and without: the same ranks, moments
               within 1e-4 of max_m_duration, six #6 launches per batch
- 15. flash-kernel  the attention kernel (#7) against its plain version in
+ 19. flash-kernel  the attention kernel (#7) against its plain version in
               float32 and bf16: the AST's [96, 12, 1214, 64] (one track),
               [8, 12, 1214, 64] with ragged key masks and a fully masked
               row, CLIP's [400, 12, 50, 64], and the extraction's
               [384, 12, 1214, 64]; kernel, plain and SDPA timed in turns
               beside the bound; [breakdown] lines of the extraction's shape
               (float32) and of one track (bf16)
- 16. extract  `cli.extract_features` in-process on seeded raw media (8 frame
+ 20. extract  `cli.extract_features` in-process on seeded raw media (8 frame
               directories of 10-50 JPEGs, WAV tracks of 240/180/60/30 s, one
               at 44.1 kHz) with full-width CLIP ViT-B/32 and AST checkpoints
               minted in the reference layouts: store ids, shapes and masks,
@@ -132,10 +153,14 @@ from mgsv_tpu_torch.core.checkpoint import CheckpointManager
 from mgsv_tpu_torch.core.device import resolve_device
 from mgsv_tpu_torch.data import synthetic_raw
 from mgsv_tpu_torch.data.audio import extract_snippets, resample_sinc
+from mgsv_tpu_torch.data.dataset import MgsvDataset, epoch_index_batches
+from mgsv_tpu_torch.data.device_data import (DeviceResidentData, dataset_device_bytes,
+                                             gather_batch)
 from mgsv_tpu_torch.data.example_batch import example_batch, to_tensors
 from mgsv_tpu_torch.data.feature_store import PackedFeatureStore
 from mgsv_tpu_torch.data.frames import load_clip_frames
 from mgsv_tpu_torch.data.media import load_wav
+from mgsv_tpu_torch.data.pipeline import prefetch_epoch
 from mgsv_tpu_torch.data.synthetic import open_synthetic
 from mgsv_tpu_torch.eval.evaluator import evaluate
 from mgsv_tpu_torch.eval.similarity import (xpool_eval_inputs, xpool_sim_fused,
@@ -151,10 +176,12 @@ from mgsv_tpu_torch.ops.cuda import fused_decoder_layer as fdl
 from mgsv_tpu_torch.ops.cuda import fused_encoder_layer as fel
 from mgsv_tpu_torch.ops.cuda import fused_temporal_layer as ftl
 from mgsv_tpu_torch.ops.cuda import xpool_sim as xps
-from mgsv_tpu_torch.runtime import kernels
+from mgsv_tpu_torch.runtime import kernels, native
 from mgsv_tpu_torch.serve.engine import RetrievalEngine, build_music_index
-from mgsv_tpu_torch.train.optimizer import make_optimizer
-from mgsv_tpu_torch.train.step import make_train_step
+from mgsv_tpu_torch.train.loop import Preempted
+from mgsv_tpu_torch.train.objective import total_loss
+from mgsv_tpu_torch.train.optimizer import GroupedAdam, make_optimizer
+from mgsv_tpu_torch.train.step import make_eval_step, make_train_step, step_generator
 
 SEED = 0
 DROPOUT_SEED = 1234        # the Philox seed of the kernel phases
@@ -165,6 +192,9 @@ EVAL_N = 2048              # corpus of the eval phases: about an MGSV-EC split (
 SERVE_V = 32               # videos of a B=32 serving scan over the N_TRACKS index
 SERVE_ROWS = (8, 256)      # fused rows B*k: a B=1 query, and B=32 x k-bucket 8
 TIMED_STEPS = 5
+GATHER_TURNS = 6           # host gathers of a B=512 batch, native and numpy in turns
+EVAL_TURNS = 5             # evaluations of the EVAL_N rows, resident and host in turns
+ACCUM_K = 2                # gradient accumulation of the train-accum phase
 Q_MULTI = 10               # moment queries of the multi-query phases
 HORIZON = 1000             # schedule length the optimizers are built for
 # H100 SXM peaks (NVIDIA's data sheet, dense): the kernels compute float32
@@ -465,6 +495,17 @@ def build_kernels() -> None:
         phase("build", kernel=name, max_registers=max(regs, default="cached"),
               spill_store_bytes=sum(spills))
     phase("build", seconds=f"{time.perf_counter() - t0:.2f}")
+
+
+def build_native() -> str:
+    """Compile the native gather (runtime/mgsv_io.cc) with g++ before any
+    store opens; returns its build seconds as printed."""
+    cached = os.path.exists(native.library_path())
+    t0 = time.perf_counter()
+    native.get_lib()
+    seconds = f"{time.perf_counter() - t0:.2f}"
+    phase("build", native="libmgsv_io", compiler="g++", cached=cached, seconds=seconds)
+    return seconds
 
 
 def check_encoder(device: torch.device) -> list:
@@ -1238,19 +1279,33 @@ def eval_launches(cfg: Config, n_rows: int, fused_decoder: bool = False) -> dict
             "fused_decoder_layer_bwd": 0}
 
 
+@contextlib.contextmanager
+def host_feeds():
+    """(the Trainer's, the evaluator's) calls of the host pipeline, counted."""
+    with mock.patch("mgsv_tpu_torch.train.loop.prefetch_epoch", wraps=prefetch_epoch) as tr, \
+            mock.patch("mgsv_tpu_torch.eval.evaluator.prefetch_epoch",
+                       wraps=prefetch_epoch) as ev:
+        yield tr, ev
+
+
 def check_train_cli(tmp: str) -> tuple:
     """`cli.train` on EVAL_N generated rows, one epoch of the default
-    Config(); returns (run directory, data root, the epoch's record, the
-    run's launch counts)."""
+    Config(), its data resident on the card through train.device_data
+    "auto" (no host pipeline call); returns (run directory, data root, the
+    epoch's record, the run's launch counts)."""
     out_dir = os.path.join(tmp, "train")
     cfg = Config()
     reset_counts()
     t0 = time.perf_counter()
-    train_cli.main(["--synthetic", str(EVAL_N), "--train.epochs", "1",
-                    "--train.output_dir", out_dir])
+    with host_feeds() as (tr, ev):
+        train_cli.main(["--synthetic", str(EVAL_N), "--train.epochs", "1",
+                        "--train.output_dir", out_dir])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = read_counts()
+    if tr.call_count or ev.call_count:
+        raise AssertionError(f"train-cli fed from the host under device_data auto: "
+                             f"{tr.call_count} training, {ev.call_count} evaluation epochs")
     run_dir = os.path.join(out_dir, cfg.train.name)
     with open(os.path.join(run_dir, "history.json")) as f:
         history = json.load(f)
@@ -1264,7 +1319,8 @@ def check_train_cli(tmp: str) -> tuple:
     if launches != want:
         raise AssertionError(f"train-cli launches {launches}, want {want}")
     rec = history[0]
-    phase("train-cli", rows=EVAL_N, steps=rec["train"]["steps"], loss=rec["train"]["loss"],
+    phase("train-cli", rows=EVAL_N, device_data="resident", steps=rec["train"]["steps"],
+          loss=rec["train"]["loss"],
           train_seconds=f"{rec['train']['seconds']:.3f}",
           clips_per_s=f"{rec['train']['clips_per_sec']:.1f}", R1=rec["eval"]["R1"],
           mIoU=rec["eval"]["mIoU"], checkpoints=",".join(tags),
@@ -1309,23 +1365,316 @@ def check_train_cli_fused(tmp: str, data_root: str) -> dict:
     return launches
 
 
+def same_bits(a: np.ndarray, b: np.ndarray) -> bool:
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and np.array_equal(np.ascontiguousarray(a).view(np.uint8),
+                               np.ascontiguousarray(b).view(np.uint8)))
+
+
+def memmap_dataset(data: MgsvDataset, data_root: str) -> MgsvDataset:
+    """`data`'s rows over numpy memmaps of the same stores."""
+    return MgsvDataset(data.index, *(
+        PackedFeatureStore(os.path.join(data_root, s), use_native=False)
+        for s in ("video_store", "music_store")))
+
+
+def check_native_io(data_root: str, build_seconds: str, card: str) -> None:
+    """The native gather against the numpy memmap gather on the EVAL_N
+    generated rows: a B=512 batch's store rows and every row of each store,
+    float32 (float16 widened in the copy) and raw, equal bit for bit, and
+    the host batch whole; then ms per B=512 host batch (MgsvDataset.gather)
+    both ways, GATHER_TURNS turns taken alternately, medians."""
+    cfg = Config()
+    nat = open_synthetic(data_root, cfg.data)
+    mm = memmap_dataset(nat, data_root)
+    if not isinstance(nat.video_store.arrays["feats"], native.NativeStore):
+        raise AssertionError("the dataset's stores do not gather natively")
+    batch_idx = next(epoch_index_batches(len(nat), TRAIN_B, shuffle=True,
+                                         seed=cfg.train.seed, epoch=1))[0]
+    compared = 0
+    for store, rows in (("video_store", nat.video_rows), ("music_store", nat.music_rows)):
+        a, b = getattr(nat, store), getattr(mm, store)
+        for name in ("feats", "mask"):
+            for idx in (rows[batch_idx], np.arange(len(a))):
+                for dtype in (np.float32, None):
+                    if not same_bits(a.gather(name, idx, dtype), b.gather(name, idx, dtype)):
+                        raise AssertionError(f"native gather of {store}/{name} ({dtype}) "
+                                             "differs from numpy's")
+                    compared += len(idx)
+    got, want = nat.gather(batch_idx)[0], mm.gather(batch_idx)[0]
+    bad = [k for k in want if not same_bits(got[k], want[k])]
+    if bad or got.keys() != want.keys():
+        raise AssertionError(f"native host batch differs from the memmap one: {bad}")
+    times = {True: [], False: []}
+    for turn in range(GATHER_TURNS):
+        idx = next(epoch_index_batches(len(nat), TRAIN_B, shuffle=True, seed=cfg.train.seed,
+                                       epoch=2 + turn))[0]
+        for use_native in ((True, False) if turn % 2 == 0 else (False, True)):
+            t0 = time.perf_counter()
+            (nat if use_native else mm).gather(idx)
+            times[use_native].append((time.perf_counter() - t0) * 1e3)
+    phase("native-io", build_seconds=build_seconds, rows=EVAL_N, batch=TRAIN_B,
+          rows_compared=compared, bitwise_equal=True,
+          native_ms=f"{np.median(times[True]):.2f}", numpy_ms=f"{np.median(times[False]):.2f}",
+          native_turns_ms=",".join(f"{t:.2f}" for t in times[True]),
+          numpy_turns_ms=",".join(f"{t:.2f}" for t in times[False]), card=json.dumps(card))
+
+
+def check_device_data(device: torch.device, data_root: str, card: str) -> None:
+    """DeviceResidentData of the EVAL_N rows: bytes uploaded; every key of
+    every resident batch torch.equal to the host pipeline's for the same
+    indices (one training epoch at B=512, one evaluation pass at B=40 with
+    its padded tail); ms per batch of the device gather (CUDA events) and
+    of the host pipeline (host clock over an epoch, ending in a
+    synchronize, medians of three)."""
+    cfg = Config()
+    data = open_synthetic(data_root, cfg.data)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    resident = DeviceResidentData(data, device)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    streams = {TRAIN_B: dict(shuffle=True, seed=cfg.train.seed, epoch=1),
+               EVAL_B: dict(shuffle=False, drop_last=False)}
+    batches = 0
+    for bs, kw in streams.items():
+        host = list(prefetch_epoch(data, bs, device=device, **kw))
+        dev = list(resident.epoch_batches(bs, **kw))
+        if len(host) != len(dev):
+            raise AssertionError(f"device-data: {len(dev)} batches, host {len(host)}")
+        for (hb, hm), (db, dm) in zip(host, dev):
+            bad = [k for k in hb if not (db[k].dtype == hb[k].dtype and torch.equal(db[k], hb[k]))]
+            if bad or db.keys() != hb.keys() or dm.video_ids != hm.video_ids:
+                raise AssertionError(f"resident batch differs from the host pipeline's: {bad}")
+            batches += 1
+    device_ms, host_ms = {}, {}
+    for bs, kw in streams.items():
+        idx = torch.from_numpy(next(epoch_index_batches(len(data), bs, **kw))[0]).to(device)
+        gather_batch(resident.tree, idx)
+        device_ms[bs] = cuda_ms(lambda: gather_batch(resident.tree, idx), 20)
+        turns = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n = sum(1 for _ in prefetch_epoch(data, bs, device=device, **kw))
+            torch.cuda.synchronize()
+            turns.append((time.perf_counter() - t0) * 1e3 / n)
+        host_ms[bs] = float(np.median(turns))
+    phase("device-data", rows=EVAL_N, bytes_uploaded=dataset_device_bytes(data),
+          upload_seconds=f"{upload_s:.3f}", batches_compared=batches, torch_equal=True,
+          **{f"device_gather_ms_B{bs}": f"{ms:.4f}" for bs, ms in device_ms.items()},
+          **{f"host_pipeline_ms_B{bs}": f"{ms:.2f}" for bs, ms in host_ms.items()},
+          card=json.dumps(card))
+
+
+def check_train_cli_host(tmp: str, data_root: str, run_dir: str, record: dict) -> None:
+    """`cli.train --train.device_data off` on the train-cli phase's rows:
+    fed by the host pipeline, the launches of one epoch, and the same
+    history record and `last` weights, bit for bit, as the resident run."""
+    cfg = Config()
+    out_dir, csv = os.path.join(tmp, "train_host"), os.path.join(data_root, "data.csv")
+    reset_counts()
+    with host_feeds() as (tr, ev):
+        result = train_cli.main(["--train.epochs", "1", "--train.output_dir", out_dir,
+                                 "--train.device_data", "off", "--data.train_csv", csv,
+                                 "--data.val_csv", csv, "--data.feature_root", data_root])
+    launches = read_counts()
+    if (tr.call_count, ev.call_count) != (1, 1):
+        raise AssertionError(f"train-cli-host: {tr.call_count} training and {ev.call_count} "
+                             "evaluation epochs from the host pipeline, want 1 and 1")
+    if launches != expected_fit_launches(cfg, EVAL_N):
+        raise AssertionError(f"train-cli-host launches {launches}")
+    rec = result["history"][0]
+    timing = ("seconds", "clips_per_sec")
+    strip = lambda r: {k: v for k, v in r["train"].items() if k not in timing}
+    if strip(rec) != strip(record) or rec["eval"] != record["eval"]:
+        raise AssertionError(f"host and resident records differ: {rec} vs {record}")
+    want = CheckpointManager(run_dir).restore("last")["params"]
+    got = CheckpointManager(os.path.join(out_dir, cfg.train.name)).restore("last")["params"]
+    bad = [k for k in want if not torch.equal(got[k], want[k])]
+    if bad or got.keys() != want.keys():
+        raise AssertionError(f"host and resident last weights differ: {bad[:5]}")
+    phase("train-cli-host", rows=EVAL_N, device_data="off", steps=rec["train"]["steps"],
+          loss=rec["train"]["loss"], train_seconds=f"{rec['train']['seconds']:.3f}",
+          clips_per_s=f"{rec['train']['clips_per_sec']:.1f}",
+          resident_clips_per_s=f"{record['train']['clips_per_sec']:.1f}",
+          history_equal=True, last_params_bitwise_equal=len(want))
+
+
+def independent_accumulation(device: torch.device, cfg: Config, data_root: str) -> dict:
+    """The weights of one epoch of cfg (gradient_accumulation_steps k)
+    without the optimizer's accumulation: per micro-batch m the port's
+    forward and backward with the micro-step generator (seed, m), the
+    gradients' running mean acc + (g - acc) / (m % k + 1) (exact in any
+    division order at k = 2), and one k = 1 GroupedAdam update from it per
+    k micro-batches, over the same horizon in updates."""
+    k = cfg.train.gradient_accumulation_steps
+    data = DeviceResidentData(open_synthetic(data_root, cfg.data), device)
+    model = MaDe(cfg, torch.Generator().manual_seed(cfg.train.seed)).to(device)
+    n_micro = data.num_batches(TRAIN_B) * cfg.train.epochs
+    opt = GroupedAdam(model, cfg.replace(train=dataclasses.replace(
+        cfg.train, gradient_accumulation_steps=1)), n_micro // k)
+    params = list(model.parameters())
+    acc = [torch.zeros_like(p) for p in params]
+    for m, (batch, _) in enumerate(data.epoch_batches(TRAIN_B, shuffle=True,
+                                                      seed=cfg.train.seed, epoch=1)):
+        for p in params:
+            p.grad = None
+        out = model(batch["frame_feats"], batch["frame_mask"], batch["segment_feats"],
+                    batch["segment_mask"], v_duration=batch["v_duration"],
+                    generator=step_generator(cfg.train.seed, m, device))
+        total_loss(out, batch["spans_target"], cfg, music_codes=batch["music_codes"])[0].backward()
+        n = m % k + 1
+        with torch.no_grad():
+            for a, p in zip(acc, params):
+                a.add_(((p.grad if p.grad is not None else torch.zeros_like(p)) - a) / n)
+            if n == k:
+                for a, p in zip(acc, params):
+                    p.grad = a.clone()
+                opt.step()
+                for a in acc:
+                    a.zero_()
+    return {name: t.detach().cpu() for name, t in model.state_dict().items()}
+
+
+def check_train_accum(device: torch.device, tmp: str, data_root: str) -> None:
+    """`cli.train --train.gradient_accumulation_steps 2` on the train-cli
+    phase's rows: 4 micro-batches of B=512, 2 updates, one evaluation.  The
+    launches of one epoch; its `last` weights equal bit for bit to
+    `independent_accumulation`; a run preempted at micro-step 3 (one
+    gradient in the accumulator, a `last` save every micro-batch) and
+    resumed ends with the uninterrupted run's weights and optimizer state,
+    bit for bit; the peak device memory."""
+    base = Config()
+    cfg = base.replace(train=dataclasses.replace(base.train, epochs=1,
+                                                 gradient_accumulation_steps=ACCUM_K))
+    csv = os.path.join(data_root, "data.csv")
+    args = ["--train.epochs", "1", "--train.gradient_accumulation_steps", str(ACCUM_K),
+            "--data.train_csv", csv, "--data.val_csv", csv, "--data.feature_root", data_root]
+    full_dir, pre_dir = os.path.join(tmp, "accum"), os.path.join(tmp, "accum_pre")
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_counts()
+    result = train_cli.main([*args, "--train.output_dir", full_dir])
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    if launches != expected_fit_launches(cfg, EVAL_N):
+        raise AssertionError(f"train-accum launches {launches}")
+    rec = result["history"][0]
+    micro = EVAL_N // TRAIN_B
+    full = CheckpointManager(os.path.join(full_dir, cfg.train.name)).restore("last")
+    opt = full["opt_state"]
+    if (rec["train"]["steps"], full["step"], opt["count"], opt["mini_step"]) != (
+            micro, micro, micro // ACCUM_K, 0) or not np.isfinite(rec["train"]["loss"]):
+        raise AssertionError(f"train-accum: record {rec['train']}, step {full['step']}, "
+                             f"count {opt['count']}, mini_step {opt['mini_step']}")
+    want = independent_accumulation(device, cfg, data_root)
+    bad = [k for k in want if not torch.equal(full["params"][k], want[k])]
+    if bad:
+        raise AssertionError(f"train-accum differs from the independent accumulation: {bad[:5]}")
+    pre = [*args, "--train.output_dir", pre_dir, "--train.checkpoint_every_steps", "1"]
+    try:
+        train_cli.main([*pre, "--train.abort_at_step", "3"])
+        raise AssertionError("train-accum: abort_at_step 3 did not preempt the run")
+    except Preempted:
+        pass
+    mgr = CheckpointManager(os.path.join(pre_dir, cfg.train.name))
+    saved = mgr.restore("last")
+    if (saved["step"], saved["opt_state"]["mini_step"]) != (3, 1):
+        raise AssertionError(f"train-accum: saved at step {saved['step']}, mini_step "
+                             f"{saved['opt_state']['mini_step']}")
+    train_cli.main([*pre, "--train.resume", "last"])
+    resumed = mgr.restore("last")
+    bad = [k for k in full["params"] if not torch.equal(resumed["params"][k], full["params"][k])]
+    for key in ("mu", "nu", "acc_grads"):
+        bad += [f"{key}.{k}" for k in opt[key]
+                if not torch.equal(resumed["opt_state"][key][k], opt[key][k])]
+    if bad or resumed["step"] != full["step"]:
+        raise AssertionError(f"train-accum: the resumed run differs: {bad[:5]}")
+    phase("train-accum", k=ACCUM_K, micro_batches=micro, updates=micro // ACCUM_K, B=TRAIN_B,
+          loss=rec["train"]["loss"], clips_per_s=f"{rec['train']['clips_per_sec']:.1f}",
+          R1=rec["eval"]["R1"], equal_to_independent_accumulation=True,
+          resumed_from_micro_step=3, resume_bitwise_equal=True,
+          peak_mem_gb=f"{peak / 1e9:.2f}")
+
+
 RANK_KEYS = ("R1", "R3", "R5", "R10", "R20", "R25", "R50", "R100", "MedianR", "MeanR", "MRR")
 
 
+def device_busy(fn) -> tuple:
+    """(wall s, device busy s) of fn() under torch.profiler, as
+    scripts/profile_eval_cuda.py reads them."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(e.device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+    return wall, busy
+
+
+def sync_warnings(fn) -> list:
+    """The host syncs fn() makes, as torch.cuda.set_sync_debug_mode "warn"
+    reports them ("called a synchronizing CUDA operation"; the mode's own
+    notice that it is a prototype is not one)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [w for w in caught if "called a synchronizing" in str(w.message)]
+
+
+def resident_pass_syncs(model, resident: DeviceResidentData, cfg: Config,
+                        device: torch.device) -> int:
+    """Host syncs while the evaluator's resident pass gathers and steps
+    every batch, the padded order sent to the card first, as evaluate
+    sends it; a `.item()` is counted first, to show the count sees one."""
+    if not sync_warnings(lambda: torch.ones((), device=device).item()):
+        raise AssertionError("the sync debug mode did not report a .item()")
+    eval_step = make_eval_step(model, cfg)
+    bs, n = cfg.train.batch_size_val, len(resident)
+    order = np.concatenate([np.arange(n), np.full((-n) % bs, n - 1)])
+    chunks = torch.from_numpy(order.reshape(-1, bs)).to(device)
+    torch.cuda.synchronize()
+
+    @torch.no_grad()
+    def run():
+        for idx in chunks:
+            eval_step(gather_batch(resident.tree, idx))
+
+    syncs = sync_warnings(run)
+    torch.cuda.synchronize()
+    if syncs:
+        raise AssertionError(f"the resident pass waited on the card {len(syncs)} times: "
+                             f"{syncs[0].message}")
+    return len(syncs)
+
+
 def check_evaluate_cli(device: torch.device, tmp: str, run_dir: str, data_root: str,
-                       record: dict) -> dict:
+                       record: dict, card: str) -> dict:
     """`cli.evaluate` on the run's best_r1 checkpoint against the trainer's
-    record, then `evaluate` with and without kernel #4 on those weights;
-    returns the evaluation CLI's launch counts."""
+    record (its split resident through device_data "auto"), then `evaluate`
+    with and without kernel #4 on those weights, then on the resident and
+    the host path: ranks, IoUs and spans equal exactly, wall times in turns
+    and each path's device busy share under the profiler; returns the
+    evaluation CLI's launch counts."""
     cfg = Config()
     csv = os.path.join(data_root, "data.csv")
     reset_counts()
     t0 = time.perf_counter()
-    results = evaluate_cli.main(["--ckpt", "best_r1", "--run-dir", run_dir, "--split", "val",
-                                 "--data.val_csv", csv, "--data.feature_root", data_root,
-                                 "--save-json", os.path.join(tmp, "results.json")])
+    with host_feeds() as (_, ev):
+        results = evaluate_cli.main(["--ckpt", "best_r1", "--run-dir", run_dir, "--split",
+                                     "val", "--data.val_csv", csv, "--data.feature_root",
+                                     data_root, "--save-json", os.path.join(tmp, "results.json")])
     cli_s = time.perf_counter() - t0
     launches = read_counts()
+    if ev.call_count:
+        raise AssertionError("evaluate-cli fed from the host under device_data auto")
     if launches != eval_launches(cfg, EVAL_N):
         raise AssertionError(f"evaluate-cli launches {launches}, want "
                              f"{eval_launches(cfg, EVAL_N)}")
@@ -1364,6 +1713,32 @@ def check_evaluate_cli(device: torch.device, tmp: str, run_dir: str, data_root: 
           fused_seconds=f"{fused_s:.3f}", plain_seconds=f"{plain_s:.3f}",
           sim_max_abs_err=sim_err, ranks_moved=len(moved),
           near_tie_rows=int(near.sum()), tie_atol=RANK_TIE_ATOL)
+    resident = DeviceResidentData(data, device)
+    syncs = resident_pass_syncs(model, resident, cfg, device)
+    paths = {"resident": resident, "host": data}
+    out, walls = {}, {name: [] for name in paths}
+    for turn in range(EVAL_TURNS):
+        for name in (("host", "resident") if turn % 2 == 0 else ("resident", "host")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[name] = evaluate(model, paths[name], cfg)
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+    for key in ("ranks", "ious", "pred_spans"):
+        if not same_bits(out["resident"][key], out["host"][key]):
+            raise AssertionError(f"resident and host evaluations differ in {key}")
+    if not torch.equal(out["resident"]["sim"], out["host"]["sim"]):
+        raise AssertionError("resident and host evaluations differ in the similarity")
+    busy = {name: device_busy(lambda: evaluate(model, d, cfg)) for name, d in paths.items()}
+    phase("evaluate", rows=EVAL_N, batch=cfg.train.batch_size_val, turns=EVAL_TURNS,
+          resident_median_s=f"{np.median(walls['resident']):.3f}",
+          host_median_s=f"{np.median(walls['host']):.3f}",
+          resident_s=",".join(f"{t:.3f}" for t in walls["resident"]),
+          host_s=",".join(f"{t:.3f}" for t in walls["host"]),
+          **{f"{name}_traced_wall_s": f"{w:.3f}" for name, (w, _) in busy.items()},
+          **{f"{name}_device_busy_s": f"{b:.3f}" for name, (_, b) in busy.items()},
+          **{f"{name}_busy_share": f"{b / w:.3f}" for name, (w, b) in busy.items()},
+          ranks_ious_spans_equal=True, resident_batch_syncs=syncs, card=json.dumps(card))
     phase("launches", path="evaluate-cli", **launches)
     return launches
 
@@ -1715,8 +2090,8 @@ def check_extract(device: torch.device, tmp: str) -> dict:
     if launches != want:
         raise AssertionError(f"extract launches {launches}, want {want}")
 
-    video = PackedFeatureStore(os.path.join(out, "video_store"))
-    music = PackedFeatureStore(os.path.join(out, "music_store"))
+    video = PackedFeatureStore(os.path.join(out, "video_store"), use_native=False)
+    music = PackedFeatureStore(os.path.join(out, "music_store"), use_native=False)
     vf, vm = np.asarray(video.arrays["feats"]), np.asarray(video.arrays["mask"])
     mf, mm = np.asarray(music.arrays["feats"]), np.asarray(music.arrays["mask"])
     n_v, n_m = len(EXTRACT_FRAMES), len(EXTRACT_TRACKS)
@@ -1786,6 +2161,7 @@ def main() -> int:
     device = resolve_device("cuda")
     name, card = check_device()
     build_kernels()
+    native_seconds = build_native()
     entries = (check_encoder(device) + check_xpool(device) + check_temporal(device)
                + check_decoder(device))
     launches = check_train(device)
@@ -1798,8 +2174,12 @@ def main() -> int:
     entries.append(check_eval_kernel(device))
     with tempfile.TemporaryDirectory() as tmp:
         run_dir, data_root, record, fit_launches = check_train_cli(tmp)
+        check_native_io(data_root, native_seconds, card)
+        check_device_data(device, data_root, card)
+        check_train_cli_host(tmp, data_root, run_dir, record)
         check_train_cli_fused(tmp, data_root)
-        check_evaluate_cli(device, tmp, run_dir, data_root, record)
+        check_train_accum(device, tmp, data_root)
+        check_evaluate_cli(device, tmp, run_dir, data_root, record, card)
         check_eval_q(device, data_root)
     entries.append(check_flash(device))
     with tempfile.TemporaryDirectory() as tmp:

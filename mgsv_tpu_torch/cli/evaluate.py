@@ -17,8 +17,11 @@ init of train.seed.  Config overrides and their defaults are the JAX CLI's;
 `--device` (default cuda) replaces its platform flags.  The corpus X-Pool
 similarity runs on the evaluation kernel on a CUDA device (the plain
 blocked path on the CPU), so `--fused-sim`, the JAX CLI's switch to its
-kernel, is accepted and changes nothing.  Prints each tag's metrics and,
-last, one `EVAL_RESULT` line.
+kernel, is accepted and changes nothing.  `--train.device_data` takes the
+Trainer's policy (data/device_data.py::use_device_data): "on" makes the
+split resident on the device, "auto" (the default) does so on a CUDA device
+when its stores take under 6 GiB, "off" feeds it from the host.  Prints
+each tag's metrics and, last, one `EVAL_RESULT` line.
 """
 
 from __future__ import annotations
@@ -92,6 +95,7 @@ def main(argv=None):
 
     from mgsv_tpu_torch.core.device import check_mesh_shape, resolve_device
     from mgsv_tpu_torch.data.dataset import MgsvDataset
+    from mgsv_tpu_torch.data.device_data import DeviceResidentData, use_device_data
     from mgsv_tpu_torch.eval.evaluator import evaluate
     from mgsv_tpu_torch.eval.metrics import save_results_json
     from mgsv_tpu_torch.models.made import MaDe
@@ -140,6 +144,9 @@ def main(argv=None):
             data = MgsvDataset.open(csv, os.path.join(cfg.data.feature_root, "video_store"),
                                     os.path.join(cfg.data.feature_root, "music_store"),
                                     cfg.data.max_m_duration)
+            if use_device_data(cfg.train.device_data, device, data):
+                data = DeviceResidentData(data, device)
+                logging.info("device-resident dataset enabled on %s", data.device)
         res = evaluate(model, data, cfg, eval_step=eval_step)
         summary = {**res["retrieval"], **res["localization"], **res["composite"]}
         summary.pop("cols", None)

@@ -211,7 +211,7 @@ def merge_shards(args) -> None:
             root = os.path.join(args.out, f"shard_{k}", store_name)
             if not os.path.isdir(root):
                 continue
-            st = PackedFeatureStore(root)
+            st = PackedFeatureStore(root, use_native=False)
             rows = np.arange(len(st))
             ids.extend(st.ids)
             feats.append(st.gather("feats", rows, dtype=None))

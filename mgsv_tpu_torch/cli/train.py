@@ -6,9 +6,13 @@
     python -m mgsv_tpu_torch.cli.train --data.feature_root features/Kuai_feature
 
 Config overrides are the JAX CLI's `--section.key value` pairs; defaults
-are the paper configuration.  `--device` (default cuda) takes the place of
-the JAX CLI's --platform / --cpu-devices / --coordinator: the port trains
-in one process on one device.  The run writes history.json and the
+are the paper configuration.  `--train.gradient_accumulation_steps k`
+updates once per k micro-batches (optax.MultiSteps' mean);
+`--train.device_data on|off|auto` makes the data resident on the device
+("auto", the default: on a CUDA device when the stores take under 6 GiB).
+`--device` (default cuda) takes the place of the JAX CLI's --platform /
+--cpu-devices / --coordinator: the port trains in one process on one
+device.  The run writes history.json and the
 checkpoints under train.output_dir/train.name and prints the best metrics
 as JSON.
 """

@@ -32,4 +32,4 @@ def check_mesh_shape(mesh_shape) -> None:
     if tuple(mesh_shape) != (1, 1):
         raise NotImplementedError(
             f"train.mesh_shape={tuple(mesh_shape)}: the port runs on one device; "
-            "multi-GPU is not ported yet (ROADMAP.md, queue 1, item 4: multi-GPU)")
+            "multi-GPU is not ported yet (ROADMAP.md, queue 1: multi-GPU)")

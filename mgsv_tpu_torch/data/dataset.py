@@ -1,8 +1,8 @@
 """Dataset binding a CSV index to the feature stores, with epoch iterators;
 ported from mgsv_tpu/data/dataset.py.
 
-Batches are assembled on the host as numpy (one fancy-index gather from the
-memory-mapped stores), shuffled per epoch with a seeded permutation (the
+Batches are assembled on the host as numpy (one row gather per store array,
+through the native gather of runtime/native.py), shuffled per epoch with a seeded permutation (the
 reference's sampler.set_epoch), train drops the last partial batch and eval
 pads it with a validity mask.  The index stream is the JAX package's, so
 both packages see the same batches in the same order.

@@ -12,23 +12,32 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Dict, List, Mapping, Optional, Sequence
+from typing import Any, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 
 
 class PackedFeatureStore:
-    """Immutable memmapped id -> row feature store."""
+    """Immutable id -> row feature store.  use_native (the default) gathers
+    rows through the native library (runtime/native.py: mmap plus a threaded
+    copy that widens float16 to float32 in the same pass) and raises when
+    that library cannot be built or loaded; use_native=False reads numpy
+    memmaps."""
 
-    def __init__(self, root: str):
+    def __init__(self, root: str, use_native: bool = True):
         self.root = root
         with open(os.path.join(root, "meta.json")) as f:
             meta = json.load(f)
         self.ids: List[str] = meta["ids"]
         self.row_of: Dict[str, int] = {i: r for r, i in enumerate(self.ids)}
-        self.arrays: Dict[str, np.ndarray] = {
-            name: np.load(os.path.join(root, f"{name}.npy"), mmap_mode="r")
-            for name in meta["arrays"]}
+        self.arrays: Dict[str, Any] = {}
+        for name, spec in meta["arrays"].items():
+            path = os.path.join(root, f"{name}.npy")
+            if use_native:
+                from mgsv_tpu_torch.runtime.native import NativeStore
+                self.arrays[name] = NativeStore(path, spec["shape"], spec["dtype"])
+            else:
+                self.arrays[name] = np.load(path, mmap_mode="r")
 
     def __len__(self) -> int:
         return len(self.ids)
@@ -38,8 +47,19 @@ class PackedFeatureStore:
 
     def gather(self, name: str, row_idx: np.ndarray,
                dtype: Optional[np.dtype] = np.float32) -> np.ndarray:
-        out = self.arrays[name][row_idx]
+        """Rows `row_idx` of array `name` as dtype (None: the storage dtype)."""
+        arr = self.arrays[name]
+        if not isinstance(arr, np.ndarray):
+            return arr.gather(row_idx, out_dtype=dtype)
+        out = arr[row_idx]
         return out.astype(dtype) if dtype is not None else np.asarray(out)
+
+    def prefetch(self, name: str, row_idx: np.ndarray) -> None:
+        """Ask the OS to read the pages of rows `row_idx` ahead (native
+        stores; the memmap leaves it to the page cache's readahead)."""
+        arr = self.arrays[name]
+        if not isinstance(arr, np.ndarray):
+            arr.prefetch(row_idx)
 
     @staticmethod
     def build(root: str, ids: Sequence[str],

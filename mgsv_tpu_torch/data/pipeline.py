@@ -1,10 +1,10 @@
 """Input pipeline: background batch assembly and asynchronous copies to the
 device; the single-process part of mgsv_tpu/data/pipeline.py.
 
-A background thread gathers the next batches from the memory-mapped stores
-(the gather and the float16 -> float32 cast are numpy copies that release
-the interpreter lock) into page-locked host memory when the device is a
-GPU, while the current step runs; the consumer copies each batch to the
+A background thread gathers the next batches from the stores (the native
+gather of runtime/native.py widens float16 to float32 in its copy, on its
+own threads, with the interpreter lock released) into page-locked host
+memory when the device is a GPU, while the current step runs; the consumer copies each batch to the
 device with `non_blocking=True`, so the copy overlaps the work already
 queued there.  A producer error is raised in the consumer.
 """

@@ -1,14 +1,19 @@
 """A full evaluation: forward every batch, corpus similarity, metrics;
-ported from mgsv_tpu/eval/evaluator.py (single device, host-fed).
+ported from mgsv_tpu/eval/evaluator.py (single device).
 
 One implementation serves the training loop and the evaluation CLI, as in
 the JAX package.  The per-batch outputs stay on the device until the one
 corpus similarity; the final partial batch is padded (repeat the last row)
 and its padding excluded from every metric; the loss of each batch is
-weighted by its valid rows.  The corpus X-Pool similarity runs on the
-evaluation kernel (ops/cuda/xpool_sim.py::xpool_sim_eval) on a CUDA device
-and blocked in plain PyTorch on the CPU, unless `use_fused_sim` says
-otherwise; the ranking runs where the similarity lies.
+weighted by its valid rows.  A host dataset is fed by the input pipeline;
+a device-resident one (data/device_data.py) takes the resident pass, the
+twin of JAX's single-dispatch scan: the padded order's indices go to the
+device once, each batch is gathered there, and no batch waits on the host,
+with outputs equal to the host loop's bit for bit.  The corpus X-Pool
+similarity runs on the evaluation kernel
+(ops/cuda/xpool_sim.py::xpool_sim_eval) on a CUDA device and blocked in
+plain PyTorch on the CPU, unless `use_fused_sim` says otherwise; the
+ranking runs where the similarity lies.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import torch
 
 from mgsv_tpu_torch.config import Config
 from mgsv_tpu_torch.data.dataset import MgsvDataset
+from mgsv_tpu_torch.data.device_data import DeviceResidentData, gather_batch
 from mgsv_tpu_torch.data.pipeline import prefetch_epoch
 from mgsv_tpu_torch.eval import metrics as M
 from mgsv_tpu_torch.eval.similarity import (dual_similarity, xpool_sim_fused,
@@ -31,7 +37,7 @@ from mgsv_tpu_torch.train.step import make_eval_step
 @torch.no_grad()
 def evaluate(
     model: MaDe,
-    dataset: MgsvDataset,
+    dataset: MgsvDataset | DeviceResidentData,
     cfg: Config,
     batch_size: Optional[int] = None,
     eval_step=None,
@@ -49,7 +55,7 @@ def evaluate(
     kernel (when no eval_step is given)."""
     if mesh is not None:
         raise NotImplementedError("multi-device evaluation is not ported yet "
-                                  "(ROADMAP.md, queue 1, item 9)")
+                                  "(ROADMAP.md, queue 1: multi-GPU)")
     device = next(model.parameters()).device
     batch_size = batch_size or cfg.train.batch_size_val
     eval_step = eval_step or make_eval_step(model, cfg, fused_decoder)
@@ -58,10 +64,8 @@ def evaluate(
 
     video_embs, music_embs, seg_tokens, seg_masks = [], [], [], []
     ious, pred_spans, losses, weights = [], [], [], []
-    video_ids, music_ids = [], []
-    for batch, meta in prefetch_epoch(dataset, batch_size, shuffle=False, drop_last=False,
-                                      device=device):
-        out = eval_step(batch)
+
+    def collect(out, valid_rows: int) -> None:
         video_embs.append(out["video_emb"])
         music_embs.append(out["music_emb"])
         seg_tokens.append(out["seg_tokens"])
@@ -71,9 +75,26 @@ def evaluate(
         # the padded final batch's in-batch loss still sees its padding rows
         # as extra negatives; weighting by valid rows keeps its share small
         losses.append(out["loss"])
-        weights.append(int(meta.valid.sum()))
-        video_ids.extend(v for v, ok in zip(meta.video_ids, meta.valid) if ok)
-        music_ids.extend(m for m, ok in zip(meta.music_ids, meta.valid) if ok)
+        weights.append(valid_rows)
+
+    if isinstance(dataset, DeviceResidentData):
+        if dataset.device != device:
+            raise ValueError(f"resident data on {dataset.device}, model on {device}")
+        n = len(dataset)
+        pad = (-n) % batch_size
+        order = np.concatenate([np.arange(n), np.full(pad, n - 1)])
+        chunks = torch.from_numpy(order.reshape(-1, batch_size)).to(device)
+        for i, idx in enumerate(chunks):
+            collect(eval_step(gather_batch(dataset.tree, idx)),
+                    batch_size - pad if i == len(chunks) - 1 else batch_size)
+        video_ids, music_ids = list(dataset.index.video_ids), list(dataset.index.music_ids)
+    else:
+        video_ids, music_ids = [], []
+        for batch, meta in prefetch_epoch(dataset, batch_size, shuffle=False,
+                                          drop_last=False, device=device):
+            collect(eval_step(batch), int(meta.valid.sum()))
+            video_ids.extend(v for v, ok in zip(meta.video_ids, meta.valid) if ok)
+            music_ids.extend(m for m, ok in zip(meta.music_ids, meta.valid) if ok)
 
     # padding rows exist only at the tail of the final batch
     n = len(video_ids)
@@ -130,4 +151,4 @@ def corpus_similarity(
     if lc.vmr_loss in ("dual_single_sim_fuse", "dual_single_loss_fuse"):
         return pooled_sim() * 1.0 + dual_similarity(video_embs, music_embs) * 1.0
     raise NotImplementedError(f"vmr_loss={lc.vmr_loss!r} is not ported yet "
-                              "(ROADMAP.md, queue 1, item 7: variant matrix)")
+                              "(ROADMAP.md, queue 1: variant matrix)")

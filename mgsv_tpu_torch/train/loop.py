@@ -5,7 +5,11 @@ process, one device).
 One Trainer replaces the reference's duplicated train-MaDe.py /
 test-MaDe.py loops.  A step launches its work and returns: the loss is read
 on the host only at the sampled NaN check (steps 1, 51, ...), at log points
-and at checkpoints, and once per epoch for its statistics.
+and at checkpoints, and once per epoch for its statistics.  A step is one
+micro-batch: with train.gradient_accumulation_steps = k the optimizer
+updates every k-th.  train.device_data decides, as in JAX, whether the
+datasets are made resident on the device (data/device_data.py) or fed by
+the host pipeline.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from mgsv_tpu_torch.core.checkpoint import BestMetricTracker, CheckpointManager
 from mgsv_tpu_torch.core.device import check_mesh_shape, resolve_device
 from mgsv_tpu_torch.core.profiling import StepProfiler
 from mgsv_tpu_torch.data.dataset import MgsvDataset
+from mgsv_tpu_torch.data.device_data import DeviceResidentData, use_device_data
 from mgsv_tpu_torch.data.pipeline import prefetch_epoch
 from mgsv_tpu_torch.eval.evaluator import evaluate
 from mgsv_tpu_torch.models.made import MaDe
@@ -71,13 +76,25 @@ class Trainer:
     ):
         """device: where the model trains, a CUDA device unless the caller
         asks for the CPU.  Each evaluation runs `evaluate` as it defaults
-        (the corpus similarity on kernel #4 on a CUDA device)."""
+        (the corpus similarity on kernel #4 on a CUDA device).  With
+        train.device_data "on", or "auto" on a CUDA device with stores
+        under the budget, the training data is made resident on the device,
+        and the validation data too, sharing the copy when it is the same
+        dataset."""
         if mesh is not None:
             raise NotImplementedError("multi-device training is not ported yet "
-                                      "(ROADMAP.md, queue 1, item 9)")
+                                      "(ROADMAP.md, queue 1: multi-GPU)")
         check_mesh_shape(cfg.train.mesh_shape)
         self.cfg = cfg
         self.device = resolve_device(device)
+        if train_data is not None and use_device_data(cfg.train.device_data, self.device,
+                                                      train_data):
+            resident = DeviceResidentData(train_data, self.device)
+            logger.info("device-resident dataset enabled on %s", resident.device)
+            if val_data is not None:
+                val_data = (resident if val_data is train_data
+                            else DeviceResidentData(val_data, self.device))
+            train_data = resident
         self.train_data = train_data
         self.val_data = val_data
         self.run_dir = run_dir or os.path.join(cfg.train.output_dir, cfg.train.name)
@@ -86,7 +103,7 @@ class Trainer:
         self.tracker = BestMetricTracker()
         steps_per_epoch = (train_data.num_batches(cfg.train.batch_size_train)
                            if train_data is not None else 1)
-        self.total_steps = steps_per_epoch * cfg.train.epochs
+        self.total_steps = steps_per_epoch * cfg.train.epochs     # micro-batches
         self.model: Optional[MaDe] = None
         self.optimizer = None
         self.train_step = self.eval_step = None
@@ -113,16 +130,15 @@ class Trainer:
 
     @property
     def step(self) -> int:
-        """Updates applied so far (the JAX state's `step`)."""
-        return self.optimizer.count
+        """Micro-batches applied so far (the JAX state's `step`)."""
+        return self.optimizer.micro_step
 
     def _snapshot(self, epoch: int, with_opt: bool = True, **extra) -> Dict[str, Any]:
         """The state as CPU copies: {params, [opt_state,] step, epoch, ...}."""
         state: Dict[str, Any] = {"params": _cpu_copy(self.model.state_dict())}
         if with_opt:
-            opt = self.optimizer.state_dict()
-            state["opt_state"] = {"count": opt["count"], "mu": _cpu_copy(opt["mu"]),
-                                  "nu": _cpu_copy(opt["nu"])}
+            state["opt_state"] = {k: _cpu_copy(v) if isinstance(v, dict) else v
+                                  for k, v in self.optimizer.state_dict().items()}
         state.update(step=self.step, epoch=epoch, **extra)
         return state
 
@@ -196,9 +212,14 @@ class Trainer:
         every = cfg.train.checkpoint_every_steps
         log_every = max(1, self.train_data.num_batches(batch_size) // cfg.train.log_every)
         profiler = StepProfiler(self.run_dir, enabled=cfg.train.profile and epoch == 1)
-        with contextlib.closing(prefetch_epoch(
-                self.train_data, batch_size, shuffle=True, device=self.device,
-                seed=cfg.train.seed, epoch=epoch, start_batch=start_step)) as batches:
+        if isinstance(self.train_data, DeviceResidentData):
+            stream = self.train_data.epoch_batches(batch_size, shuffle=True, seed=cfg.train.seed,
+                                                   epoch=epoch, start_batch=start_step)
+        else:
+            stream = prefetch_epoch(self.train_data, batch_size, shuffle=True,
+                                    device=self.device, seed=cfg.train.seed, epoch=epoch,
+                                    start_batch=start_step)
+        with contextlib.closing(stream) as batches:
             for batch, _meta in batches:
                 profiler.step(steps)
                 log = self.train_step(batch)

@@ -1,4 +1,5 @@
-"""Three-group Adam, ported from mgsv_tpu/train/optimizer.py.
+"""Three-group Adam with gradient accumulation, ported from
+mgsv_tpu/train/optimizer.py.
 
 The reference's prep_optimizer builds Adam over three parameter groups:
 temporal (projections + temporal transformers, lr = matching_lr), matching
@@ -14,10 +15,19 @@ with k the update count (0 first).  Not torch.nn.utils.clip_grad_norm_,
 which adds 1e-6 to the norm, nor torch.optim.Adam, whose schedule and eps
 placement differ.  `decoder_query_embed` belongs to no reference group and
 never updates unless train_query_embed is set.  Parameter gradients are
-read, never rewritten.  `state_dict` holds the update count and mu, nu by
-parameter name, so a checkpoint restores into a fresh optimizer and a
-resumed run replays bit for bit (the step's dropout is keyed on the
-count).  Gradient accumulation is still to port (ROADMAP.md).
+read, never rewritten.
+
+With train.gradient_accumulation_steps = k > 1 the update is
+optax.MultiSteps' (optax 0.2.6, transforms/_accumulation.py): each call
+folds the micro-batch's gradient into the running mean,
+acc <- acc + (g - acc) / (mini_step + 1), and only at mini_step = k - 1 runs
+the clipped Adam above on that mean, advances the update count (and with it
+the schedules and bias corrections) and zeroes the mean.  The schedules'
+horizon is the run's micro-batches divided by k.  `state_dict` holds the
+update count, mu, nu, the accumulation's mini_step, gradient_step and mean
+by parameter name, so a checkpoint restores into a fresh optimizer and a
+resumed run replays bit for bit (the step's dropout is keyed on
+`micro_step`).
 """
 
 from __future__ import annotations
@@ -71,13 +81,14 @@ def global_norm(tensors) -> torch.Tensor:
 
 
 class GroupedAdam:
-    """Adam with per-group global-norm clipping and a schedule per group."""
+    """Adam with per-group global-norm clipping and a schedule per group,
+    accumulating k micro-batches per update."""
 
     def __init__(self, model: nn.Module, cfg: Config, total_steps: int):
+        """total_steps: micro-batches over the run."""
         t = cfg.train
-        if t.gradient_accumulation_steps > 1:
-            raise NotImplementedError("gradient accumulation is not ported yet (ROADMAP.md)")
-        total_steps = max(1, total_steps)
+        self.k = max(1, t.gradient_accumulation_steps)
+        total_steps = max(1, total_steps // self.k)
         warmup = int(total_steps * t.warmup_rate)
         sched = lambda lr: make_schedule(t.scheduler, lr, warmup, total_steps,
                                          decay_rate=t.decay_rate,
@@ -88,33 +99,82 @@ class GroupedAdam:
         self.b1, self.b2, self.eps, self.max_norm = t.adam_b1, t.adam_b2, t.adam_eps, t.max_grad_norm
         self.state = {name: (torch.zeros_like(p), torch.zeros_like(p))
                       for g in self.schedules for name, p in self.groups[g]}
+        # the running mean of this update's micro-batch gradients (k > 1)
+        self.acc = ({name: torch.zeros_like(p) for g in self.schedules
+                     for name, p in self.groups[g]} if self.k > 1 else {})
         self.count = 0
+        self.mini_step = 0
+
+    @property
+    def micro_step(self) -> int:
+        """Micro-batches applied so far (the JAX train state's `step`)."""
+        return self.count * self.k + self.mini_step
 
     def state_dict(self) -> Dict[str, Any]:
-        """{"count", "mu": {name: tensor}, "nu": {name: tensor}}: the live
-        moment tensors, not copies."""
+        """{"count", "mu", "nu", "mini_step", "gradient_step", "acc_grads"}:
+        the live tensors, not copies; gradient_step (MultiStepsState's name)
+        equals count."""
         return {"count": self.count,
                 "mu": {name: mu for name, (mu, _) in self.state.items()},
-                "nu": {name: nu for name, (_, nu) in self.state.items()}}
+                "nu": {name: nu for name, (_, nu) in self.state.items()},
+                "mini_step": self.mini_step, "gradient_step": self.count,
+                "acc_grads": dict(self.acc)}
 
     @torch.no_grad()
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         """Copy a `state_dict` (any device) into this optimizer's tensors;
         the names must be this optimizer's, exactly."""
-        for key in ("mu", "nu"):
-            if state[key].keys() != self.state.keys():
-                missing = sorted(self.state.keys() ^ state[key].keys())
+        acc = state.get("acc_grads", {})
+        for key, have, got in (("mu", self.state, state["mu"]),
+                               ("nu", self.state, state["nu"]),
+                               ("acc_grads", self.acc, acc)):
+            if got.keys() != have.keys():
+                missing = sorted(have.keys() ^ got.keys())
                 raise KeyError(f"optimizer state {key}: names differ: {missing[:5]}")
+        mini_step = int(state.get("mini_step", 0))
+        if not 0 <= mini_step < self.k:
+            raise ValueError(f"optimizer state mini_step {mini_step} with "
+                             f"gradient_accumulation_steps {self.k}")
         for name, (mu, nu) in self.state.items():
             mu.copy_(state["mu"][name])
             nu.copy_(state["nu"][name])
+        for name, a in self.acc.items():
+            a.copy_(acc[name])
         self.count = int(state["count"])
+        self.mini_step = mini_step
 
     @torch.no_grad()
     def step(self) -> None:
-        """One update from the parameters' .grad (None counts as zero), each
-        group's arithmetic in multi-tensor (torch._foreach_*) launches, in
-        optax's operation order."""
+        """Take the parameters' .grad (None counts as zero) as one
+        micro-batch's gradient: at k = 1 update at once; else fold it into
+        the running mean and update from that at every k-th call."""
+        def grads_of(named):
+            return [p.grad if p.grad is not None else torch.zeros_like(p) for _, p in named]
+
+        if self.k == 1:
+            self._update(grads_of)
+            return
+        n = self.mini_step + 1
+        for group in self.schedules:
+            named = self.groups[group]
+            if named:
+                # acc <- acc + (g - acc) / n, in MultiSteps' order
+                accs = [self.acc[name] for name, _ in named]
+                delta = torch._foreach_sub(grads_of(named), accs)
+                torch._foreach_div_(delta, n)
+                torch._foreach_add_(accs, delta)
+        if n < self.k:
+            self.mini_step = n
+            return
+        self._update(lambda named: [self.acc[name] for name, _ in named])
+        for a in self.acc.values():
+            a.zero_()
+        self.mini_step = 0
+
+    def _update(self, grads_of) -> None:
+        """One clipped Adam update from grads_of(group's named parameters),
+        each group's arithmetic in multi-tensor (torch._foreach_*) launches,
+        in optax's operation order."""
         k = self.count + 1
         for group, schedule in self.schedules.items():
             named = self.groups[group]
@@ -122,7 +182,7 @@ class GroupedAdam:
                 continue
             params = [p for _, p in named]
             device = params[0].device
-            grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+            grads = grads_of(named)
             mus = [self.state[name][0] for name, _ in named]
             nus = [self.state[name][1] for name, _ in named]
             # made on the device (a copy from the host would wait for it)
@@ -176,5 +236,6 @@ def log_param_audit(logger: logging.Logger, model: nn.Module,
 
 
 def make_optimizer(model: nn.Module, cfg: Config, total_steps: int) -> GroupedAdam:
-    """total_steps: updates over the run (the schedules' horizon)."""
+    """total_steps: micro-batches over the run; the schedules' horizon is
+    total_steps // gradient_accumulation_steps updates."""
     return GroupedAdam(model, cfg, total_steps)

@@ -47,15 +47,18 @@ def make_train_step(model: MaDe, cfg: Config, optimizer: GroupedAdam,
     """step(batch) -> log.  batch: tensors on the model's device, keyed as
     data/example_batch.py makes them.  The log holds the losses,
     train_iou [B] and grad_norm (the norm over every gradient, frozen
-    parameters included, as optax.global_norm(grads) is), as tensors.
-    After the step each parameter's .grad holds its gradient.  Dropout
-    draws from (cfg.train.seed, the optimizer's update count).
+    parameters included, as optax.global_norm(grads) is), as tensors; with
+    gradient accumulation grad_norm is this micro-batch's, as JAX logs it.
+    After the step each parameter's .grad holds its gradient.  Dropout, the
+    kernels' Philox seeds included, draws from (cfg.train.seed, the
+    optimizer's micro_step): JAX folds state.step into its rng, and flax's
+    apply_gradients advances state.step on every micro-batch.
     fused_decoder: the DETR decoder on the decoder-layer kernel
     (MaDe.forward; it raises for a detr_dropout above 0)."""
     params = list(model.parameters())
 
     def train_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        generator = step_generator(cfg.train.seed, optimizer.count,
+        generator = step_generator(cfg.train.seed, optimizer.micro_step,
                                    batch["frame_feats"].device)
         for p in params:
             p.grad = None

@@ -1,12 +1,14 @@
 """Where the time goes in the PyTorch port's evaluation, on one CUDA GPU.
 
-    python3 scripts/profile_eval_cuda.py [--rows 2048]
+    python3 scripts/profile_eval_cuda.py [--rows 2048] [--device-data off|on]
 
 Builds MaDe(Config()) (the paper widths, seeded random weights) and a
 generated dataset of `--rows` rows (data/synthetic.py, in a temporary
-directory), then times on the host clock, each ending in a synchronize:
-the input pipeline alone (`prefetch_epoch` at B=40), the pipeline with
-the evaluation step per batch, the corpus similarity with kernel #4 and
+directory), with `--device-data on` made resident on the card
+(data/device_data.py, the upload timed), then times on the host clock,
+each ending in a synchronize: the input alone (the host pipeline,
+`prefetch_epoch` at B=40, or the resident gather of the evaluation's
+padded order), the input with the evaluation step per batch, the corpus similarity with kernel #4 and
 with the plain blocked path (in turns), the ranking, and `evaluate` whole
 with and without the kernel (in turns).  Then it traces one `evaluate`
 with torch.profiler and prints the device time by kernel and the device's
@@ -26,12 +28,15 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 from mgsv_tpu_torch.config import Config
 from mgsv_tpu_torch.core.device import resolve_device
 from mgsv_tpu_torch.data import synthetic
+from mgsv_tpu_torch.data.device_data import (DeviceResidentData, dataset_device_bytes,
+                                             gather_batch)
 from mgsv_tpu_torch.data.pipeline import prefetch_epoch
 from mgsv_tpu_torch.eval import metrics as M
 from mgsv_tpu_torch.eval.evaluator import corpus_similarity, evaluate
@@ -65,6 +70,8 @@ def show(times, unit: float = 1.0) -> str:
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--rows", type=int, default=2048, help="rows of the generated split")
+    parser.add_argument("--device-data", choices=("off", "on"), default="off",
+                        help="on: evaluate the split resident on the card")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_eval_cuda: no CUDA device", file=sys.stderr)
@@ -83,27 +90,44 @@ def main() -> int:
         synthetic.generate(tmp, n_rows=args.rows, data_cfg=cfg.data)
         data = synthetic.open_synthetic(tmp, cfg.data)
         print(f"data: {args.rows} rows generated in {time.perf_counter() - t0:.2f} s")
+        if args.device_data == "on":
+            host = data
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            data = DeviceResidentData(host, device)
+            torch.cuda.synchronize()
+            upload = time.perf_counter() - t0
+            print(f"resident: {dataset_device_bytes(host)} bytes uploaded in {upload:.3f} s")
+
+        def batches():
+            """The evaluation's batches on the card, as evaluate feeds them."""
+            if args.device_data == "on":
+                pad = (-args.rows) % batch
+                order = np.concatenate([np.arange(args.rows), np.full(pad, args.rows - 1)])
+                for idx in torch.from_numpy(order.reshape(-1, batch)).to(device):
+                    yield gather_batch(data.tree, idx)
+                return
+            with contextlib.closing(prefetch_epoch(data, batch, shuffle=False, drop_last=False,
+                                                   device=device)) as stream:
+                for b, _ in stream:
+                    yield b
 
         def pipeline():
-            with contextlib.closing(prefetch_epoch(data, batch, shuffle=False, drop_last=False,
-                                                   device=device)) as batches:
-                for _ in batches:
-                    pass
+            for _ in batches():
+                pass
 
         outs = []
 
         def forward():
             outs.clear()
-            with contextlib.closing(prefetch_epoch(data, batch, shuffle=False, drop_last=False,
-                                                   device=device)) as batches:
-                for b, _ in batches:
-                    outs.append(eval_step(b))
+            for b in batches():
+                outs.append(eval_step(b))
 
         pipeline()
-        print(f"pipeline alone: {seconds(pipeline):.3f} s "
-              f"({-(-args.rows // batch)} batches of {batch})")
+        print(f"input alone ({'resident gather' if args.device_data == 'on' else 'pipeline'}): "
+              f"{seconds(pipeline):.3f} s ({-(-args.rows // batch)} batches of {batch})")
         forward()
-        print(f"pipeline + eval step: {seconds(forward):.3f} s")
+        print(f"input + eval step: {seconds(forward):.3f} s")
         cat = lambda k: torch.cat([o[k] for o in outs])[:args.rows]
         embs = [cat(k) for k in ("video_emb", "music_emb", "seg_tokens", "segment_mask")]
         sims = {}

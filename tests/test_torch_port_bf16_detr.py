@@ -176,9 +176,9 @@ def test_mesh_shape_beyond_one_device_raises(tmp_path):
     and refuses any other shape in the Trainer and the evaluation CLI."""
     cfg = Config.from_overrides({**TINY, "train.mesh_shape": (2, 1),
                                  "train.output_dir": str(tmp_path)})
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
+    with pytest.raises(NotImplementedError, match="queue 1: multi-GPU"):
         Trainer(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
+    with pytest.raises(NotImplementedError, match="queue 1: multi-GPU"):
         evaluate_cli.main(["--device", "cpu", "--train.mesh_shape", "[2, 1]"])
     Trainer(dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, mesh_shape=(1, 1))),
             device="cpu")

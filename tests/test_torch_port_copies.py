@@ -1,8 +1,8 @@
 """The port's own copies of the JAX package's framework-free pieces agree
 with the originals: the typed Config, the `--section.key` override parser,
 the reference state-dict key map, the example batch, the synthetic data
-generator, the CSV index, the epoch index stream, the best-metric tracker
-and the host rankings."""
+generator, the CSV index, the epoch index stream, the native gather's C++
+source, the best-metric tracker and the host rankings."""
 
 import dataclasses
 
@@ -156,6 +156,15 @@ def test_epoch_index_batches_equal_jax(n, bs, shuffle, drop_last, start):
         for (i, v), (ji, jv) in zip(got, want):
             np.testing.assert_array_equal(i, ji)
             np.testing.assert_array_equal(v, jv)
+
+
+def test_native_gather_source_is_a_copy():
+    """runtime/mgsv_io.cc, the native gather the port builds, is the JAX
+    package's byte for byte."""
+    import mgsv_tpu.runtime.native as jax_native
+    from mgsv_tpu_torch.runtime import native
+    with open(native.SOURCE, "rb") as a, open(jax_native._SRC, "rb") as b:
+        assert a.read() == b.read()
 
 
 def test_best_metric_tracker_equals_jax():

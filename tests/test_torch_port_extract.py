@@ -77,8 +77,8 @@ def test_extraction_matches_jax_cli(media, tmp_path):
     stats = port_cli.main([*common, "--out", str(tmp_path / "port"), "--device", "cpu"])
     assert (stats["videos"], stats["tracks"]) == (N_VIDEOS, N_TRACKS)
     for store, width, length in (("video_store", 12, 4), ("music_store", 24, 2)):
-        ours = PackedFeatureStore(str(tmp_path / "port" / store))
-        theirs = PackedFeatureStore(str(tmp_path / "jax" / store))
+        ours = PackedFeatureStore(str(tmp_path / "port" / store), use_native=False)
+        theirs = PackedFeatureStore(str(tmp_path / "jax" / store), use_native=False)
         assert ours.ids == theirs.ids
         assert ours.arrays["feats"].dtype == np.float16 and ours.arrays["mask"].dtype == np.uint8
         assert ours.arrays["feats"].shape == (len(ours.ids), length, width)
@@ -88,10 +88,10 @@ def test_extraction_matches_jax_cli(media, tmp_path):
         ulp = np.spacing(np.maximum(np.abs(a), np.abs(b)).astype(np.float16)).astype(np.float32)
         assert np.all(np.abs(a - b) <= ulp), np.abs(a - b).max()
     # masks as the rules give them: frames 0..floor(end), snippet centers <= duration
-    video = PackedFeatureStore(str(tmp_path / "port" / "video_store"))
+    video = PackedFeatureStore(str(tmp_path / "port" / "video_store"), use_native=False)
     assert video.arrays["mask"].sum(axis=1).tolist() == [
         min(2 + i % 4 - 1, 3) + 1 for i in range(N_VIDEOS)]
-    music = PackedFeatureStore(str(tmp_path / "port" / "music_store"))
+    music = PackedFeatureStore(str(tmp_path / "port" / "music_store"), use_native=False)
     assert music.arrays["mask"].tolist() == [[1, 1], [1, 1], [1, 0], [1, 1], [1, 0]]
 
 

@@ -274,16 +274,16 @@ def test_unported_paths_raise(tmp_path, data):
     from mgsv_tpu_torch.eval.evaluator import corpus_similarity, evaluate
 
     cfg = _cfg(tmp_path, "raise")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
         Trainer(cfg, train_data=data, mesh=object(), device="cpu")
     model = MaDe(cfg)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
         evaluate(model, data, cfg, mesh=object())
     feature_fuse = cfg.replace(loss=dataclasses.replace(cfg.loss,
                                                         vmr_loss="dual_single_feature_fuse"))
     with pytest.raises(NotImplementedError, match="variant matrix"):
         evaluate(model, data, feature_fuse)             # the eval step's objective
     d, s = cfg.model.dim_input, cfg.data.max_snippet_num
-    with pytest.raises(NotImplementedError, match="item 7: variant matrix"):
+    with pytest.raises(NotImplementedError, match="queue 1: variant matrix"):
         corpus_similarity(model, torch.ones(3, d), torch.ones(3, d), torch.ones(3, s, d),
                           torch.ones(3, s), feature_fuse)
