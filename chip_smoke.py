@@ -104,14 +104,34 @@ failure:
  18. eval-q   `evaluate` of the same rows at ten moment queries (float32),
               with the decoder on #6 and without: the same ranks, moments
               within 1e-4 of max_m_duration, six #6 launches per batch
- 19. flash-kernel  the attention kernel (#7) against its plain version in
+ 19. variants  the variant matrix: #1/#2 at the CA fusion's L=96 (both
+              precisions, against the plain version and float64, timed beside
+              the bound) and #5 as a shared stack runs it (one layer's weights
+              on the audio then the video rows, the weights' gradients summed
+              over both calls); then for each branch (pre-norm; vmr_loss dual,
+              single, sim_fuse, feature_fuse, oneloss, and dual without X-Pool;
+              XA-video and XA-music-video; CA with and without fused_decoder;
+              the music, xpool and zero decoder queries; regression with and
+              without predict_center; the moment head with and without
+              audio_short_cut; the shared stack, plain and on #5; B=512 for
+              CA, XA-music-video, pre-norm and the fused shared stack, B=64
+              for the rest) one float32 step through the kernels against the
+              plain steps (float32 and float64, given the kernel step's gates
+              where a ReLU outside the kernels lies within rounding of zero:
+              loss and every gradient, the launches each branch must show),
+              then bf16 steps (finite loss, step ms, peak memory);
+              `cli.train` for 2 steps and one evaluation, and `cli.evaluate`
+              equal to its record, with CA and with pre-norm; a pre-norm RetrievalEngine on the card (no
+              encoder-layer kernel) against the plain engine, and the refusal
+              of a CA model by the engine; the phase's seconds
+ 20. flash-kernel  the attention kernel (#7) against its plain version in
               float32 and bf16: the AST's [96, 12, 1214, 64] (one track),
               [8, 12, 1214, 64] with ragged key masks and a fully masked
               row, CLIP's [400, 12, 50, 64], and the extraction's
               [384, 12, 1214, 64]; kernel, plain and SDPA timed in turns
               beside the bound; [breakdown] lines of the extraction's shape
               (float32) and of one track (bf16)
- 20. extract  `cli.extract_features` in-process on seeded raw media (8 frame
+ 21. extract  `cli.extract_features` in-process on seeded raw media (8 frame
               directories of 10-50 JPEGs, WAV tracks of 240/180/60/30 s, one
               at 44.1 kHz) with full-width CLIP ViT-B/32 and AST checkpoints
               minted in the reference layouts: store ids, shapes and masks,
@@ -167,10 +187,10 @@ from mgsv_tpu_torch.eval.similarity import (xpool_eval_inputs, xpool_sim_fused,
                                             xpool_similarity_blocked)
 from mgsv_tpu_torch.models.detr import DetrDecoderLayer, DetrEncoderLayer
 from mgsv_tpu_torch.models.layers import l2_normalize
-from mgsv_tpu_torch.models.made import MaDe
+from mgsv_tpu_torch.models.made import MaDe, uses_fused_sim
 from mgsv_tpu_torch.models.temporal import TemporalTransformer
 from mgsv_tpu_torch.models.xpool import XPoolTransformer
-from mgsv_tpu_torch.ops import lsap
+from mgsv_tpu_torch.ops import lsap, philox
 from mgsv_tpu_torch.ops.cuda import flash_attention as fa
 from mgsv_tpu_torch.ops.cuda import fused_decoder_layer as fdl
 from mgsv_tpu_torch.ops.cuda import fused_encoder_layer as fel
@@ -197,6 +217,39 @@ EVAL_TURNS = 5             # evaluations of the EVAL_N rows, resident and host i
 ACCUM_K = 2                # gradient accumulation of the train-accum phase
 Q_MULTI = 10               # moment queries of the multi-query phases
 HORIZON = 1000             # schedule length the optimizers are built for
+VARIANT_B = 64             # batch of the variant branches that do not train at B=512
+VARIANT_N = 1024           # rows of the variant CLI runs: 2 steps at B=512
+VARIANT_TRACKS = 512       # index of the pre-norm engine
+# The variant matrix: (branch, model overrides, loss overrides, batch,
+# fused_decoder).  CA, XA-music-video, pre-norm and the shared fused stack
+# train at B=512, the rest at VARIANT_B.
+BRANCHES = [
+    ("pre_norm", dict(detr_pre_norm=True), {}, TRAIN_B, False),
+    ("dual", {}, dict(vmr_loss="dual"), VARIANT_B, False),
+    ("single", {}, dict(vmr_loss="single"), VARIANT_B, False),
+    ("sim_fuse", {}, dict(vmr_loss="dual_single_sim_fuse"), VARIANT_B, False),
+    ("feature_fuse", {}, dict(vmr_loss="dual_single_feature_fuse"), VARIANT_B, False),
+    ("oneloss", dict(vmr_fusion="XA-music-video"), dict(vmr_loss="dual_single_oneloss"),
+     VARIANT_B, False),
+    ("no_xpool_dual", dict(vmr_fusion="NO"), dict(vmr_loss="dual"), VARIANT_B, False),
+    ("xa_video", dict(vmr_fusion="XA-video"), dict(vmr_loss="single"), VARIANT_B, False),
+    ("xa_music_video", dict(vmr_fusion="XA-music-video"), dict(vmr_loss="single"), TRAIN_B,
+     False),
+    ("ca", dict(mml_fusion="CA"), {}, TRAIN_B, False),
+    ("ca_fused_decoder", dict(mml_fusion="CA", detr_dropout=0.0), {}, TRAIN_B, True),
+    ("query_music", dict(moment_query_type="music"), {}, VARIANT_B, False),
+    ("query_xpool", dict(moment_query_type="xpool"), {}, VARIANT_B, False),
+    ("query_zero", dict(moment_query_type="zero"), {}, VARIANT_B, False),
+    ("regression", dict(mml_localization="regression"), {}, VARIANT_B, False),
+    ("regression_center", dict(mml_localization="regression", predict_center=True), {},
+     VARIANT_B, False),
+    ("moment_head", dict(moment_loss=True), {}, VARIANT_B, False),
+    ("moment_head_short_cut", dict(moment_loss=True, audio_short_cut=True), {}, VARIANT_B,
+     False),
+    ("shared", dict(transformer_is_share=True), {}, VARIANT_B, False),
+    ("shared_fused_temporal", dict(transformer_is_share=True, fused_temporal=True), {},
+     TRAIN_B, False),
+]
 # H100 SXM peaks (NVIDIA's data sheet, dense): the kernels compute float32
 # on the tensor cores as TF32 products, so their bound takes the TF32 rate.
 PEAK_TF32_FLOPS = 495e12
@@ -277,14 +330,18 @@ EVAL_B = Config().train.batch_size_val     # the paper's evaluation batch (40)
 
 
 def per_step(cfg: Config, fused_decoder: bool = False) -> dict:
-    """Launches of one training step: two encoder layers, one X-Pool
-    similarity, with fused_temporal each tower's temporal layers, and with
-    fused_decoder each decoder layer."""
-    temporal = 2 * cfg.model.temporal_depth if cfg.model.fused_temporal else 0
-    decoder = cfg.model.detr_dec_layers if fused_decoder else 0
-    return {"fused_encoder_layer": cfg.model.detr_enc_layers,
-            "fused_encoder_layer_bwd": cfg.model.detr_enc_layers,
-            "xpool_sim_fwd": 1, "xpool_sim_bwd": 1, "xpool_sim_eval": 0,
+    """Launches of one training step: the post-norm encoder layers (none
+    in pre-norm, as JAX's), the X-Pool similarity where the configuration
+    takes it from the kernel (`uses_fused_sim`), with fused_temporal each
+    tower's temporal layers (a shared stack's too: one call per tower), and
+    with fused_decoder each decoder layer."""
+    m = cfg.model
+    enc = m.detr_enc_layers if m.fused_detr_encoder and not m.detr_pre_norm else 0
+    sim = int(uses_fused_sim(cfg))
+    temporal = 2 * m.temporal_depth if m.fused_temporal else 0
+    decoder = m.detr_dec_layers if fused_decoder else 0
+    return {"fused_encoder_layer": enc, "fused_encoder_layer_bwd": enc,
+            "xpool_sim_fwd": sim, "xpool_sim_bwd": sim, "xpool_sim_eval": 0,
             "flash_attention": 0, "fused_temporal_layer": temporal,
             "fused_temporal_layer_bwd": temporal, "fused_decoder_layer": decoder,
             "fused_decoder_layer_bwd": decoder}
@@ -508,10 +565,60 @@ def build_native() -> str:
     return seconds
 
 
-def check_encoder(device: torch.device) -> list:
+def encoder_flip_slack(layer64, x, mask, pos, g, rate: float, seed: int) -> tuple:
+    """gate_flip_slack for an encoder layer at B=512, where one full-batch
+    float64 backward per gate would take minutes: a gate of batch row b
+    moves only row b's dx and dpos and row b's share of the weight
+    gradients, so each gate within FLIP_EPS of zero is flipped in a float64
+    run of row b alone (its Philox masks sliced from the batch's).  Returns
+    (per gradient of [x, pos, *parameters] the summed |effect| of flipping
+    each such gate, the number of such gates)."""
+    b_all, length, d = x.shape
+    heads, ffn = layer64.self_attn.heads, layer64.linear1.out_features
+    masks = (philox.encoder_masks(seed, b_all, length, d, ffn, heads, rate, device=x.device)
+             if rate > 0.0 else None)
+    x, mask, pos, g = (t.double() for t in (x, mask, pos, g))
+    seen = {}
+    hook = layer64.linear1.register_forward_hook(lambda m, i, o: seen.update(z=o.detach()))
+    with torch.no_grad():
+        fel.fused_encoder_layer_reference(x, mask, pos, layer64, rate, seed)
+    hook.remove()
+    near = torch.nonzero(seen.pop("z").abs() < FLIP_EPS)
+    params = list(layer64.parameters())
+    slack = [torch.zeros_like(x), torch.zeros_like(pos)] + [torch.zeros_like(p) for p in params]
+
+    def row_grads(b, flip=None):
+        row = slice(b, b + 1)
+        xi, pi = x[row].clone().requires_grad_(), pos[row].clone().requires_grad_()
+        hook = None if flip is None else layer64.linear1.register_forward_hook(
+            lambda m, i, o: torch.where(flip, o - 2 * o.detach(), o))
+        row_masks = None if masks is None else {k: v[row].double() for k, v in masks.items()}
+        out = layer64(xi, mask[row], pi, row_masks)
+        if hook is not None:
+            hook.remove()
+        return torch.autograd.grad(out, [xi, pi, *params], g[row])
+
+    for b in near[:, 0].unique().tolist():
+        base = row_grads(b)
+        for _, l, j in near[near[:, 0] == b].tolist():
+            flip = torch.zeros(1, length, ffn, dtype=torch.bool, device=x.device)
+            flip[0, l, j] = True
+            for i, (a, c) in enumerate(zip(row_grads(b, flip), base)):
+                (slack[i][b:b + 1] if i < 2 else slack[i]).add_((a - c).abs())
+    return slack, len(near)
+
+
+def check_encoder(device: torch.device, length: int = TRAIN_L) -> list:
     """Kernels #1 (forward) and #2 (backward) against autograd through the
-    plain version, at B=512, L=152, rates 0 and the configuration's; then
-    both at precision "bf16" (check_encoder_bf16)."""
+    plain version, at B=512, L=152 (or `length`: the CA fusion's 96
+    snippet rows), rates 0 and the configuration's; then both at precision
+    "bf16" (check_encoder_bf16).  At L=152 also the serving shapes and the
+    [breakdown] lines; at another length the entries are named
+    "<kernel>@L<length>", and the float32 gradients are also allowed the
+    float64 effect of the ReLU gates within FLIP_EPS of zero
+    (encoder_flip_slack): at L=96 the kernel and the float32 plain version
+    flip different gates, and one flip moves dx by up to 0.2 on an H100."""
+    full = length == TRAIN_L
     m = Config().model
     d, heads, ffn, rate = m.dim_input, m.detr_heads, m.detr_ffn_dim, m.detr_dropout
     gen = torch.Generator().manual_seed(SEED)
@@ -521,8 +628,8 @@ def check_encoder(device: torch.device) -> list:
     params = list(layer.parameters())
     names = ["x", "pos"] + [n for n, _ in layer.named_parameters()]
     rng = np.random.default_rng(SEED)
-    x, pos, g = (randn(rng, (TRAIN_B, TRAIN_L, d), device) for _ in range(3))
-    mask = torch.from_numpy(ragged_mask(rng, TRAIN_B, TRAIN_L, 1)).to(device)
+    x, pos, g = (randn(rng, (TRAIN_B, length, d), device) for _ in range(3))
+    mask = torch.from_numpy(ragged_mask(rng, TRAIN_B, length, 1)).to(device)
     layer64 = copy.deepcopy(layer).double()
     fwd_err = bwd_err = 0.0
     for r in (0.0, rate):
@@ -539,27 +646,31 @@ def check_encoder(device: torch.device) -> list:
             del out
         torch.cuda.synchronize()
         err = check_close(f"fused_encoder_layer rate {r}", outs["kernel"], outs["plain"])
+        slack, flips = (None, None) if full else encoder_flip_slack(layer64, x, mask, pos, g,
+                                                                     r, DROPOUT_SEED)
         gerr, perr, gname, gmax = check_grads(f"fused_encoder_layer_bwd rate {r}", names,
-                                              grads["kernel"], grads["plain"], grads["exact"])
-        phase("kernel", name="fused_encoder_layer", B=TRAIN_B, L=TRAIN_L, rate=r,
+                                              grads["kernel"], grads["plain"], grads["exact"],
+                                              slack=slack)
+        phase("kernel", name="fused_encoder_layer", B=TRAIN_B, L=length, rate=r,
               max_abs_err=err, atol=KERNEL_ATOL)
-        phase("kernel", name="fused_encoder_layer_bwd", B=TRAIN_B, L=TRAIN_L, rate=r,
+        phase("kernel", name="fused_encoder_layer_bwd", B=TRAIN_B, L=length, rate=r,
               grads=len(names), max_abs_err=gerr, at=gname, its_max=gmax,
-              plain_f32_err=perr, rtol_of_max=GRAD_RTOL)
+              plain_f32_err=perr, rtol_of_max=GRAD_RTOL,
+              **({} if full else {"gates_within_flip_eps": flips}))
         fwd_err, bwd_err = max(fwd_err, err), max(bwd_err, gerr)
         del outs, grads
     with torch.no_grad():                 # the serving shapes, rate 0
-        for rows in SERVE_ROWS:
-            xs, ps = (randn(rng, (rows, TRAIN_L, d), device) for _ in range(2))
-            ms_ = torch.from_numpy(ragged_mask(rng, rows, TRAIN_L, 1)).to(device)
+        for rows in SERVE_ROWS if full else ():
+            xs, ps = (randn(rng, (rows, length, d), device) for _ in range(2))
+            ms_ = torch.from_numpy(ragged_mask(rng, rows, length, 1)).to(device)
             err = check_close(f"fused_encoder_layer rows {rows}",
                               fel.fused_encoder_layer(xs, ms_, ps, layer),
                               fel.fused_encoder_layer_reference(xs, ms_, ps, layer))
             kms, pms = in_turns(lambda: fel.fused_encoder_layer(xs, ms_, ps, layer),
                                 lambda: fel.fused_encoder_layer_reference(xs, ms_, ps, layer))
-            bms_, by = bound(encoder_flops(rows, TRAIN_L, d, ffn),
+            bms_, by = bound(encoder_flops(rows, length, d, ffn),
                              nbytes(xs, ps, ms_, xs, *params))
-            phase("kernel", name="fused_encoder_layer", B=rows, L=TRAIN_L, rate=0.0,
+            phase("kernel", name="fused_encoder_layer", B=rows, L=length, rate=0.0,
                   max_abs_err=err, atol=KERNEL_ATOL, ms=f"{kms:.4f}", plain_ms=f"{pms:.4f}",
                   bound_ms=f"{bms_:.4f}", bound_by=by)
             fwd_err = max(fwd_err, err)
@@ -574,16 +685,17 @@ def check_encoder(device: torch.device) -> list:
         lambda: fel.fused_encoder_layer_bwd(x, mask, pos, g, layer, rate, DROPOUT_SEED),
         lambda: torch.autograd.grad(out, [xi, pi, *params], g, retain_graph=True))
     del out
-    phase("kernel-time", name="fused_encoder_layer", B=TRAIN_B, L=TRAIN_L, rate=rate,
+    phase("kernel-time", name="fused_encoder_layer", B=TRAIN_B, L=length, rate=rate,
           ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}")
-    phase("kernel-time", name="fused_encoder_layer_bwd", B=TRAIN_B, L=TRAIN_L, rate=rate,
+    phase("kernel-time", name="fused_encoder_layer_bwd", B=TRAIN_B, L=length, rate=rate,
           ms=f"{bms:.4f}", plain_ms=f"{plain_bms:.4f}")
-    with torch.no_grad():
-        breakdown("fused_encoder_layer", lambda: fel.fused_encoder_layer(
-            x, mask, pos, layer, rate, DROPOUT_SEED), precision="f32")
-    breakdown("fused_encoder_layer_bwd", lambda: fel.fused_encoder_layer_bwd(
-        x, mask, pos, g, layer, rate, DROPOUT_SEED), precision="f32")
-    flops = encoder_flops(TRAIN_B, TRAIN_L, d, ffn)
+    if full:
+        with torch.no_grad():
+            breakdown("fused_encoder_layer", lambda: fel.fused_encoder_layer(
+                x, mask, pos, layer, rate, DROPOUT_SEED), precision="f32")
+        breakdown("fused_encoder_layer_bwd", lambda: fel.fused_encoder_layer_bwd(
+            x, mask, pos, g, layer, rate, DROPOUT_SEED), precision="f32")
+    flops = encoder_flops(TRAIN_B, length, d, ffn)
     fwd_bytes = nbytes(x, pos, mask, x, *params)
     bwd_bytes = nbytes(x, pos, mask, g, *params, x, pos, *params)
     entries = [
@@ -594,20 +706,24 @@ def check_encoder(device: torch.device) -> list:
               "mgsv_tpu/ops/pallas/fused_encoder_layer_vjp.py:256", bwd_err, bms, plain_bms,
               2 * flops, bwd_bytes),
     ]
-    bf16 = check_encoder_bf16(layer, layer64, names, x, pos, mask, g, rate)
+    bf16 = check_encoder_bf16(layer, layer64, names, x, pos, mask, g, rate, full)
     for e, fl, nb in zip(entries, (flops, 2 * flops), (fwd_bytes, bwd_bytes)):
         err16, ms16, plain16, ms32 = bf16[e["name"]]
         b16, by16 = bound(fl, nb, PEAK_BF16_FLOPS)
         e.update(bf16_max_abs_err=err16, bf16_ms=ms16, bf16_plain_ms=plain16,
                  bf16_bound_ms=b16, bf16_bound_by=by16, f32_ms_in_turns=ms32)
-        phase("kernel-time", name=e["name"], precision="bf16", B=TRAIN_B, L=TRAIN_L,
+        phase("kernel-time", name=e["name"], precision="bf16", B=TRAIN_B, L=length,
               rate=rate, ms=f"{ms16:.4f}", f32_ms=f"{ms32:.4f}", plain_ms=f"{plain16:.4f}",
               bound_ms=f"{b16:.4f}", bound_by=by16, gflop=f"{fl / 1e9:.1f}",
               tflops=f"{fl / ms16 / 1e9:.1f}")
+    if not full:
+        for e in entries:
+            e.update(name=f"{e['name']}@L{length}", shape=f"B={TRAIN_B} L={length}")
     return entries
 
 
-def check_encoder_bf16(layer, layer64, names, x, pos, mask, g, rate) -> dict:
+def check_encoder_bf16(layer, layer64, names, x, pos, mask, g, rate,
+                       breakdowns: bool = True) -> dict:
     """Kernels #1 and #2 at precision "bf16" against the bf16 plain version
     (every product's operands rounded to bf16, float32 sums) at rates 0 and
     `rate`: the forward within BF16_ATOL and nearer the bf16 plain output
@@ -616,6 +732,7 @@ def check_encoder_bf16(layer, layer64, names, x, pos, mask, g, rate) -> dict:
     bf16 plain version and with the float32 instantiation.  Returns {name:
     (max abs error, ms, plain ms, float32 ms)}."""
     params = list(layer.parameters())
+    length = x.shape[1]
     fwd_err = bwd_err = 0.0
     for r in (0.0, rate):
         outs, grads = {}, {}
@@ -639,9 +756,9 @@ def check_encoder_bf16(layer, layer64, names, x, pos, mask, g, rate) -> dict:
         gerr, perr, gname, gmax = check_grads(f"fused_encoder_layer_bwd bf16 rate {r}", names,
                                               grads["kernel"], grads["plain"], grads["exact"],
                                               BF16_GRAD_RTOL)
-        phase("kernel", name="fused_encoder_layer", precision="bf16", B=TRAIN_B, L=TRAIN_L,
+        phase("kernel", name="fused_encoder_layer", precision="bf16", B=TRAIN_B, L=length,
               rate=r, max_abs_err=err, atol=BF16_ATOL, f32_kernel_vs_bf16_plain=f32_gap)
-        phase("kernel", name="fused_encoder_layer_bwd", precision="bf16", B=TRAIN_B, L=TRAIN_L,
+        phase("kernel", name="fused_encoder_layer_bwd", precision="bf16", B=TRAIN_B, L=length,
               rate=r, grads=len(names), max_abs_err=gerr, at=gname, its_max=gmax,
               plain_f32_err=perr, rtol_of_max=BF16_GRAD_RTOL)
         fwd_err, bwd_err = max(fwd_err, err), max(bwd_err, gerr)
@@ -660,9 +777,10 @@ def check_encoder_bf16(layer, layer64, names, x, pos, mask, g, rate) -> dict:
         out, [xi, pi, *params], g, retain_graph=True))
     bms_b, bms32 = in_turns(bwd("bf16"), bwd("f32"))
     del out
-    with torch.no_grad():
-        breakdown("fused_encoder_layer", fwd("bf16"), precision="bf16")
-    breakdown("fused_encoder_layer_bwd", bwd("bf16"), precision="bf16")
+    if breakdowns:
+        with torch.no_grad():
+            breakdown("fused_encoder_layer", fwd("bf16"), precision="bf16")
+        breakdown("fused_encoder_layer_bwd", bwd("bf16"), precision="bf16")
     return {"fused_encoder_layer": (fwd_err, (ms + ms_b) / 2, plain_ms, ms32),
             "fused_encoder_layer_bwd": (bwd_err, (bms + bms_b) / 2, plain_bms, bms32)}
 
@@ -956,6 +1074,123 @@ def check_lsap(solves: list) -> int:
     return n
 
 
+# The ReLU sites a step runs as PyTorch modules (the DETR layers' linear1
+# outside the kernels, the MLP heads' hidden layers): their pre-activations.
+RELU_SITES = re.compile(r"(encoder|decoder)\.layers\.\d+\.linear1$"
+                        r"|(span_embed|moment_embed|reg_mlp)\.layers\.[01]$")
+# A gate whose pre-activation lies within this of zero in one run may fall
+# the other way in another float32 run (the step's rounding reaches 1e-6 of
+# an order-1 pre-activation) and then moves a gradient by a whole term.
+STEP_FLIP_EPS = 1e-4
+
+
+def record_gates(model, store: dict) -> list:
+    """Forward hooks keeping each ReLU site's pre-activation, by name."""
+    return [mod.register_forward_hook(
+        lambda m, i, o, n=n: store.setdefault(n, []).append(o.detach()))
+        for n, mod in model.named_modules() if RELU_SITES.search(n)]
+
+
+def impose_gates(model, gates: dict, counts: list) -> list:
+    """Forward hooks that give each ReLU site the gates `gates` recorded
+    where its own pre-activation lies within STEP_FLIP_EPS of zero and on
+    the other side: the value is negated there (it moves by under
+    2 STEP_FLIP_EPS) with a gradient of 1, so the gate turns.  The flips
+    made are appended to `counts`."""
+    hooks = []
+    for n, mod in model.named_modules():
+        if n in gates:
+            calls = iter(gates[n])
+
+            def hook(m, i, o, calls=calls):
+                want = next(calls).to(o.dtype) > 0
+                flip = ((o > 0) != want) & (o.abs() < STEP_FLIP_EPS)
+                counts.append(int(flip.sum()))
+                return torch.where(flip, o - 2 * o.detach(), o)
+
+            hooks.append(mod.register_forward_hook(hook))
+    return hooks
+
+
+def train_runs(device: torch.device, cfg: Config, batch_size: int = TRAIN_B,
+               fused_decoder: bool = False, hooks=None, share_gates: bool = False) -> dict:
+    """One float32 step of cfg through the kernels, one through the plain
+    versions and one through the plain versions in float64, from the same
+    weights, batch and seed: {"logs", "grads", "launches"} by run
+    ("kernel", "plain", "exact"), the kernel step's "device_ops",
+    "peak_gb" and every LSAP solve it made ("solves"), and the "batch".
+    hooks(model), when given, is called on the kernel step's model before
+    it runs.  share_gates: the plain and float64 steps take the kernel
+    step's gates at the ReLU sites outside the kernels wherever their own
+    pre-activation lies within STEP_FLIP_EPS of zero (impose_gates), so a
+    gate that rounding puts on the other side in one run moves no gradient
+    by a whole term; "flips" counts the gates so turned."""
+    batch = to_tensors(example_batch(np.random.RandomState(SEED), cfg, batch_size), device)
+    model, _ = train_setup(cfg, device)
+    runs = {"kernel": (model, batch, False),
+            "plain": (copy.deepcopy(model), batch, True),
+            "exact": (copy.deepcopy(model).double(),
+                      {k: v.double() if v.is_floating_point() else v for k, v in batch.items()},
+                      True)}
+    if hooks is not None:
+        hooks(model)
+    logs, grads, launches, solves, gates, flips = {}, {}, {}, [], {}, {}
+    for kind, (mdl, b, plain) in runs.items():
+        _, step = train_setup(cfg, device, model=mdl, fused_decoder=fused_decoder)
+        counts = []
+        gate_hooks = [] if not share_gates else (
+            record_gates(mdl, gates) if kind == "kernel" else impose_gates(mdl, gates, counts))
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        acts = [torch.profiler.ProfilerActivity.CUDA]
+        with plain_kernels() if plain else recording_lsap(solves), \
+                torch.profiler.profile(activities=acts) if kind == "kernel" else \
+                contextlib.nullcontext() as prof:
+            log = step(b)
+            torch.cuda.synchronize()
+        for h in gate_hooks:
+            h.remove()
+        flips[kind] = sum(counts)
+        if kind == "kernel":         # the step's device operations and its peak memory
+            device_ops = sum(e.count for e in prof.key_averages()
+                             if e.device_type == torch.autograd.DeviceType.CUDA)
+            peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+        launches[kind] = read_counts()
+        logs[kind] = {k: float(v.double().mean()) for k, v in log.items()}
+        grads[kind] = {n: p.grad for n, p in mdl.named_parameters() if p.grad is not None}
+        del log, step
+    return {"logs": logs, "grads": grads, "launches": launches, "device_ops": device_ops,
+            "peak_gb": peak_gb, "solves": solves, "batch": batch, "flips": flips}
+
+
+def hold_step(what: str, runs: dict, want_launches: dict) -> tuple:
+    """The kernel step's launches, finite logs, loss and every gradient
+    against the float64 step, with the float32 plain step's error as the
+    allowance (LOSS_RTOL, GRAD_RTOL); the plain steps launch nothing.
+    Returns (losses by run, worst gradient error, the plain run's, number
+    of gradients)."""
+    logs, grads, launches = runs["logs"], runs["grads"], runs["launches"]
+    if launches["kernel"] != want_launches:
+        raise AssertionError(f"{what}: kernel step launches {launches['kernel']}, "
+                             f"want {want_launches}")
+    if any(launches["plain"].values()) or any(launches["exact"].values()):
+        raise AssertionError(f"{what}: a plain step launched kernels: {launches}")
+    for kind, log in logs.items():
+        if not all(np.isfinite(v) for v in log.values()):
+            raise AssertionError(f"{what}: {kind} step log not finite: {log}")
+    loss = {kind: log["loss"] for kind, log in logs.items()}
+    tol = LOSS_RTOL * abs(loss["exact"]) + 2 * abs(loss["plain"] - loss["exact"])
+    if not abs(loss["kernel"] - loss["exact"]) <= tol:
+        raise AssertionError(f"{what}: step loss {loss} (tolerance {tol})")
+    names = list(grads["exact"])
+    if not grads["kernel"].keys() == grads["plain"].keys() == grads["exact"].keys():
+        raise AssertionError(f"{what}: the steps gave gradients to different parameters")
+    worst, worst_plain, _, _ = check_grads(
+        what, names, *([grads[k][n] for n in names] for k in ("kernel", "plain", "exact")))
+    return loss, worst, worst_plain, len(names)
+
+
 def check_train(device: torch.device, fused_temporal: bool = False,
                 fused_decoder: bool = False) -> dict:
     """One float32 step through the kernels, one through the plain versions
@@ -969,50 +1204,10 @@ def check_train(device: torch.device, fused_temporal: bool = False,
                                                  fused_temporal=fused_temporal))
     if fused_decoder:
         cfg = multi_query(cfg)
-    batch = to_tensors(example_batch(np.random.RandomState(SEED), cfg, TRAIN_B), device)
-    model, _ = train_setup(cfg, device)
-    runs = {"kernel": (model, batch, False),
-            "plain": (copy.deepcopy(model), batch, True),
-            "exact": (copy.deepcopy(model).double(),
-                      {k: v.double() if v.is_floating_point() else v for k, v in batch.items()},
-                      True)}
-    logs, grads, launches, solves = {}, {}, {}, []
-    for kind, (mdl, b, plain) in runs.items():
-        _, step = train_setup(cfg, device, model=mdl, fused_decoder=fused_decoder)
-        reset_counts()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(device)
-        acts = [torch.profiler.ProfilerActivity.CUDA]
-        with plain_kernels() if plain else recording_lsap(solves), \
-                torch.profiler.profile(activities=acts) if kind == "kernel" else \
-                contextlib.nullcontext() as prof:
-            log = step(b)
-            torch.cuda.synchronize()
-        if kind == "kernel":         # the step's device operations and its peak memory
-            device_ops = sum(e.count for e in prof.key_averages()
-                             if e.device_type == torch.autograd.DeviceType.CUDA)
-            peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
-        launches[kind] = read_counts()
-        logs[kind] = {k: float(v.double().mean()) for k, v in log.items()}
-        grads[kind] = {n: p.grad for n, p in mdl.named_parameters() if p.grad is not None}
-        del log, step
-    want = per_step(cfg, fused_decoder)
-    if launches["kernel"] != want:
-        raise AssertionError(f"kernel step launches {launches['kernel']}, want {want}")
-    if any(launches["plain"].values()) or any(launches["exact"].values()):
-        raise AssertionError(f"a plain step launched kernels: {launches}")
-    for kind, log in logs.items():
-        if not all(np.isfinite(v) for v in log.values()):
-            raise AssertionError(f"{kind} step log not finite: {log}")
-    loss = {kind: log["loss"] for kind, log in logs.items()}
-    tol = LOSS_RTOL * abs(loss["exact"]) + 2 * abs(loss["plain"] - loss["exact"])
-    if not abs(loss["kernel"] - loss["exact"]) <= tol:
-        raise AssertionError(f"step loss {loss} (tolerance {tol})")
-    names = list(grads["exact"])
-    if not grads["kernel"].keys() == grads["plain"].keys() == grads["exact"].keys():
-        raise AssertionError("the steps gave gradients to different parameters")
-    worst, worst_plain, _, _ = check_grads(
-        "train step", names, *([grads[k][n] for n in names] for k in ("kernel", "plain", "exact")))
+    runs = train_runs(device, cfg, TRAIN_B, fused_decoder)
+    loss, worst, worst_plain, n_grads = hold_step("train step", runs,
+                                                  per_step(cfg, fused_decoder))
+    logs, solves = runs["logs"], runs["solves"]
     tag = "train-q" if fused_decoder else "temporal-train" if fused_temporal else "train"
     extra = {}
     if fused_decoder:
@@ -1020,20 +1215,21 @@ def check_train(device: torch.device, fused_temporal: bool = False,
                      lsap_problems_vs_scipy=check_lsap(solves))
     phase(tag, dtype="float32", B=TRAIN_B, fused_temporal=fused_temporal, **extra,
           loss=loss["kernel"], plain_loss=loss["plain"], float64_loss=loss["exact"],
-          params=len(names), grad_max_abs_err=worst, plain_f32_grad_err=worst_plain,
+          params=n_grads, grad_max_abs_err=worst, plain_f32_grad_err=worst_plain,
           train_iou=logs["kernel"]["train_iou"], grad_norm=logs["kernel"]["grad_norm"],
-          device_ops=device_ops, peak_mem_gb=f"{peak_gb:.2f}")
+          device_ops=runs["device_ops"], peak_mem_gb=f"{runs['peak_gb']:.2f}")
     phase("launches", path="train step" + (" fused_temporal" if fused_temporal else "")
-          + (f" Q={Q_MULTI} fused_decoder" if fused_decoder else ""), **launches["kernel"])
+          + (f" Q={Q_MULTI} fused_decoder" if fused_decoder else ""),
+          **runs["launches"]["kernel"])
     if fused_decoder:
         _, step = train_setup(multi_query(cfg, detr_dropout=0.1), device, fused_decoder=True)
         try:
-            step(batch)
+            step(runs["batch"])
         except ValueError as err:
             phase("train-q", detr_dropout=0.1, fused_decoder=True, raised=json.dumps(str(err)))
         else:
             raise AssertionError("fused_decoder=True trained with detr_dropout 0.1")
-    return launches["kernel"]
+    return runs["launches"]["kernel"]
 
 
 def check_timed(device: torch.device, card: str) -> None:
@@ -1265,14 +1461,18 @@ def expected_fit_launches(cfg: Config, n_rows: int) -> dict:
 
 def eval_launches(cfg: Config, n_rows: int, fused_decoder: bool = False) -> dict:
     """Launches of one evaluation of n_rows at batch_size_val: per batch the
-    encoder layers at rate 0, the in-batch similarity's forward (#3), with
-    fused_temporal the towers' temporal layers at rate 0 (#5) and with
-    fused_decoder the decoder layers (#6), then one corpus similarity (#4)."""
+    encoder layers at rate 0 and the in-batch similarity's forward (#3),
+    each where a step takes them, with fused_temporal the towers' temporal
+    layers at rate 0 (#5) and with fused_decoder the decoder layers (#6),
+    then one corpus similarity (#4) where vmr_loss ranks by the pooled
+    X-Pool similarity (JAX evaluator.py:283-307)."""
     batches = -(-n_rows // cfg.train.batch_size_val)
     one = per_step(cfg, fused_decoder)
-    return {"fused_encoder_layer": cfg.model.detr_enc_layers * batches,
-            "fused_encoder_layer_bwd": 0, "xpool_sim_fwd": batches, "xpool_sim_bwd": 0,
-            "xpool_sim_eval": 1, "flash_attention": 0,
+    pooled = "XA" in cfg.model.vmr_fusion and cfg.loss.vmr_loss in (
+        "single", "dual_single_sim_fuse", "dual_single_loss_fuse")
+    return {"fused_encoder_layer": one["fused_encoder_layer"] * batches,
+            "fused_encoder_layer_bwd": 0, "xpool_sim_fwd": one["xpool_sim_fwd"] * batches,
+            "xpool_sim_bwd": 0, "xpool_sim_eval": int(pooled), "flash_attention": 0,
             "fused_temporal_layer": one["fused_temporal_layer"] * batches,
             "fused_temporal_layer_bwd": 0,
             "fused_decoder_layer": one["fused_decoder_layer"] * batches,
@@ -1743,6 +1943,254 @@ def check_evaluate_cli(device: torch.device, tmp: str, run_dir: str, data_root: 
     return launches
 
 
+def variant(model_over: dict, loss_over: dict, dtype: str = None) -> Config:
+    """Config() with a branch's overrides; dtype, when given, the compute dtype."""
+    base = Config()
+    model_over = dict(model_over, **({"compute_dtype": dtype} if dtype else {}))
+    return base.replace(model=dataclasses.replace(base.model, **model_over),
+                        loss=dataclasses.replace(base.loss, **loss_over))
+
+
+def check_variants(device: torch.device, card: str) -> dict:
+    """Each branch of the variant matrix: one float32 step through the
+    kernels against the plain steps (float32 and float64, given the kernel
+    step's gates at the ReLU sites outside the kernels where rounding can
+    turn them: train_runs' share_gates; hold_step: loss, every gradient,
+    the launches `per_step` expects), the launch counts the
+    branch must show named apart, then a few bf16 steps of the branch
+    (finite loss, step ms, peak memory).  Returns {branch: the kernel
+    step's launch counts}."""
+    launches = {}
+    for name, model_over, loss_over, b, fused_decoder in BRANCHES:
+        cfg = variant(model_over, loss_over, "float32")
+        shapes = []
+        hook = lambda model: model.detr_transformer.register_forward_pre_hook(
+            lambda mod, args: shapes.append(tuple(args[0].shape)))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")       # the fused towers ignore bf16 by design
+            runs = train_runs(device, cfg, b, fused_decoder, hook, share_gates=True)
+        want = per_step(cfg, fused_decoder)
+        loss, worst, worst_plain, n_grads = hold_step(f"variant {name}", runs, want)
+        got = runs["launches"]["kernel"]
+        m = cfg.model
+        named = {   # what each branch must show, apart from per_step's bookkeeping
+            "pre_norm": got["fused_encoder_layer"] == got["fused_encoder_layer_bwd"] == 0,
+            "xa_music_video": got["xpool_sim_fwd"] == got["xpool_sim_bwd"] == 0,
+            "query_xpool": got["xpool_sim_fwd"] == got["xpool_sim_bwd"] == 0,
+            "ca": (got["fused_encoder_layer"] == got["fused_encoder_layer_bwd"]
+                   == m.detr_enc_layers and shapes[0][1] == Config().data.max_snippet_num),
+            "ca_fused_decoder": (got["fused_decoder_layer"] == got["fused_decoder_layer_bwd"]
+                                 == m.detr_dec_layers
+                                 and shapes[0][1] == Config().data.max_snippet_num),
+            "shared_fused_temporal": (got["fused_temporal_layer"]
+                                      == got["fused_temporal_layer_bwd"] == 2),
+        }
+        if not named.get(name, True):
+            raise AssertionError(f"variant {name}: launches {got}, DETR input {shapes[0]}")
+        launches[name] = got
+        phase("variants", branch=name, dtype="float32", B=b, fused_decoder=fused_decoder,
+              loss=loss["kernel"], plain_loss=loss["plain"], float64_loss=loss["exact"],
+              params=n_grads, grad_max_abs_err=worst, plain_f32_grad_err=worst_plain,
+              detr_L=shapes[0][1], gates_turned_plain=runs["flips"]["plain"],
+              gates_turned_float64=runs["flips"]["exact"], peak_mem_gb=f"{runs['peak_gb']:.2f}",
+              **{k: v for k, v in got.items() if v})
+        del runs
+        torch.cuda.empty_cache()
+
+        cfg16 = variant(model_over, loss_over)
+        batch = to_tensors(example_batch(np.random.RandomState(SEED), cfg16, b), device)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            _, step = train_setup(cfg16, device, fused_decoder=fused_decoder)
+            step(batch)                            # first use: allocator, cuBLAS
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            t0 = time.perf_counter()
+            for _ in range(2):
+                log = step(batch)
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 2 * 1e3
+        if not np.isfinite(float(log["loss"])):
+            raise AssertionError(f"variant {name}: bf16 step loss {float(log['loss'])}")
+        phase("variants", branch=name, dtype="bfloat16", B=b, fused_decoder=fused_decoder,
+              loss=float(log["loss"]), step_ms=f"{ms:.2f}",
+              peak_mem_gb=f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f}",
+              card=json.dumps(card))
+        del step, batch, log
+        torch.cuda.empty_cache()
+    return launches
+
+
+def check_temporal_shared(device: torch.device) -> list:
+    """Kernel #5 as a shared stack runs it: one layer's weights called on
+    the audio tower's rows (L=96) and then the video tower's (L=50) at
+    B=512, rate 0.8 with a seed each; both outputs and the gradients (the
+    weights' summed over both calls, which autograd adds) against the
+    plain version and float64; both calls forward, and both backwards,
+    timed in turns with the plain version.  Returns the kernels-line
+    entries "<kernel>@shared"."""
+    cfg = Config()
+    m = cfg.model
+    d, heads, ffn, rate = m.dim_input, m.temporal_heads, m.temporal_mlp_dim, m.temporal_dropout
+    gen = torch.Generator().manual_seed(SEED + 7)
+    trm = TemporalTransformer(d, 1, heads, ffn, d)
+    trm.reset_parameters(gen)
+    layer = perturb_(trm.layers[0], gen).to(device)
+    layer64 = copy.deepcopy(layer).double()
+    params = list(layer.parameters())
+    names = ["x_audio", "x_video"] + [n for n, _ in layer.named_parameters()]
+    rng = np.random.default_rng(SEED + 7)
+    lengths = (cfg.data.max_snippet_num, cfg.data.max_v_frames)
+    xs = [randn(rng, (TRAIN_B, n, d), device) for n in lengths]
+    gs = [randn(rng, (TRAIN_B, n, d), device) for n in lengths]
+    masks = [torch.from_numpy(ragged_mask(rng, TRAIN_B, n, 1)).to(device) for n in lengths]
+    seeds = (DROPOUT_SEED, DROPOUT_SEED + 1)
+
+    def both(fn, lay, dt, grad: bool):
+        ins = [x.detach().to(dt).requires_grad_(grad) for x in xs]
+        outs = [fn(x, mk.to(dt), lay, rate, sd) for x, mk, sd in zip(ins, masks, seeds)]
+        return ins, outs
+
+    outs, grads = {}, {}
+    for kind, fn, lay, dt in (("kernel", ftl.fused_temporal_layer, layer, torch.float32),
+                              ("plain", ftl.fused_temporal_layer_reference, layer,
+                               torch.float32),
+                              ("exact", ftl.fused_temporal_layer_reference, layer64,
+                               torch.float64)):
+        reset_counts()
+        ins, o = both(fn, lay, dt, True)
+        grads[kind] = torch.autograd.grad(o, [*ins, *lay.parameters()],
+                                          [g.to(dt) for g in gs])
+        outs[kind] = [t.detach() for t in o]
+        if kind == "kernel":
+            counts = read_counts()
+        del o, ins
+    torch.cuda.synchronize()
+    if not counts["fused_temporal_layer"] == counts["fused_temporal_layer_bwd"] == 2:
+        raise AssertionError(f"shared #5: launches {counts}")
+    err = max(check_close(f"fused_temporal_layer shared L={n}", k, p)
+              for n, k, p in zip(lengths, outs["kernel"], outs["plain"]))
+    gerr, perr, gname, gmax = check_grads("fused_temporal_layer_bwd shared", names,
+                                          grads["kernel"], grads["plain"], grads["exact"])
+    del outs, grads
+    with torch.no_grad():
+        ms, plain_ms = in_turns(lambda: both(ftl.fused_temporal_layer, layer, torch.float32,
+                                             False),
+                                lambda: both(ftl.fused_temporal_layer_reference, layer,
+                                             torch.float32, False))
+    graphs = {}
+    for kind, fn in (("kernel", ftl.fused_temporal_layer),
+                     ("plain", ftl.fused_temporal_layer_reference)):
+        ins, o = both(fn, layer, torch.float32, True)
+        graphs[kind] = (ins, o)
+    grad_of = lambda kind: lambda: torch.autograd.grad(
+        graphs[kind][1], [*graphs[kind][0], *params], gs, retain_graph=True)
+    bms, plain_bms = in_turns(grad_of("kernel"), grad_of("plain"))
+    del graphs
+    flops = sum(temporal_flops(TRAIN_B, n, d, ffn) for n in lengths)
+    fwd_bytes = nbytes(*xs, *masks, *xs, *params)
+    bwd_bytes = nbytes(*xs, *masks, *gs, *params, *xs, *params)
+    src = "mgsv_tpu_torch/csrc/fused_temporal_layer"
+    entries = [
+        entry("fused_temporal_layer@shared", f"{src}.cu",
+              "mgsv_tpu/ops/pallas/fused_temporal_layer.py:349", err, ms, plain_ms, flops,
+              fwd_bytes),
+        entry("fused_temporal_layer_bwd@shared", f"{src}_bwd.cu",
+              "mgsv_tpu/ops/pallas/fused_temporal_layer.py:381", gerr, bms, plain_bms,
+              2 * flops, bwd_bytes)]
+    for e in entries:
+        e["shape"] = f"B={TRAIN_B} L={lengths[0]} then L={lengths[1]}, one set of weights"
+        phase("temporal-kernel", name=e["name"], calls=2, rate=rate, max_abs_err=e["max_abs_err"],
+              ms=f"{e['ms']:.4f}", plain_ms=f"{e['plain_ms']:.4f}",
+              bound_ms=f"{e['bound_ms']:.4f}", bound_by=e["bound_by"])
+    phase("temporal-kernel", name="fused_temporal_layer_bwd@shared", at=gname, its_max=gmax,
+          plain_f32_err=perr, rtol_of_max=GRAD_RTOL)
+    return entries
+
+
+def check_variant_clis(device: torch.device, tmp: str) -> None:
+    """`cli.train` for one epoch of VARIANT_N generated rows (2 steps at
+    B=512, then an evaluation at B=40) with the CA fusion and with the
+    pre-norm DETR, each run's launches as `expected_fit_launches` says, and
+    `cli.evaluate` on its best_r1 checkpoint equal to the trainer's record;
+    then a pre-norm RetrievalEngine on the card (which must not take the
+    encoder-layer kernel) against the plain engine, and the engine's
+    refusal of a CA model."""
+    root = None
+    for name, model_over in (("ca", dict(mml_fusion="CA")),
+                             ("pre_norm", dict(detr_pre_norm=True))):
+        cfg = variant(model_over, {})
+        over = [a for k, v in model_over.items() for a in (f"--model.{k}", json.dumps(v))]
+        out_dir = os.path.join(tmp, f"variant_{name}")
+        data = (["--synthetic", str(VARIANT_N)] if root is None else
+                ["--data.train_csv", os.path.join(root, "data.csv"),
+                 "--data.val_csv", os.path.join(root, "data.csv"), "--data.feature_root", root])
+        reset_counts()
+        t0 = time.perf_counter()
+        result = train_cli.main(["--train.epochs", "1", "--train.output_dir", out_dir,
+                                 *data, *over])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+        root = root or os.path.join(out_dir, "synthetic_data")
+        rec = result["history"][0]
+        if len(result["history"]) != 1 or not np.isfinite(rec["train"]["loss"]):
+            raise AssertionError(f"variant cli.train {name}: {result['history']}")
+        if launches != expected_fit_launches(cfg, VARIANT_N):
+            raise AssertionError(f"variant cli.train {name}: launches {launches}, want "
+                                 f"{expected_fit_launches(cfg, VARIANT_N)}")
+        run_dir = os.path.join(out_dir, cfg.train.name)
+        reset_counts()
+        results = evaluate_cli.main(["--ckpt", "best_r1", "--run-dir", run_dir, "--split", "val",
+                                     "--data.val_csv", os.path.join(root, "data.csv"),
+                                     "--data.feature_root", root, *over])
+        eval_counts = read_counts()
+        got, want = results["best_r1"], rec["eval"]
+        bad = [k for k in RANK_KEYS if got[k] != want[k]]
+        if bad or not abs(got["mIoU"] - want["mIoU"]) <= MIOU_ATOL:
+            raise AssertionError(f"variant cli.evaluate {name} differs from the trainer's "
+                                 f"record: {bad} mIoU {got['mIoU']} vs {want['mIoU']}")
+        if eval_counts != eval_launches(cfg, VARIANT_N):
+            raise AssertionError(f"variant cli.evaluate {name}: launches {eval_counts}")
+        phase("variant-cli", branch=name, rows=VARIANT_N, steps=rec["train"]["steps"],
+              loss=rec["train"]["loss"], R1=got["R1"], mIoU=got["mIoU"],
+              evaluate_equal_to_record=True, seconds_with_eval=f"{seconds:.2f}",
+              **{k: v for k, v in launches.items() if v})
+
+    cfg = variant(dict(detr_pre_norm=True), {}, "float32")
+    data_cfg = cfg.data
+    rng = np.random.default_rng(SEED + 3)
+    model = MaDe(cfg, torch.Generator().manual_seed(SEED)).to(device).eval()
+    feats = rng.standard_normal((VARIANT_TRACKS, data_cfg.max_snippet_num, data_cfg.ast_dim),
+                                dtype=np.float32)
+    index = build_music_index(model, [f"t{i}" for i in range(VARIANT_TRACKS)], feats,
+                              ragged_mask(rng, VARIANT_TRACKS, data_cfg.max_snippet_num, 8))
+    engine = RetrievalEngine(model, cfg, index)
+    if engine.use_fused_kernels:
+        raise AssertionError("a pre-norm engine took the post-norm encoder-layer kernel")
+    plain = RetrievalEngine(model, cfg, index, use_fused_kernels=False)
+    videos = rng.standard_normal((32, data_cfg.max_v_frames, data_cfg.vit_dim),
+                                 dtype=np.float32)
+    vmask = ragged_mask(rng, 32, data_cfg.max_v_frames, 5)
+    for n in (1, 32):
+        engine.query(videos[:n], vmask[:n])
+        reset_counts()
+        res, ms = timed_query(engine, videos[:n], vmask[:n])
+        if any(read_counts().values()):
+            raise AssertionError(f"the pre-norm engine launched {read_counts()}")
+        check_results(res, n, 5, cfg)
+        span_err, score_err = compare(res, plain.query(videos[:n], vmask[:n]))
+        phase("variant-engine", branch="pre_norm", B=n, top_k=5, dtype="float32",
+              ms=f"{ms:.2f}", span_err_s=span_err, score_err=score_err, launches=0)
+    ca_cfg = variant(dict(mml_fusion="CA"), {}, "float32")
+    try:
+        RetrievalEngine(MaDe(ca_cfg).to(device), ca_cfg, index)
+    except ValueError as err:
+        phase("variant-engine", branch="ca", raised=json.dumps(str(err)))
+    else:
+        raise AssertionError("RetrievalEngine served a CA model with concat fusion")
+
+
 def check_eval_q(device: torch.device, data_root: str) -> dict:
     """`evaluate` of the generated rows at Q_MULTI moment queries in float32
     (weights from SEED), with the decoder on #6 and with the plain decoder:
@@ -2181,6 +2629,12 @@ def main() -> int:
         check_train_accum(device, tmp, data_root)
         check_evaluate_cli(device, tmp, run_dir, data_root, record, card)
         check_eval_q(device, data_root)
+    t0 = time.perf_counter()
+    entries += check_encoder(device, Config().data.max_snippet_num) + check_temporal_shared(device)
+    branch_launches = check_variants(device, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        check_variant_clis(device, tmp)
+    phase("variants", branches=len(BRANCHES), seconds=f"{time.perf_counter() - t0:.2f}")
     entries.append(check_flash(device))
     with tempfile.TemporaryDirectory() as tmp:
         extract_launches = check_extract(device, tmp)
@@ -2190,6 +2644,10 @@ def main() -> int:
         launches[kernel] = fused_launches[kernel]
     for kernel in ("fused_decoder_layer", "fused_decoder_layer_bwd"):    # per Q=10 fused step
         launches[kernel] = q_launches[kernel]
+    for kernel in ("fused_encoder_layer", "fused_encoder_layer_bwd"):    # per CA step (L=96)
+        launches[f"{kernel}@L{Config().data.max_snippet_num}"] = branch_launches["ca"][kernel]
+    for kernel in ("fused_temporal_layer", "fused_temporal_layer_bwd"):  # per shared-stack step
+        launches[f"{kernel}@shared"] = branch_launches["shared_fused_temporal"][kernel]
     for e in entries:
         e["launches"] = launches[e["name"]]
     print(json.dumps({"kernels": entries}), flush=True)

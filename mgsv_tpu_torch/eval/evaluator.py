@@ -132,17 +132,32 @@ def corpus_similarity(
     use_fused_kernel: bool = False,
 ) -> torch.Tensor:
     """[N, N] similarity fusion per vmr_loss, train-MaDe.py:577-604, on the
-    device of the inputs.  use_fused_kernel takes the pooled X-Pool
-    similarity from the evaluation kernel (`xpool_sim_fused`), else from the
-    blocked plain path (`xpool_similarity_blocked`)."""
+    device of the inputs, as JAX's: the dual similarity without X-Pool or
+    for "dual"; the video-guided music X-Pool's pooled similarity for
+    "single", plus the dual one for the two fuse losses, and with the
+    pooled features averaged with the music embedding for
+    "dual_single_feature_fuse" (blocked, in plain PyTorch).
+    use_fused_kernel takes the pooled X-Pool similarity from the evaluation
+    kernel (`xpool_sim_fused`), else from the blocked plain path
+    (`xpool_similarity_blocked`).  A loss that needs the music X-Pool where
+    vmr_fusion builds none (XA-video) raises ValueError, where JAX's reads
+    a parameter subtree that does not exist; "dual_single_oneloss" raises
+    too, as JAX's does."""
     lc, m = cfg.loss, cfg.model
     mask = seg_masks if m.fusion_mask else None
+    block = min(block_size, len(seg_tokens))
+
+    def xpool():
+        if model.xpool is None:
+            raise ValueError(
+                f"vmr_loss={lc.vmr_loss!r} ranks by the video-guided music X-Pool, which "
+                f"vmr_fusion={m.vmr_fusion!r} does not build")
+        return model.xpool
 
     def pooled_sim():
         if use_fused_kernel:
-            return xpool_sim_fused(video_embs, seg_tokens, mask, model.xpool)
-        return xpool_similarity_blocked(model.xpool, video_embs, seg_tokens, mask,
-                                        block_size=min(block_size, len(seg_tokens)))
+            return xpool_sim_fused(video_embs, seg_tokens, mask, xpool())
+        return xpool_similarity_blocked(xpool(), video_embs, seg_tokens, mask, block_size=block)
 
     if "XA" not in m.vmr_fusion or lc.vmr_loss == "dual":
         return dual_similarity(video_embs, music_embs)
@@ -150,5 +165,7 @@ def corpus_similarity(
         return pooled_sim()
     if lc.vmr_loss in ("dual_single_sim_fuse", "dual_single_loss_fuse"):
         return pooled_sim() * 1.0 + dual_similarity(video_embs, music_embs) * 1.0
-    raise NotImplementedError(f"vmr_loss={lc.vmr_loss!r} is not ported yet "
-                              "(ROADMAP.md, queue 1: variant matrix)")
+    if lc.vmr_loss == "dual_single_feature_fuse":
+        return xpool_similarity_blocked(xpool(), video_embs, seg_tokens, mask, block_size=block,
+                                        music_embs=music_embs)
+    raise ValueError(f"unsupported vmr_loss for eval: {lc.vmr_loss}")

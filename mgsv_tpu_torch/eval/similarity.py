@@ -25,11 +25,14 @@ def xpool_similarity_blocked(
     seg_tokens: torch.Tensor,              # [M, S, D] (float32 or bfloat16)
     seg_mask: Optional[torch.Tensor],      # [M, S] or None
     block_size: int = 256,
+    music_embs: Optional[torch.Tensor] = None,    # [M, D]
 ) -> torch.Tensor:
     """[V, M] pooled X-Pool similarity, one block of tracks at a time, so the
     [M, V, D] pooled tensor never exists whole.  The last block is padded to
     the block size with tracks that have one valid snippet (a finite
-    softmax); their columns are dropped."""
+    softmax); their columns are dropped.  With `music_embs` each track's
+    embedding is added to its pooled features before the cosine (the
+    evaluation of vmr_loss "dual_single_feature_fuse")."""
     m, s, d = seg_tokens.shape
     out = torch.empty(video_embs.shape[0], m, device=video_embs.device)
     for start in range(0, m, block_size):
@@ -43,6 +46,8 @@ def xpool_similarity_blocked(
                 pad[:, 0] = 1
                 msk = torch.cat([msk, pad])
         pooled = xpool(video_embs, toks, msk)                 # [block, V, D]
+        if music_embs is not None:
+            pooled = pooled[:n] + music_embs[start:start + n, None, :].float()
         out[:, start:start + n] = sim_matrix_music_pooling(video_embs, pooled)[:, :n]
     return out
 

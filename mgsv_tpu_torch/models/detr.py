@@ -1,27 +1,32 @@
 """DETR transformer for music-moment detection, ported from
-mgsv_tpu/models/detr.py (post-norm layers, the shipped configuration).
+mgsv_tpu/models/detr.py: post-norm layers (the shipped configuration) and
+pre-norm ones (`detr_pre_norm`).
 
 Batch-major [B, L, D] throughout.  Parameter names follow the reference
-(`encoder.layers.{i}`, `decoder.layers.{i}`, `decoder.norm`).  The encoder
-has no final LayerNorm in post-norm, and every decoder layer's output goes
-through the shared `decoder.norm` (return_intermediate).
+(`encoder.layers.{i}`, `decoder.layers.{i}`, `decoder.norm`, and in
+pre-norm `encoder.norm`).  In post-norm the encoder has no final
+LayerNorm; every decoder layer's output goes through the shared
+`decoder.norm` (return_intermediate).  A pre-norm decoder layer always has
+its self-attention and norm1, as JAX's.
 
 Dropout (rate `dropout` of each layer, 0.1 in the paper configuration) sits
 where the JAX layers have it: the attention weights, the attention output,
-after the FFN's ReLU and after the FFN.  Each encoder layer runs through the
-encoder-layer kernel's autograd Function (ops/cuda/fused_encoder_layer.py:
-forward kernel, backward kernel; its plain version on CPU tensors), in
-training and in serving, in float32 outside autocast, at the precision the
-caller names ("bf16" under a bf16 model, as JAX's FusedDetrEncoderLayer),
-with its four Philox masks keyed on one int seed per layer call drawn from
-the step's generator.  With `plain=True` (JAX's fused_detr_encoder=False,
-and the serving engine without kernels) the plain layers run under the
-caller's autocast, their masks drawn from that `torch.Generator`, as the
-decoder's are.  With `fused_decoder=True` each decoder layer runs through
-the decoder-layer kernel's autograd Function
-(ops/cuda/fused_decoder_layer.py) in float32, as JAX's
-FusedDetrDecoderLayer: it has no dropout.  Without a generator every layer
-is deterministic.
+after the FFN's ReLU and after the FFN.  Each post-norm encoder layer runs
+through the encoder-layer kernel's autograd Function
+(ops/cuda/fused_encoder_layer.py: forward kernel, backward kernel; its
+plain version on CPU tensors), in training and in serving, in float32
+outside autocast, at the precision the caller names ("bf16" under a bf16
+model, as JAX's FusedDetrEncoderLayer), with its four Philox masks keyed on
+one int seed per layer call drawn from the step's generator.  With
+`plain=True` (JAX's fused_detr_encoder=False, and the serving engine
+without kernels), and always in pre-norm (JAX's kernel layer is post-norm
+only: `use_fused_enc = fused_encoder and not pre_norm`), the plain layers
+run under the caller's autocast, their masks drawn from that
+`torch.Generator`, as the decoder's are.  With `fused_decoder=True` each
+post-norm decoder layer runs through the decoder-layer kernel's autograd
+Function (ops/cuda/fused_decoder_layer.py) in float32, as JAX's
+FusedDetrDecoderLayer: it has no dropout; a pre-norm decoder refuses it.
+Without a generator every layer is deterministic.
 """
 
 from __future__ import annotations
@@ -37,23 +42,19 @@ from mgsv_tpu_torch.models.layers import (MultiHeadAttention, draw_seed, dropout
 from mgsv_tpu_torch.ops.cuda import fused_decoder_layer as fdl
 from mgsv_tpu_torch.ops.cuda import fused_encoder_layer as fel
 
-_PRE_NORM_MSG = ("pre-norm DETR layers are not ported yet "
-                 "(ROADMAP.md, queue 1: variant matrix)")
-
-
 def _xavier_linear_(lin: nn.Linear, generator: torch.Generator) -> None:
     xavier_uniform_(lin.weight, generator)
     nn.init.zeros_(lin.bias)
 
 
 class DetrEncoderLayer(nn.Module):
-    """Post-norm encoder layer: q, k from src + pos, v from src."""
+    """Post-norm (or pre-norm) encoder layer: q, k from src + pos, v from
+    src (from norm1(src) in pre-norm)."""
 
     def __init__(self, dim: int, heads: int, ffn_dim: int, pre_norm: bool = False,
                  dropout: float = 0.0):
         super().__init__()
-        if pre_norm:
-            raise NotImplementedError(_PRE_NORM_MSG)
+        self.pre_norm = pre_norm
         self.dropout = dropout
         self.self_attn = MultiHeadAttention(dim, heads, dropout)
         self.linear1 = nn.Linear(dim, ffn_dim)
@@ -81,6 +82,13 @@ class DetrEncoderLayer(nn.Module):
         def site(t, name):
             return t * masks[name] if name in masks else dropout(t, self.dropout, generator)
 
+        if self.pre_norm:
+            src2 = self.norm1(src)
+            qk = src2 + pos
+            src = src + site(self.self_attn(qk, qk, src2, key_mask=mask, generator=generator,
+                                            attn_mask=masks.get("attn")), "attn_out")
+            h = site(F.relu(self.linear1(self.norm2(src))), "ffn1")
+            return src + site(self.linear2(h), "ffn2")
         qk = src + pos
         attn = self.self_attn(qk, qk, src, key_mask=mask, generator=generator,
                               attn_mask=masks.get("attn"))
@@ -90,17 +98,16 @@ class DetrEncoderLayer(nn.Module):
 
 
 class DetrDecoderLayer(nn.Module):
-    """Post-norm decoder layer with optional self-attention over queries.
-    Cross-attention: q from tgt + query_pos, k from memory + pos, v from
-    memory."""
+    """Post-norm decoder layer with optional self-attention over queries,
+    or pre-norm with it always.  Cross-attention: q from tgt + query_pos, k
+    from memory + pos, v from memory."""
 
     def __init__(self, dim: int, heads: int, ffn_dim: int,
                  self_attn: bool = True, pre_norm: bool = False, dropout: float = 0.0):
         super().__init__()
-        if pre_norm:
-            raise NotImplementedError(_PRE_NORM_MSG)
+        self.pre_norm = pre_norm
         self.dropout = dropout
-        if self_attn:
+        if self_attn or pre_norm:
             self.self_attn = MultiHeadAttention(dim, heads, dropout)
             self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         else:
@@ -124,32 +131,44 @@ class DetrDecoderLayer(nn.Module):
     def forward(self, tgt, memory, mem_mask, pos, query_pos,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         drop = lambda t: dropout(t, self.dropout, generator)
+        ffn = lambda t: self.linear2(drop(F.relu(self.linear1(t))))
+        if self.pre_norm:
+            tgt2 = self.norm1(tgt)
+            qk = tgt2 + query_pos
+            tgt = tgt + drop(self.self_attn(qk, qk, tgt2, generator=generator))
+            tgt2 = self.norm2(tgt)
+            tgt = tgt + drop(self.multihead_attn(tgt2 + query_pos, memory + pos, memory,
+                                                 key_mask=mem_mask, generator=generator))
+            return tgt + drop(ffn(self.norm3(tgt)))
         if self.self_attn is not None:
             qk = tgt + query_pos
             tgt = self.norm1(tgt + drop(self.self_attn(qk, qk, tgt, generator=generator)))
         tgt = self.norm2(tgt + drop(self.multihead_attn(
             tgt + query_pos, memory + pos, memory, key_mask=mem_mask, generator=generator)))
-        h = drop(F.relu(self.linear1(tgt)))
-        return self.norm3(tgt + drop(self.linear2(h)))
+        return self.norm3(tgt + drop(ffn(tgt)))
 
 
 class DetrEncoder(nn.Module):
     def __init__(self, dim: int, heads: int, ffn_dim: int, num_layers: int,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, pre_norm: bool = False):
         super().__init__()
+        self.pre_norm = pre_norm
         self.layers = nn.ModuleList(
-            DetrEncoderLayer(dim, heads, ffn_dim, dropout=dropout) for _ in range(num_layers))
+            DetrEncoderLayer(dim, heads, ffn_dim, pre_norm, dropout) for _ in range(num_layers))
+        # the pre-norm encoder's final LayerNorm (JAX's encoder_norm)
+        self.norm = nn.LayerNorm(dim, eps=1e-5) if pre_norm and num_layers > 0 else None
 
     def forward(self, src, mask, pos, generator: Optional[torch.Generator] = None,
                 plain: bool = False, precision: str = "f32") -> torch.Tensor:
         """Each layer through the kernel's wrapper at `precision`, in
-        float32 outside autocast (`plain`: the plain layers under the
-        caller's autocast, JAX's fused_detr_encoder=False); dropout at the
-        layer's rate only with a generator."""
-        if plain:
+        float32 outside autocast (`plain`, and always in pre-norm: the
+        plain layers under the caller's autocast, JAX's
+        fused_detr_encoder=False); dropout at the layer's rate only with a
+        generator."""
+        if plain or self.pre_norm:
             for layer in self.layers:
                 src = layer(src, mask, pos, generator=generator)
-            return src
+            return src if self.norm is None else self.norm(src)
         src, mask, pos = widen(src), widen(mask), widen(pos)
         with torch.autocast(src.device.type, enabled=False):
             for layer in self.layers:
@@ -161,10 +180,11 @@ class DetrEncoder(nn.Module):
 
 class DetrDecoder(nn.Module):
     def __init__(self, dim: int, heads: int, ffn_dim: int, num_layers: int,
-                 self_attn: bool, dropout: float = 0.0):
+                 self_attn: bool, dropout: float = 0.0, pre_norm: bool = False):
         super().__init__()
+        self.pre_norm = pre_norm
         self.layers = nn.ModuleList(
-            DetrDecoderLayer(dim, heads, ffn_dim, self_attn=self_attn, dropout=dropout)
+            DetrDecoderLayer(dim, heads, ffn_dim, self_attn, pre_norm, dropout)
             for _ in range(num_layers))
         self.norm = nn.LayerNorm(dim, eps=1e-5)
 
@@ -173,8 +193,12 @@ class DetrDecoder(nn.Module):
         """-> [num_layers, B, Q, D], each layer's output through `norm`.
         `fused`: each layer through the decoder-layer kernel's wrapper, in
         float32 outside autocast and without dropout (the caller refuses a
-        training call with a dropout rate)."""
+        training call with a dropout rate); post-norm only, as JAX's fused
+        decoder layer."""
         intermediate = []
+        if fused and self.pre_norm:
+            raise ValueError("fused_decoder=True runs the post-norm decoder layer only; "
+                             "model.detr_pre_norm=True needs the plain decoder")
         if fused:
             tgt, memory, mem_mask, pos, query_pos = map(widen, (tgt, memory, mem_mask, pos,
                                                                 query_pos))
@@ -197,14 +221,15 @@ class DetrTransformer(nn.Module):
                  dec_layers: int, decoder_self_attn: bool = True,
                  pre_norm: bool = False, dropout: float = 0.0):
         super().__init__()
-        if pre_norm:
-            raise NotImplementedError(_PRE_NORM_MSG)
-        self.encoder = DetrEncoder(dim, heads, ffn_dim, enc_layers, dropout)
-        self.decoder = DetrDecoder(dim, heads, ffn_dim, dec_layers, decoder_self_attn, dropout)
+        self.encoder = DetrEncoder(dim, heads, ffn_dim, enc_layers, dropout, pre_norm)
+        self.decoder = DetrDecoder(dim, heads, ffn_dim, dec_layers, decoder_self_attn, dropout,
+                                   pre_norm)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for layer in (*self.encoder.layers, *self.decoder.layers):
             layer.reset_parameters(generator)
+        if self.encoder.norm is not None:
+            self.encoder.norm.reset_parameters()
         self.decoder.norm.reset_parameters()
 
     def forward(self, src, mask, pos, query_embed,
@@ -213,7 +238,8 @@ class DetrTransformer(nn.Module):
                 precision: str = "f32", fused_decoder: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """`plain` and `precision` pick the encoder's route (DetrEncoder),
-        `fused_decoder` the decoder's (DetrDecoder)."""
+        `fused_decoder` the decoder's (DetrDecoder, which refuses it in
+        pre-norm)."""
         memory = self.encoder(src, mask, pos, generator, plain, precision)
         return self.decode(memory, mask, pos, query_embed, target, generator,
                            fused_decoder), memory

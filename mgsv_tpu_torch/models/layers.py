@@ -8,7 +8,7 @@ torch.nn.MultiheadAttention, which masks with -inf.
 
 Initializers take an explicit torch.Generator and follow the flax ones of
 the JAX package (xavier-uniform for attention and DETR, lecun-normal for
-plain Dense layers).
+plain Dense layers, xavier-normal for the CA fusion's cross-attention).
 """
 
 from __future__ import annotations
@@ -40,6 +40,15 @@ def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
     return nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
                                  generator=generator)
+
+
+@torch.no_grad()
+def xavier_normal_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """flax xavier_normal on a torch [out, in] weight: a normal truncated at
+    two standard deviations, rescaled to variance 2 / (fan_in + fan_out)."""
+    fan_out, fan_in = w.shape
+    std = math.sqrt(2.0 / (fan_in + fan_out)) / 0.87962566103423978
+    return nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
 
 
 def sinusoidal_table(seq_len: int, dim: int) -> np.ndarray:
@@ -138,6 +147,27 @@ def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Te
     """x / sqrt(max(sum(x^2), eps^2)), the JAX package's form."""
     sq = (x * x).sum(dim=dim, keepdim=True)
     return x / torch.sqrt(torch.clamp(sq, min=eps * eps))
+
+
+class FeedForward(nn.Module):
+    """Linear, exact GELU, dropout, Linear, dropout (the JAX FeedForward);
+    parameters `net.0` and `net.3`, as the reference's Sequential."""
+
+    def __init__(self, dim: int, hidden_dim: int, out_dim: int, dropout: float = 0.0):
+        super().__init__()
+        self.net = nn.Sequential(nn.Linear(dim, hidden_dim), nn.GELU(), Dropout(dropout),
+                                 nn.Linear(hidden_dim, out_dim), Dropout(dropout))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """xavier-normal weights, biases 0.01, as in JAX."""
+        for lin in (self.net[0], self.net[3]):
+            xavier_normal_(lin.weight, generator)
+            nn.init.constant_(lin.bias, 0.01)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        fc1, gelu, drop1, fc2, drop2 = self.net
+        return drop2(fc2(drop1(gelu(fc1(x)), generator)), generator)
 
 
 class DetrMLP(nn.Module):

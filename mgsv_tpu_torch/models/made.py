@@ -1,18 +1,25 @@
-"""MaDe's paper-branch modules, ported from mgsv_tpu/models/made.py.
+"""MaDe, ported from mgsv_tpu/models/made.py.
 
-`MaDe` holds every submodule of the shipped configuration (XA-music X-Pool,
-concat fusion, DETR localization, video moment query) under the reference
+`MaDe` holds the submodules its configuration builds under the reference
 Uni_model's state-dict names, so JAX parameter trees (through
 `interop/state_dict.py`) and reference `.bin` checkpoints load with
-`strict=True`.  The serving engine drives the towers, X-Pool, DETR and heads
-one by one; `MaDe.forward` is the training forward of the JAX `MaDe` on the
-paper branch, with the X-Pool similarity and the DETR encoder layers on the
-CUDA kernels (their plain versions on CPU tensors; the encoder at bf16
-precision under a bf16 compute dtype, and its plain layers under autocast
-with `fused_detr_encoder=False`, as in JAX), with `fused_temporal` the
-temporal towers' layers too (FusedTemporalTransformer, float32, as in JAX),
-and with the call argument `fused_decoder` the DETR decoder's layers
-(float32, no dropout, as JAX's FusedDetrDecoderLayer).
+`strict=True`: the towers' temporal stacks (one shared stack,
+`share_transformer`, under transformer_is_share), the X-Pools of
+`vmr_fusion` (video-guided music pooling for XA-music, music-guided video
+pooling for XA-video, both for XA-music-video, none for NO), the CA fusion
+(models/cross.py) or concat, the pre- or post-norm DETR, and DETR heads
+(with moment_loss's moment head) or the regression head.  The serving
+engine drives the towers, X-Pool, DETR and heads one by one; `MaDe.forward`
+is the training forward of the JAX `MaDe`, with the X-Pool similarity and
+the post-norm DETR encoder layers on the CUDA kernels (their plain versions
+on CPU tensors; the encoder at bf16 precision under a bf16 compute dtype,
+and its plain layers under autocast with `fused_detr_encoder=False` or in
+pre-norm, as in JAX), with `fused_temporal` the temporal towers' layers too
+(FusedTemporalTransformer, float32, as in JAX; a shared stack runs both
+towers through one set of weights), and with the call argument
+`fused_decoder` the post-norm DETR decoder's layers (float32, no dropout,
+as JAX's FusedDetrDecoderLayer).  The branches `agg_module="mlp"` and
+`with_cls_token` raise (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from torch import nn
 
 from mgsv_tpu_torch.config import Config
 from mgsv_tpu_torch.models import layers as L
+from mgsv_tpu_torch.models.cross import CrossTransformer
 from mgsv_tpu_torch.models.detr import DetrTransformer
 from mgsv_tpu_torch.models.temporal import FusedTemporalTransformer, TemporalTransformer
 from mgsv_tpu_torch.models.xpool import XPoolTransformer
@@ -51,42 +59,46 @@ def tower(proj: nn.Linear, temporal: Optional[TemporalTransformer],
     return x, L.l2_normalize(L.masked_mean(x, mask)), mask
 
 
+def uses_fused_sim(cfg: Config) -> bool:
+    """Whether the training forward takes the [V, M] X-Pool similarity
+    straight from the X-Pool kernel: only where nothing but that similarity
+    is consumed (JAX made.py:180-184)."""
+    m = cfg.model
+    return (m.fused_xpool_sim and m.vmr_fusion == "XA-music"
+            and cfg.loss.vmr_loss in ("single", "dual_single_loss_fuse", "dual_single_sim_fuse")
+            and m.moment_query_type != "xpool")
+
+
 def _unsupported(cfg: Config) -> Optional[str]:
     m = cfg.model
     checks = {
         "agg_module": (m.agg_module, "transf"),
         "with_cls_token": (m.with_cls_token, False),
-        "transformer_is_share": (m.transformer_is_share, False),
-        "vmr_fusion": (m.vmr_fusion, "XA-music"),
-        "mml_fusion": (m.mml_fusion, "concat"),
-        "mml_localization": (m.mml_localization, "detr"),
-        "detr_pre_norm": (m.detr_pre_norm, False),
-        "moment_loss": (m.moment_loss, False),
-        "moment_query_type": (m.moment_query_type, "video"),
     }
     bad = [f"{k}={v!r}" for k, (v, want) in checks.items() if v != want]
     return ", ".join(bad) or None
 
 
 class MaDe(nn.Module):
-    """Container of the paper-branch submodules under reference names."""
+    """Container of MaDe's submodules under reference names."""
 
     def __init__(self, cfg: Config, generator: Optional[torch.Generator] = None):
         super().__init__()
         bad = _unsupported(cfg)
         if bad:
             raise NotImplementedError(
-                f"MaDe port covers the paper branch only; not yet ported: {bad} "
-                "(ROADMAP.md, queue 1: variant matrix)")
+                f"not ported yet: {bad} (ROADMAP.md, queue 1: the EmbeddingNet "
+                "aggregator and the cls token)")
         self.cfg = cfg
         m, data = cfg.model, cfg.data
         d = m.dim_input
         cdtype = torch.bfloat16 if m.compute_dtype == "bfloat16" else None
         self.compute_dtype = cdtype
-        # the fused X-Pool path gives the [V, M] similarity directly: only
-        # for the losses that consume exactly that (JAX made.py:180-184)
-        self.use_fused_sim = m.fused_xpool_sim and cfg.loss.vmr_loss in (
-            "single", "dual_single_loss_fuse", "dual_single_sim_fuse")
+        self.use_fused_sim = uses_fused_sim(cfg)
+        music_pool = "XA" in m.vmr_fusion and "music" in m.vmr_fusion
+        if m.moment_query_type == "xpool" and not music_pool:
+            raise ValueError(f"moment_query_type='xpool' takes the video-guided music X-Pool, "
+                             f"which vmr_fusion={m.vmr_fusion!r} does not build")
 
         # fused_temporal: both towers on the fused temporal-layer kernel
         # (JAX made.py: Tower(fused=m.fused_temporal))
@@ -99,56 +111,102 @@ class MaDe(nn.Module):
 
         self.vit_proj = nn.Linear(data.vit_dim, d)
         self.ast_proj = nn.Linear(data.ast_dim, d)
-        self.video_transformer = temporal(m.video_temporal_depth or m.temporal_depth)
-        self.audio_transformer = temporal(m.audio_temporal_depth or m.temporal_depth)
+        v_depth = m.video_temporal_depth or m.temporal_depth
+        a_depth = m.audio_temporal_depth or m.temporal_depth
+        if m.transformer_is_share:
+            # one temporal stack for both towers (each adds its own table)
+            if not v_depth == a_depth == m.temporal_depth:
+                raise ValueError("transformer_is_share uses one temporal stack; per-tower "
+                                 f"depths {v_depth} / {a_depth} cannot apply")
+            self.share_transformer = temporal(m.temporal_depth)
+        else:
+            self.video_transformer = temporal(v_depth)
+            self.audio_transformer = temporal(a_depth)
         self.register_buffer("video_pe", torch.from_numpy(
             L.sinusoidal_table(m.video_pe_len, d)), persistent=False)
         self.register_buffer("audio_pe", torch.from_numpy(
             L.sinusoidal_table(m.audio_pe_len, d)), persistent=False)
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1.0 / m.temperature_init_value)))
-        self.video_guided_to_music_pooling_cross_transformer = XPoolTransformer(
-            d, m.xpool_dropout)
+        if music_pool:          # video embeddings pool each track's snippets: [M, V, D]
+            self.video_guided_to_music_pooling_cross_transformer = XPoolTransformer(
+                d, m.xpool_dropout)
+        if "XA" in m.vmr_fusion and "video" in m.vmr_fusion:
+            # music embeddings pool each video's frames: [V, M, D]
+            self.music_guided_to_video_pooling_cross_transformer = XPoolTransformer(
+                d, m.xpool_dropout)
+        if m.mml_fusion == "CA":
+            self.video_music_fusion_cross_transformer = CrossTransformer(
+                d, depth=1, heads=m.ca_heads, dim_head=m.ca_dim_head, mlp_dim=m.ca_mlp_dim,
+                out_dim=d, dropout=m.ca_dropout)
+        elif m.mml_fusion != "concat":
+            raise ValueError(f"unsupported mml_fusion: {m.mml_fusion}")
         self.detr_transformer = DetrTransformer(
             d, m.detr_heads, m.detr_ffn_dim, m.detr_enc_layers, m.detr_dec_layers,
-            decoder_self_attn=m.decoder_self_attn, dropout=m.detr_dropout)
+            decoder_self_attn=m.decoder_self_attn, pre_norm=m.detr_pre_norm,
+            dropout=m.detr_dropout)
         self.decoder_query_embed = nn.Embedding(m.num_moment_queries, d)
-        self.span_embed = L.DetrMLP(d, d, 1 if m.predict_center else 2, 3)
-        self.class_embed = nn.Linear(d, 2)
-        if cfg.loss.contrastive_align_loss:
-            dc = d if m.audio_short_cut else m.contrastive_dim
-            self.contrastive_align_projection_query = nn.Linear(d, dc)
-            self.contrastive_align_projection_vid = nn.Linear(d, dc)
+        self.detr_heads = m.mml_localization == "detr"
+        if self.detr_heads:
+            self.span_embed = L.DetrMLP(d, d, 1 if m.predict_center else 2, 3)
+            self.class_embed = nn.Linear(d, 2)
+            if cfg.loss.contrastive_align_loss:
+                dc = d if m.audio_short_cut else m.contrastive_dim
+                self.contrastive_align_projection_query = nn.Linear(d, dc)
+                self.contrastive_align_projection_vid = nn.Linear(d, dc)
+            if m.moment_loss:
+                self.moment_embed = L.DetrMLP(d, d, d, 3)
+        elif m.mml_localization == "regression":
+            # masked mean of the memory -> MLP (hidden 256 whatever D, as JAX)
+            self.reg_mlp = L.DetrMLP(d, 256, 1 if m.predict_center else 2, 3)
+        else:
+            raise ValueError(f"unsupported mml_localization: {m.mml_localization}")
         self.reset_parameters(generator or torch.Generator().manual_seed(cfg.train.seed))
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """The JAX package's initializers: lecun-normal Dense layers,
-        xavier-uniform attention and DETR, identity X-Pool, N(0, 1) query
-        embedding, logit_scale = log(1 / temperature)."""
-        dense = [self.vit_proj, self.ast_proj, self.class_embed]
-        if self.cfg.loss.contrastive_align_loss:
-            dense += [self.contrastive_align_projection_query,
-                      self.contrastive_align_projection_vid]
+        """The JAX package's initializers: lecun-normal Dense layers and MLP
+        heads, xavier-uniform attention and DETR, xavier-normal CA fusion,
+        identity X-Pool, N(0, 1) query embedding, logit_scale =
+        log(1 / temperature)."""
+        dense = [self.vit_proj, self.ast_proj]
+        if self.detr_heads:
+            dense.append(self.class_embed)
+            if self.cfg.loss.contrastive_align_loss:
+                dense += [self.contrastive_align_projection_query,
+                          self.contrastive_align_projection_vid]
         for lin in dense:
             L.lecun_normal_(lin.weight, generator)
             nn.init.zeros_(lin.bias)
-        for trm in (self.video_transformer, self.audio_transformer):
-            if trm is not None:
-                trm.reset_parameters(generator)
-        self.xpool.reset_parameters()
-        self.span_embed.reset_parameters(generator)
+        for trm in {id(t): t for t in (self.temporal("video"), self.temporal("music"))
+                    if t is not None}.values():
+            trm.reset_parameters(generator)
+        for name in ("video_guided_to_music_pooling_cross_transformer",
+                     "music_guided_to_video_pooling_cross_transformer"):
+            if hasattr(self, name):
+                getattr(self, name).reset_parameters()
+        for name in ("video_music_fusion_cross_transformer", "span_embed", "moment_embed",
+                     "reg_mlp"):
+            if hasattr(self, name):
+                getattr(self, name).reset_parameters(generator)
         self.detr_transformer.reset_parameters(generator)
         self.decoder_query_embed.weight.normal_(generator=generator)
         self.logit_scale.fill_(math.log(1.0 / self.cfg.model.temperature_init_value))
 
+    def temporal(self, which: str) -> Optional[TemporalTransformer]:
+        """The temporal stack of the "video" or "music" tower: the shared
+        one under transformer_is_share."""
+        if self.cfg.model.transformer_is_share:
+            return self.share_transformer
+        return self.video_transformer if which == "video" else self.audio_transformer
+
     def video_tower(self, feats: torch.Tensor, mask: torch.Tensor,
                     generator: Optional[torch.Generator] = None, plain_temporal: bool = False):
-        return tower(self.vit_proj, self.video_transformer, self.video_pe, feats,
+        return tower(self.vit_proj, self.temporal("video"), self.video_pe, feats,
                      mask, self.cfg.model.with_act_after_proj, generator, plain_temporal)
 
     def music_tower(self, feats: torch.Tensor, mask: torch.Tensor,
                     generator: Optional[torch.Generator] = None, plain_temporal: bool = False):
-        return tower(self.ast_proj, self.audio_transformer, self.audio_pe, feats,
+        return tower(self.ast_proj, self.temporal("music"), self.audio_pe, feats,
                      mask, self.cfg.model.with_act_after_proj, generator, plain_temporal)
 
     def forward(self, frame_feats: torch.Tensor, frame_mask: torch.Tensor,
@@ -156,21 +214,26 @@ class MaDe(nn.Module):
                 v_duration: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
                 fused_decoder: bool = False) -> Dict[str, Any]:
-        """The training forward (JAX made.py:112-311, paper branch).
+        """The training forward (JAX made.py:112-311).
 
         frame_feats [B, F, vit_dim], segment_feats [B, S, ast_dim], masks
         [B, *] (1 = valid).  Dropout at the configured rates only with a
-        `generator` (on the inputs' device); the two kernels draw one Philox
+        `generator` (on the inputs' device); the kernels draw one Philox
         seed per call from it.  Returns the JAX model's keys: video_emb,
-        music_emb, frame/seg tokens and masks, logit_scale, single_sim [V, M]
-        (fused path) or music_pooled [M, V, D], memory, pred_logits_layers,
-        pred_spans_layers [layers, B, Q, 2] and, with the contrastive-align
-        loss, proj_queries_layers and proj_vid_mem.
+        music_emb, frame/seg tokens and masks, logit_scale, with X-Pool
+        single_sim [V, M] (fused path) or music_pooled [M, V, D] and
+        video_pooled [V, M, D] (XA-video, XA-music-video), memory,
+        pred_logits_layers and pred_spans_layers ([layers, B, Q, 2]; [1, B,
+        1, 2] in regression, its logits zero) and, with the DETR heads, the
+        contrastive-align loss's proj_queries_layers and proj_vid_mem and
+        moment_loss's moment_feats [B, Q, D].  The CA fusion and the
+        music-guided X-Pool run in float32 whatever the compute dtype, as
+        JAX's.
 
         fused_decoder: the DETR decoder's layers on the decoder-layer kernel
-        (float32 whatever the compute dtype).  That layer has no dropout, so
-        a training call (a generator) with detr_dropout > 0 raises rather
-        than train another model."""
+        (float32 whatever the compute dtype; post-norm only).  That layer
+        has no dropout, so a training call (a generator) with detr_dropout
+        > 0 raises rather than train another model."""
         m = self.cfg.model
         d = m.dim_input
         if fused_decoder and generator is not None and m.detr_dropout > 0.0:
@@ -195,14 +258,33 @@ class MaDe(nn.Module):
             mask = seg_mask if seg_mask is not None else torch.ones_like(segment_mask)
             out["single_sim"] = self.xpool.pooled_similarity(video_emb, seg_tokens, mask,
                                                              rate, seed)
-        else:
+        elif self.xpool is not None:
             out["music_pooled"] = self.xpool(video_emb, seg_tokens, seg_mask, generator)
+        if hasattr(self, "music_guided_to_video_pooling_cross_transformer"):
+            out["video_pooled"] = self.music_guided_to_video_pooling_cross_transformer(
+                music_emb, frame_tokens, frame_mask if m.fusion_mask else None, generator)
 
-        fused = torch.cat([frame_tokens, seg_tokens], dim=1)
-        fused_mask = torch.cat([frame_mask, segment_mask], dim=1)
+        if m.mml_fusion == "CA":
+            # snippets query frames; the fused sequence is the snippets'
+            fused, _ = self.video_music_fusion_cross_transformer(
+                seg_tokens, frame_tokens, q_mask=segment_mask, kv_mask=frame_mask,
+                generator=generator)
+            fused = fused * (segment_mask[..., None] != 0).to(fused.dtype)
+            fused_mask = segment_mask
+        else:
+            fused = torch.cat([frame_tokens, seg_tokens], dim=1)
+            fused_mask = torch.cat([frame_mask, segment_mask], dim=1)
         fused, fused_mask = L.pad_fused_sequence(fused, fused_mask, m.detr_seq_pad_multiple)
         pos = L.position_embedding_sine(fused_mask, d)
-        target = video_emb[:, None, :].expand(-1, m.num_moment_queries, -1)
+        nq = m.num_moment_queries
+        if m.moment_query_type == "video":
+            target = video_emb[:, None, :].expand(-1, nq, -1)
+        elif m.moment_query_type == "music":
+            target = music_emb[:, None, :].expand(-1, nq, -1)
+        elif m.moment_query_type == "xpool":
+            target = out["music_pooled"].mean(dim=1)[:, None, :].expand(-1, nq, -1)
+        else:                                   # "zero" / "random": zeros
+            target = None
         with torch.autocast(fused.device.type, dtype=self.compute_dtype or torch.bfloat16,
                             enabled=self.compute_dtype is not None):
             hidden, memory = self.detr_transformer(
@@ -211,7 +293,19 @@ class MaDe(nn.Module):
                 precision="bf16" if self.compute_dtype == torch.bfloat16 else "f32",
                 fused_decoder=fused_decoder)
         hidden = L.widen(hidden)
-        out["memory"] = L.widen(memory)
+        memory = L.widen(memory)
+        out["memory"] = memory
+
+        if not self.detr_heads:
+            # regression: the masked mean of the memory -> one span per row
+            pooled = (memory * fused_mask[..., None]).sum(1) / fused_mask.sum(1, keepdim=True)
+            coord = torch.sigmoid(self.reg_mlp(pooled))[:, None, :]        # [B, 1, 1 | 2]
+            if m.predict_center:
+                width = (v_duration / self.cfg.data.max_m_duration)[:, None, None]
+                coord = torch.cat([coord, width.expand(*coord.shape[:-1], 1)], dim=-1)
+            out["pred_spans_layers"] = coord[None]
+            out["pred_logits_layers"] = coord.new_zeros(1, coord.shape[0], 1, 2)
+            return out
 
         out["pred_logits_layers"] = self.class_embed(hidden)
         coord = torch.sigmoid(self.span_embed(hidden))
@@ -226,8 +320,15 @@ class MaDe(nn.Module):
             out["proj_queries_layers"] = pq
             out["proj_vid_mem"] = L.l2_normalize(
                 self.contrastive_align_projection_vid(frame_tokens))
+        if m.moment_loss:
+            mf = L.l2_normalize(self.moment_embed(hidden[-1]))
+            if m.audio_short_cut:
+                mf = L.l2_normalize(mf + music_emb[:, None, :])
+            out["moment_feats"] = mf
         return out
 
     @property
-    def xpool(self) -> XPoolTransformer:
-        return self.video_guided_to_music_pooling_cross_transformer
+    def xpool(self) -> Optional[XPoolTransformer]:
+        """The video-guided music X-Pool (JAX's xpool_v2m), None where
+        vmr_fusion builds none ("NO", "XA-video")."""
+        return getattr(self, "video_guided_to_music_pooling_cross_transformer", None)

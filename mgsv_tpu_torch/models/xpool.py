@@ -12,6 +12,10 @@ All projections start as the identity with zero bias, as in the reference.
 `pooled_similarity` is the training path's twin of the JAX `FusedXPoolSim`:
 it goes straight to the [V, M] pooled cosine similarity through the X-Pool
 kernel (ops/cuda/xpool_sim.py), so the [M, V, D] pooled tensor never exists.
+The same module with music embeddings as its queries and frame tokens as
+its keys is the music-guided video pooling of `vmr_fusion` XA-video and
+XA-music-video ([V, M, D]); the `sim_matrix_*` functions are the
+similarities the retrieval losses take from the pooled tensors.
 """
 
 from __future__ import annotations
@@ -113,3 +117,18 @@ def sim_matrix_music_pooling(video: torch.Tensor, pooled: torch.Tensor) -> torch
     """video [V, D], pooled [M, V, D] -> [V, M]:
     sims[v, m] = <video_hat[v], pooled_hat[m, v]>."""
     return torch.einsum("vd,mvd->vm", l2_normalize(video), l2_normalize(pooled))
+
+
+def sim_matrix_video_pooling(video_pooled: torch.Tensor, music: torch.Tensor) -> torch.Tensor:
+    """video_pooled [V, M, D] (music queries pooling frame tokens), music
+    [M, D] -> [V, M]: sims[v, m] = <music_hat[m], video_pooled_hat[v, m]>."""
+    return torch.einsum("md,vmd->vm", l2_normalize(music), l2_normalize(video_pooled))
+
+
+def sim_matrix_both_pooling(video_pooled: torch.Tensor, music_pooled: torch.Tensor
+                            ) -> torch.Tensor:
+    """video_pooled [V, M, D], music_pooled [M, V, D] -> [V, M]: the
+    reference's bmm over the middle axis, then its mean,
+    sims[v, m] = mean_k <video_pooled_hat[v, k], music_pooled_hat[m, v]>."""
+    sims = torch.einsum("vkd,mvd->vkm", l2_normalize(video_pooled), l2_normalize(music_pooled))
+    return sims.mean(dim=1)

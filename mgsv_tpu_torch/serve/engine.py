@@ -8,8 +8,13 @@ pair.  With `use_fused_kernels` (the default on a CUDA device) the DETR
 encoder layers run on the hand-written CUDA kernel
 (ops/cuda/fused_encoder_layer.py) in float32, as the JAX fused path does;
 a config whose shapes the kernel does not take raises at the first query.
+A pre-norm DETR (`detr_pre_norm`) never takes the kernel, as in JAX.
 Otherwise the plain modules run in the configured compute dtype (the CPU
-runs them either way).
+runs them either way).  The engine serves what JAX's serves: the
+video-guided music X-Pool, concat fusion, the video moment query and the
+DETR heads; a config without one of them raises ValueError (JAX's engine
+fails on a missing X-Pool or head with a KeyError, and would run concat
+fusion and the video query where the model was trained otherwise).
 """
 
 from __future__ import annotations
@@ -96,13 +101,24 @@ class RetrievalEngine:
                  index_dtype: str = "float32"):
         # index_dtype "bfloat16" halves the device-resident token store;
         # compute promotes it back to float32, so only stored values round.
+        m = cfg.model
+        unserved = {"vmr_fusion": (m.vmr_fusion, model.xpool is not None),
+                    "mml_fusion": (m.mml_fusion, m.mml_fusion == "concat"),
+                    "moment_query_type": (m.moment_query_type, m.moment_query_type == "video"),
+                    "mml_localization": (m.mml_localization, m.mml_localization == "detr")}
+        bad = [f"{k}={v!r}" for k, (v, ok) in unserved.items() if not ok]
+        if bad:
+            raise ValueError(f"RetrievalEngine serves the video-guided music X-Pool, concat "
+                             f"fusion, the video moment query and the DETR heads; not "
+                             f"{', '.join(bad)}")
         self.model = model.eval()
         self.cfg = cfg
         self.index = index
         self.device = next(model.parameters()).device
         if use_fused_kernels is None:
             use_fused_kernels = self.device.type == "cuda"
-        self.use_fused_kernels = use_fused_kernels
+        # the encoder-layer kernel is post-norm only (JAX engine.py:126)
+        self.use_fused_kernels = use_fused_kernels and not m.detr_pre_norm
         self.sim_block_size = sim_block_size
         if index_dtype in ("bf16", "bfloat16"):
             store_dt = torch.bfloat16

@@ -1,9 +1,8 @@
 """The dual-task training objective, ported from mgsv_tpu/train/objective.py.
 
-loss = ret_loss_weight * retrieval + loc_loss_weight * localization.  The
-port has the retrieval branches its `MaDe` can produce (the paper
-configuration's dual_single_loss_fuse among them) and DETR localization;
-the other variants raise.
+loss = ret_loss_weight * retrieval + loc_loss_weight * localization: every
+vmr_loss branch (the paper configuration's dual_single_loss_fuse among
+them) and the DETR or regression localization, as in JAX.
 """
 
 from __future__ import annotations
@@ -13,10 +12,9 @@ from typing import Any, Dict, Tuple
 import torch
 
 from mgsv_tpu_torch.config import Config
-from mgsv_tpu_torch.models.xpool import sim_matrix_music_pooling
+from mgsv_tpu_torch.models.xpool import (sim_matrix_both_pooling, sim_matrix_music_pooling,
+                                         sim_matrix_video_pooling)
 from mgsv_tpu_torch.ops import losses as loss_ops
-
-_NOT_PORTED = "(ROADMAP.md, queue 1: variant matrix)"
 
 
 def retrieval_loss(outputs: Dict[str, Any], cfg: Config,
@@ -39,7 +37,16 @@ def retrieval_loss(outputs: Dict[str, Any], cfg: Config,
         loss = loss_ops.clip_loss(loss_ops.cosine_sim_matrix(video, music),
                                   scale) * lc.dual_single_loss_weight
     elif lc.vmr_loss == "single":
-        loss = loss_ops.clip_loss(music_pooled_sim(), scale) * lc.dual_single_loss_weight
+        # the pooled similarities of whichever X-Pools vmr_fusion built
+        sim = video.new_zeros(video.shape[0], music.shape[0])
+        if "music_pooled" in outputs or "single_sim" in outputs:
+            sim = sim + music_pooled_sim()
+        if "video_pooled" in outputs:
+            sim = sim + sim_matrix_video_pooling(outputs["video_pooled"], music)
+        loss = loss_ops.clip_loss(sim, scale) * lc.dual_single_loss_weight
+    elif lc.vmr_loss == "dual_single_oneloss":
+        sim = sim_matrix_both_pooling(outputs["video_pooled"], outputs["music_pooled"])
+        loss = loss_ops.clip_loss(sim, scale) * lc.dual_single_loss_weight
     elif lc.vmr_loss == "dual_single_loss_fuse":
         dual = loss_ops.info_nce_loss(loss_ops.cosine_sim_matrix(video, music), scale,
                                       music_codes)
@@ -49,21 +56,29 @@ def retrieval_loss(outputs: Dict[str, Any], cfg: Config,
     elif lc.vmr_loss == "dual_single_sim_fuse":
         loss = loss_ops.clip_loss(loss_ops.cosine_sim_matrix(video, music) + music_pooled_sim(),
                                   scale) * lc.dual_single_loss_weight
+    elif lc.vmr_loss == "dual_single_feature_fuse":
+        fused = (outputs["music_pooled"] + music[:, None, :]) * 0.5
+        loss = loss_ops.clip_loss(sim_matrix_music_pooling(video, fused),
+                                  scale) * lc.dual_single_loss_weight
     else:
-        raise NotImplementedError(f"vmr_loss={lc.vmr_loss!r} is not ported yet {_NOT_PORTED}")
+        raise ValueError(f"unsupported vmr_loss: {lc.vmr_loss}")
     return loss, aux
 
 
 def localization_loss(outputs: Dict[str, Any], spans_target: torch.Tensor,
                       cfg: Config) -> Tuple[torch.Tensor, Dict]:
-    """DETR set criterion; spans_target [B, T, 2] normalized (center, width)."""
-    if cfg.model.mml_localization != "detr":
-        raise NotImplementedError(
-            f"mml_localization={cfg.model.mml_localization!r} is not ported yet {_NOT_PORTED}")
-    return loss_ops.set_criterion(
-        outputs["pred_logits_layers"], outputs["pred_spans_layers"],
-        outputs.get("proj_queries_layers"), outputs.get("proj_vid_mem"),
-        spans_target, cfg.loss)
+    """DETR set criterion, or the regression's L1 x 20 (its giou, label and
+    class-error logs zero, as in JAX); spans_target [B, T, 2] normalized
+    (center, width)."""
+    if cfg.model.mml_localization == "detr":
+        return loss_ops.set_criterion(
+            outputs["pred_logits_layers"], outputs["pred_spans_layers"],
+            outputs.get("proj_queries_layers"), outputs.get("proj_vid_mem"),
+            spans_target, cfg.loss)
+    l1 = (outputs["pred_spans_layers"][-1] - spans_target).abs().mean()
+    zero = l1.new_zeros(())
+    log = {"loss_span": l1, "loss_giou": zero, "loss_label": zero, "class_error": zero}
+    return l1 * 20.0, log
 
 
 def total_loss(outputs: Dict[str, Any], spans_target: torch.Tensor, cfg: Config,

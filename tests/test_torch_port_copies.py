@@ -30,6 +30,7 @@ from mgsv_tpu_torch.data.dataset import epoch_index_batches
 from mgsv_tpu_torch.data.example_batch import example_batch
 from mgsv_tpu_torch.eval.metrics import dedup_rank, rect_rank
 from mgsv_tpu_torch.interop.state_dict import jax_tree_to_state_dict
+from mgsv_tpu_torch.models.made import MaDe
 
 OVERRIDES = [
     {},
@@ -67,6 +68,15 @@ def test_override_parser_equals_jax_parser():
     assert parse_kv_overrides(argv) == jax_parse(argv)
 
 
+# the variant matrix's configurations (CA, both X-Pool sides, pre-norm with
+# the moment head, regression, the shared stack) at these widths
+_KEY_MAP_TINY = {"model.dim_input": 16, "model.temporal_mlp_dim": 32,
+                 "model.detr_ffn_dim": 32, "model.detr_enc_layers": 1,
+                 "model.detr_dec_layers": 1, "model.video_pe_len": 16,
+                 "model.audio_pe_len": 16, "data.vit_dim": 32, "data.ast_dim": 48,
+                 "data.max_v_frames": 8, "data.stride": 30.0, "data.filter_sec": 30.0}
+
+
 @pytest.mark.parametrize("overrides", [
     {"model.dim_input": 16, "model.temporal_mlp_dim": 32, "model.detr_ffn_dim": 32,
      "model.detr_enc_layers": 1, "model.detr_dec_layers": 2, "model.contrastive_dim": 16,
@@ -78,6 +88,14 @@ def test_override_parser_equals_jax_parser():
      "model.video_pe_len": 16, "model.audio_pe_len": 16, "data.vit_dim": 32,
      "data.ast_dim": 48, "data.max_v_frames": 8, "data.stride": 30.0,
      "data.filter_sec": 30.0, "loss.contrastive_align_loss": False},
+    *({**_KEY_MAP_TINY, **extra} for extra in (
+        {"model.mml_fusion": "CA", "model.ca_heads": 2, "model.ca_dim_head": 8,
+         "model.ca_mlp_dim": 32},
+        {"model.vmr_fusion": "XA-music-video", "loss.vmr_loss": "dual_single_oneloss"},
+        {"model.detr_pre_norm": True, "model.decoder_self_attn": False,
+         "model.moment_loss": True, "model.audio_short_cut": True},
+        {"model.mml_localization": "regression", "model.moment_loss": True},
+        {"model.transformer_is_share": True})),
 ])
 def test_key_map_equals_export_uni_state_dict(overrides):
     jcfg, cfg = JaxConfig.from_overrides(overrides), Config.from_overrides(overrides)
@@ -87,6 +105,7 @@ def test_key_map_equals_export_uni_state_dict(overrides):
         jnp.zeros((1, s, jcfg.data.ast_dim)), jnp.ones((1, s))))(jax.random.PRNGKey(0))
     ours, ref = jax_tree_to_state_dict(params, cfg), export_uni_state_dict(params, jcfg)
     assert ours.keys() == ref.keys()
+    assert MaDe(cfg).state_dict().keys() == ours.keys()     # what load_jax_params loads
     for k in ref:
         np.testing.assert_array_equal(ours[k], np.asarray(ref[k]), err_msg=k)
 

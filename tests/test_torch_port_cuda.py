@@ -340,6 +340,30 @@ def test_cuda_temporal_kernels_match_plain_version(dev, rate, b, L):
     _assert_grads(*grads)
 
 
+def test_cuda_temporal_kernels_as_one_shared_stack(dev):
+    """#5 as transformer_is_share runs it: one layer's weights on the audio
+    tower's rows and then the video tower's, each call with its own seed
+    and its own saved activations; the weights' gradients, which autograd
+    sums over both calls, and both inputs' against the plain version."""
+    rng = np.random.default_rng(11)
+    layer = _temporal_layer(dev)
+    xs = [_randn(rng, (6, n, 256), dev) for n in (96, 50)]
+    gs = [_randn(rng, (6, n, 256), dev) for n in (96, 50)]
+    masks = [_ragged(rng, 6, n, dev) for n in (96, 50)]
+    before = ftl.fused_temporal_layer.launches, ftl.fused_temporal_layer_bwd.launches
+    outs, grads = [], []
+    for fn in (ftl.fused_temporal_layer, ftl.fused_temporal_layer_reference):
+        ins = [x.clone().requires_grad_() for x in xs]
+        o = [fn(x, m, layer, 0.8, seed) for x, m, seed in zip(ins, masks, (7, 8))]
+        grads.append(torch.autograd.grad(o, [*ins, *layer.parameters()], gs))
+        outs.append([t.detach() for t in o])
+    assert (ftl.fused_temporal_layer.launches, ftl.fused_temporal_layer_bwd.launches) == (
+        before[0] + 2, before[1] + 2)
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+    _assert_grads(*grads)
+
+
 def test_cuda_temporal_backward_is_bit_reproducible(dev):
     """Two identical backward launches give bit-identical gradients (the
     weight gradients are summed in a fixed order, no atomics)."""
@@ -443,7 +467,7 @@ def test_cuda_encoder_bf16_matches_plain_version(dev, rate):
 
 @pytest.mark.parametrize("precision", ["f32", "bf16"])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("b,L", [(5, 1), (3, 21), (7, 150), (2, 256), (8, 152)])
+@pytest.mark.parametrize("b,L", [(5, 1), (3, 21), (7, 150), (2, 256), (8, 152), (6, 96)])
 def test_cuda_encoder_forward_shapes(dev, precision, rate, b, L):
     """Kernel #1 against its plain version at L = 1, 21, 150, 256 and the 8
     serving rows (B=8, L=152), B*L off the GEMM core's 128-row tiles: float32
@@ -676,11 +700,12 @@ def test_cuda_decoder_forward_saves_only_for_a_gradient(dev, self_attn):
 
 
 @pytest.mark.parametrize("precision", ["f32", "bf16"])
-@pytest.mark.parametrize("b,L", [(3, 152), (3, 21), (3, 256), (512, 152)])
+@pytest.mark.parametrize("b,L", [(3, 152), (3, 21), (3, 256), (512, 152), (7, 96)])
 def test_cuda_encoder_backward_against_float64(dev, precision, b, L):
     """Kernel #2 (its products on the wgmma core, its attention on the
     tensor cores) at row counts that are no multiple of the 128-row tile
-    (456, 63, 768 and 77,824 rows; L = 256 is the layer's longest), rate
+    (456, 63, 768, 77,824 and 672 rows; L = 256 is the layer's longest, L =
+    96 the CA fusion's), rate
     0.1 and a batch row with no valid key: every gradient against the
     float64 run of the plain version, within 1e-3 of its largest magnitude
     plus twice the float32 plain version's own error ("bf16": 1e-2, and the

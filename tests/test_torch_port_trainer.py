@@ -269,8 +269,9 @@ def test_step_profiler_writes_one_window(tmp_path):
 
 
 def test_unported_paths_raise(tmp_path, data):
-    """A mesh (multi-device) and a vmr_loss the port's objective does not
-    take raise instead of running something else."""
+    """A mesh (multi-device), the branches still to port (the EmbeddingNet
+    aggregator, the cls token) and a vmr_loss JAX's evaluation refuses
+    raise instead of running something else."""
     from mgsv_tpu_torch.eval.evaluator import corpus_similarity, evaluate
 
     cfg = _cfg(tmp_path, "raise")
@@ -279,11 +280,13 @@ def test_unported_paths_raise(tmp_path, data):
     model = MaDe(cfg)
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         evaluate(model, data, cfg, mesh=object())
-    feature_fuse = cfg.replace(loss=dataclasses.replace(cfg.loss,
-                                                        vmr_loss="dual_single_feature_fuse"))
-    with pytest.raises(NotImplementedError, match="variant matrix"):
-        evaluate(model, data, feature_fuse)             # the eval step's objective
+    for over in ({"agg_module": "mlp"}, {"with_cls_token": True}):
+        unported = cfg.replace(model=dataclasses.replace(cfg.model, **over))
+        with pytest.raises(NotImplementedError, match="queue 1: the EmbeddingNet"):
+            Trainer(unported, train_data=data, device="cpu").init_state()
+    oneloss = cfg.replace(model=dataclasses.replace(cfg.model, vmr_fusion="XA-music-video"),
+                          loss=dataclasses.replace(cfg.loss, vmr_loss="dual_single_oneloss"))
     d, s = cfg.model.dim_input, cfg.data.max_snippet_num
-    with pytest.raises(NotImplementedError, match="queue 1: variant matrix"):
-        corpus_similarity(model, torch.ones(3, d), torch.ones(3, d), torch.ones(3, s, d),
-                          torch.ones(3, s), feature_fuse)
+    with pytest.raises(ValueError, match="unsupported vmr_loss for eval"):
+        corpus_similarity(MaDe(oneloss), torch.ones(3, d), torch.ones(3, d),
+                          torch.ones(3, s, d), torch.ones(3, s), oneloss)
