@@ -124,14 +124,31 @@ failure:
               equal to its record, with CA and with pre-norm; a pre-norm RetrievalEngine on the card (no
               encoder-layer kernel) against the plain engine, and the refusal
               of a CA model by the engine; the phase's seconds
- 20. flash-kernel  the attention kernel (#7) against its plain version in
+ 20. agg-cls  the EmbeddingNet aggregator and the cls token: #5 at the cls
+              token's lengths, L=97 and L=51 (B=512, rate 0.8, forward and
+              backward against the plain version and float64, the saved set
+              and the backward given it, timed in turns beside the bound);
+              then for each branch (mlp, cls, mlp with cls, cls with
+              fused_temporal; B=512) one float32 step through the kernels
+              against the plain steps (loss, every gradient, the launches,
+              the EmbeddingNets' running buffers, the lengths each tower's
+              aggregator sees), and bf16 steps of each and of the default
+              Config() in turns (step ms, peak memory); `cli.train` for 2
+              steps and one evaluation with the EmbeddingNet and with the cls
+              token, `cli.evaluate` equal to each record, the EmbeddingNet
+              checkpoint's buffers moved and `cli.index build` on it refused;
+              `cli.index build` and `query --run-dir --ckpt last` of the cls
+              run, equal to build_music_index and RetrievalEngine.query, and
+              that checkpoint in a float32 engine on #1 against the plain
+              engine at B=1 and B=32
+ 21. flash-kernel  the attention kernel (#7) against its plain version in
               float32 and bf16: the AST's [96, 12, 1214, 64] (one track),
               [8, 12, 1214, 64] with ragged key masks and a fully masked
               row, CLIP's [400, 12, 50, 64], and the extraction's
               [384, 12, 1214, 64]; kernel, plain and SDPA timed in turns
               beside the bound; [breakdown] lines of the extraction's shape
               (float32) and of one track (bf16)
- 21. extract  `cli.extract_features` in-process on seeded raw media (8 frame
+ 22. extract  `cli.extract_features` in-process on seeded raw media (8 frame
               directories of 10-50 JPEGs, WAV tracks of 240/180/60/30 s, one
               at 44.1 kHz) with full-width CLIP ViT-B/32 and AST checkpoints
               minted in the reference layouts: store ids, shapes and masks,
@@ -150,6 +167,7 @@ import contextlib
 import copy
 import dataclasses
 import http.client
+import io
 import json
 import os
 import re
@@ -167,9 +185,10 @@ import torch.nn.functional as F
 
 from mgsv_tpu_torch.cli import evaluate as evaluate_cli
 from mgsv_tpu_torch.cli import extract_features as extract_cli
+from mgsv_tpu_torch.cli import index as index_cli
 from mgsv_tpu_torch.cli import train as train_cli
 from mgsv_tpu_torch.config import Config
-from mgsv_tpu_torch.core.checkpoint import CheckpointManager
+from mgsv_tpu_torch.core.checkpoint import CheckpointManager, load_weights
 from mgsv_tpu_torch.core.device import resolve_device
 from mgsv_tpu_torch.data import synthetic_raw
 from mgsv_tpu_torch.data.audio import extract_snippets, resample_sinc
@@ -197,7 +216,7 @@ from mgsv_tpu_torch.ops.cuda import fused_encoder_layer as fel
 from mgsv_tpu_torch.ops.cuda import fused_temporal_layer as ftl
 from mgsv_tpu_torch.ops.cuda import xpool_sim as xps
 from mgsv_tpu_torch.runtime import kernels, native
-from mgsv_tpu_torch.serve.engine import RetrievalEngine, build_music_index
+from mgsv_tpu_torch.serve.engine import MusicIndex, RetrievalEngine, build_music_index
 from mgsv_tpu_torch.train.loop import Preempted
 from mgsv_tpu_torch.train.objective import total_loss
 from mgsv_tpu_torch.train.optimizer import GroupedAdam, make_optimizer
@@ -250,6 +269,15 @@ BRANCHES = [
     ("shared_fused_temporal", dict(transformer_is_share=True, fused_temporal=True), {},
      TRAIN_B, False),
 ]
+# The aggregators and the cls token (the agg-cls phase): (branch, model
+# overrides), each at B=512.
+AGG_BRANCHES = [
+    ("mlp", dict(agg_module="mlp")),
+    ("cls", dict(with_cls_token=True)),
+    ("mlp_cls", dict(agg_module="mlp", with_cls_token=True)),
+    ("cls_fused_temporal", dict(with_cls_token=True, fused_temporal=True)),
+]
+AGG_TIMED_STEPS = 3        # bf16 steps a turn, each branch and the default in turns
 # H100 SXM peaks (NVIDIA's data sheet, dense): the kernels compute float32
 # on the tensor cores as TF32 products, so their bound takes the TF32 rate.
 PEAK_TF32_FLOPS = 495e12
@@ -333,12 +361,13 @@ def per_step(cfg: Config, fused_decoder: bool = False) -> dict:
     """Launches of one training step: the post-norm encoder layers (none
     in pre-norm, as JAX's), the X-Pool similarity where the configuration
     takes it from the kernel (`uses_fused_sim`), with fused_temporal each
-    tower's temporal layers (a shared stack's too: one call per tower), and
+    tower's temporal layers (a shared stack's too: one call per tower; none
+    without the temporal aggregator), and
     with fused_decoder each decoder layer."""
     m = cfg.model
     enc = m.detr_enc_layers if m.fused_detr_encoder and not m.detr_pre_norm else 0
     sim = int(uses_fused_sim(cfg))
-    temporal = 2 * m.temporal_depth if m.fused_temporal else 0
+    temporal = 2 * m.temporal_depth if m.fused_temporal and m.agg_module == "transf" else 0
     decoder = m.detr_dec_layers if fused_decoder else 0
     return {"fused_encoder_layer": enc, "fused_encoder_layer_bwd": enc,
             "xpool_sim_fwd": sim, "xpool_sim_bwd": sim, "xpool_sim_eval": 0,
@@ -1075,9 +1104,11 @@ def check_lsap(solves: list) -> int:
 
 
 # The ReLU sites a step runs as PyTorch modules (the DETR layers' linear1
-# outside the kernels, the MLP heads' hidden layers): their pre-activations.
+# outside the kernels, the MLP heads' hidden layers, the EmbeddingNets'
+# BatchNorms): their pre-activations.
 RELU_SITES = re.compile(r"(encoder|decoder)\.layers\.\d+\.linear1$"
-                        r"|(span_embed|moment_embed|reg_mlp)\.layers\.[01]$")
+                        r"|(span_embed|moment_embed|reg_mlp)\.layers\.[01]$"
+                        r"|embedding_net\.net\.[14]$")
 # A gate whose pre-activation lies within this of zero in one run may fall
 # the other way in another float32 run (the step's rounding reaches 1e-6 of
 # an order-1 pre-activation) and then moves a gradient by a whole term.
@@ -1117,8 +1148,9 @@ def train_runs(device: torch.device, cfg: Config, batch_size: int = TRAIN_B,
     """One float32 step of cfg through the kernels, one through the plain
     versions and one through the plain versions in float64, from the same
     weights, batch and seed: {"logs", "grads", "launches"} by run
-    ("kernel", "plain", "exact"), the kernel step's "device_ops",
-    "peak_gb" and every LSAP solve it made ("solves"), and the "batch".
+    ("kernel", "plain", "exact"), the EmbeddingNets' running buffers after
+    the step ("buffers", by run), the kernel step's "device_ops", "peak_gb"
+    and every LSAP solve it made ("solves"), and the "batch".
     hooks(model), when given, is called on the kernel step's model before
     it runs.  share_gates: the plain and float64 steps take the kernel
     step's gates at the ReLU sites outside the kernels wherever their own
@@ -1134,7 +1166,7 @@ def train_runs(device: torch.device, cfg: Config, batch_size: int = TRAIN_B,
                       True)}
     if hooks is not None:
         hooks(model)
-    logs, grads, launches, solves, gates, flips = {}, {}, {}, [], {}, {}
+    logs, grads, launches, solves, gates, flips, buffers = {}, {}, {}, [], {}, {}, {}
     for kind, (mdl, b, plain) in runs.items():
         _, step = train_setup(cfg, device, model=mdl, fused_decoder=fused_decoder)
         counts = []
@@ -1159,9 +1191,12 @@ def train_runs(device: torch.device, cfg: Config, batch_size: int = TRAIN_B,
         launches[kind] = read_counts()
         logs[kind] = {k: float(v.double().mean()) for k, v in log.items()}
         grads[kind] = {n: p.grad for n, p in mdl.named_parameters() if p.grad is not None}
+        buffers[kind] = {n: b.detach().clone() for n, b in mdl.named_buffers()
+                         if n.endswith(("running_mean", "running_var"))}
         del log, step
     return {"logs": logs, "grads": grads, "launches": launches, "device_ops": device_ops,
-            "peak_gb": peak_gb, "solves": solves, "batch": batch, "flips": flips}
+            "peak_gb": peak_gb, "solves": solves, "batch": batch, "flips": flips,
+            "buffers": buffers}
 
 
 def hold_step(what: str, runs: dict, want_launches: dict) -> tuple:
@@ -2191,6 +2226,314 @@ def check_variant_clis(device: torch.device, tmp: str) -> None:
         raise AssertionError("RetrievalEngine served a CA model with concat fusion")
 
 
+def check_temporal_lengths(device: torch.device) -> list:
+    """Kernel #5 at the cls token's lengths, L=97 (audio) and L=51 (video):
+    one row past the towers' 96 and 50, so each attention sweep's last
+    chunk and the saved set's last row tile hold a single row.  Forward and
+    backward against the plain version and float64 at B=512, rate 0.8, a
+    row with no valid key; the training forward's saved set and the
+    backward given it (check_temporal_saved); kernel and plain times in
+    turns beside the bound.  Returns the kernels-line entries
+    "<kernel>@L<n>"."""
+    cfg = Config()
+    m = cfg.model
+    d, heads, ffn, rate = m.dim_input, m.temporal_heads, m.temporal_mlp_dim, m.temporal_dropout
+    gen = torch.Generator().manual_seed(SEED + 9)
+    trm = TemporalTransformer(d, 1, heads, ffn, d)
+    trm.reset_parameters(gen)
+    layer = perturb_(trm.layers[0], gen).to(device)
+    layer64 = copy.deepcopy(layer).double()
+    params = list(layer.parameters())
+    names = ["x"] + [n for n, _ in layer.named_parameters()]
+    rng = np.random.default_rng(SEED + 9)
+    src = "mgsv_tpu_torch/csrc/fused_temporal_layer"
+    entries = []
+    for length in (cfg.data.max_snippet_num + 1, cfg.data.max_v_frames + 1):
+        x, g = (randn(rng, (TRAIN_B, length, d), device) for _ in range(2))
+        mask = torch.from_numpy(ragged_mask(rng, TRAIN_B, length, 1)).to(device)
+        mask[-1] = 0.0
+        outs, grads = {}, {}
+        for kind, fn, lay, dt in (
+                ("kernel", ftl.fused_temporal_layer, layer, torch.float32),
+                ("plain", ftl.fused_temporal_layer_reference, layer, torch.float32),
+                ("exact", ftl.fused_temporal_layer_reference, layer64, torch.float64)):
+            xi = x.detach().to(dt).requires_grad_()
+            out = fn(xi, mask.to(dt), lay, rate, DROPOUT_SEED)
+            grads[kind] = torch.autograd.grad(out, [xi, *lay.parameters()], g.to(dt))
+            outs[kind] = out.detach()
+            del out
+        torch.cuda.synchronize()
+        err = check_close(f"fused_temporal_layer L={length}", outs["kernel"], outs["plain"])
+        gerr, perr, gname, gmax = check_grads(f"fused_temporal_layer_bwd L={length}", names,
+                                              grads["kernel"], grads["plain"], grads["exact"])
+        del outs, grads
+        with torch.no_grad():
+            _, acts = ftl.fused_temporal_layer_fwd(x, mask, layer, rate, DROPOUT_SEED)
+        gerr = max(gerr, check_temporal_saved(f"L={length} B={TRAIN_B}", layer, layer64, names,
+                                              x, mask, g, rate, acts))
+        with torch.no_grad():
+            ms, plain_ms = in_turns(
+                lambda: ftl.fused_temporal_layer(x, mask, layer, rate, DROPOUT_SEED),
+                lambda: ftl.fused_temporal_layer_reference(x, mask, layer, rate, DROPOUT_SEED))
+        xi = x.clone().requires_grad_()
+        out = ftl.fused_temporal_layer_reference(xi, mask, layer, rate, DROPOUT_SEED)
+        bms, plain_bms = in_turns(      # given the saved set, as a training step runs it
+            lambda: ftl.fused_temporal_layer_bwd(x, mask, g, layer, rate, DROPOUT_SEED,
+                                                 acts=acts),
+            lambda: torch.autograd.grad(out, [xi, *params], g, retain_graph=True))
+        del out, acts
+        flops = temporal_flops(TRAIN_B, length, d, ffn)
+        fwd_bytes, bwd_bytes = nbytes(x, mask, x, *params), nbytes(x, mask, g, *params, x, *params)
+        for e in (entry(f"fused_temporal_layer@L{length}", f"{src}.cu",
+                        "mgsv_tpu/ops/pallas/fused_temporal_layer.py:349", err, ms, plain_ms,
+                        flops, fwd_bytes),
+                  entry(f"fused_temporal_layer_bwd@L{length}", f"{src}_bwd.cu",
+                        "mgsv_tpu/ops/pallas/fused_temporal_layer.py:381", gerr, bms,
+                        plain_bms, 2 * flops, bwd_bytes)):
+            e["shape"] = f"B={TRAIN_B} L={length} rate={rate}"
+            phase("temporal-kernel", name=e["name"], B=TRAIN_B, L=length, rate=rate,
+                  max_abs_err=e["max_abs_err"], ms=f"{e['ms']:.4f}",
+                  plain_ms=f"{e['plain_ms']:.4f}", bound_ms=f"{e['bound_ms']:.4f}",
+                  bound_by=e["bound_by"])
+            entries.append(e)
+        phase("temporal-kernel", name=f"fused_temporal_layer_bwd@L{length}", at=gname,
+              its_max=gmax, plain_f32_err=perr, rtol_of_max=GRAD_RTOL)
+        del x, g, mask
+    return entries
+
+
+def aggregator_lengths(model, lengths: list) -> None:
+    """Forward pre-hooks recording the sequence length each tower's
+    aggregator (temporal stack or EmbeddingNet) is given, video then music."""
+    for which, tower in (("video", "video"), ("music", "audio")):
+        agg = model.temporal(which)
+        if agg is None:
+            agg = getattr(model, f"{tower}_embedding_net", None)
+        if agg is not None:
+            agg.register_forward_pre_hook(lambda mod, args: lengths.append(args[0].shape[1]))
+
+
+def check_agg_cls(device: torch.device, card: str) -> dict:
+    """Each branch of AGG_BRANCHES at B=512: one float32 step through the
+    kernels against the plain steps (float32 and float64, the kernel step's
+    gates shared at the ReLU sites outside the kernels; hold_step: loss,
+    every gradient, the launches `per_step` expects), the EmbeddingNets'
+    running buffers after the step against the plain steps' (as gradients
+    are held) and moved off their init, and the lengths each tower's
+    aggregator sees (one more with the cls token); then bf16 steps of every
+    branch and of the default Config(), timed in turns (each, then all in
+    reverse): step ms and peak memory.  Returns {branch: the kernel step's
+    launch counts}."""
+    launches = {}
+    data = Config().data
+    for name, model_over in AGG_BRANCHES:
+        cfg = variant(model_over, {}, "float32")
+        extra = int(cfg.model.with_cls_token)
+        lengths = []
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")       # the fused towers ignore bf16 by design
+            runs = train_runs(device, cfg, TRAIN_B, False,
+                              lambda model: aggregator_lengths(model, lengths), share_gates=True)
+        loss, worst, worst_plain, n_grads = hold_step(f"agg-cls {name}", runs, per_step(cfg))
+        want_lengths = [data.max_v_frames + extra, data.max_snippet_num + extra]
+        if lengths != want_lengths:
+            raise AssertionError(f"agg-cls {name}: aggregators given lengths {lengths}, "
+                                 f"want {want_lengths}")
+        got = runs["launches"]["kernel"]
+        if name == "cls_fused_temporal" and not (
+                got["fused_temporal_layer"] == got["fused_temporal_layer_bwd"] == 2):
+            raise AssertionError(f"agg-cls {name}: launches {got}")
+        bufs = runs["buffers"]
+        buf_err = 0.0
+        if cfg.model.agg_module == "mlp":
+            names = sorted(bufs["exact"])
+            if len(names) != 8:
+                raise AssertionError(f"agg-cls {name}: running buffers {names}")
+            buf_err, _, _, _ = check_grads(f"agg-cls {name} running buffers", names,
+                                           *([bufs[k][n] for n in names]
+                                             for k in ("kernel", "plain", "exact")))
+            for n in names:
+                init = 0.0 if n.endswith("running_mean") else 1.0
+                if torch.equal(bufs["kernel"][n], torch.full_like(bufs["kernel"][n], init)):
+                    raise AssertionError(f"agg-cls {name}: {n} did not move")
+        launches[name] = got
+        phase("agg-cls", branch=name, dtype="float32", B=TRAIN_B, lengths=lengths,
+              loss=loss["kernel"], plain_loss=loss["plain"], float64_loss=loss["exact"],
+              params=n_grads, grad_max_abs_err=worst, plain_f32_grad_err=worst_plain,
+              buffers=len(bufs["kernel"]), buffer_max_abs_err=buf_err,
+              gates_turned_plain=runs["flips"]["plain"],
+              gates_turned_float64=runs["flips"]["exact"], peak_mem_gb=f"{runs['peak_gb']:.2f}",
+              **{k: v for k, v in got.items() if v})
+        del runs
+        torch.cuda.empty_cache()
+
+    cfgs = {"default": Config(), **{name: variant(over, {}) for name, over in AGG_BRANCHES}}
+    batch = to_tensors(example_batch(np.random.RandomState(SEED), Config(), TRAIN_B), device)
+    steps = {}
+    for name, cfg in cfgs.items():
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            _, steps[name] = train_setup(cfg, device)
+            steps[name](batch)                    # first use: allocator, cuBLAS
+    torch.cuda.synchronize()
+    seconds, peak = dict.fromkeys(cfgs, 0.0), dict.fromkeys(cfgs, 0)
+    for name in [*cfgs, *reversed(cfgs)]:
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        for _ in range(AGG_TIMED_STEPS):
+            log = steps[name](batch)
+        torch.cuda.synchronize()
+        seconds[name] += time.perf_counter() - t0
+        peak[name] = max(peak[name], torch.cuda.max_memory_allocated(device))
+        if not np.isfinite(float(log["loss"])):
+            raise AssertionError(f"agg-cls {name}: bf16 step loss {float(log['loss'])}")
+    for name, dt in seconds.items():
+        n = 2 * AGG_TIMED_STEPS
+        phase("agg-cls", branch=name, dtype="bfloat16", B=TRAIN_B, steps=n,
+              step_ms=f"{dt / n * 1e3:.2f}", clips_per_s=f"{TRAIN_B * n / dt:.1f}",
+              peak_mem_gb=f"{peak[name] / 1e9:.2f}", card=json.dumps(card))
+    del steps, batch, log
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_index_cli(argv: list) -> dict:
+    """cli.index in-process; its printed JSON reply."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        index_cli.main(argv)
+    return json.loads(out.getvalue())
+
+
+def check_agg_cls_clis(device: torch.device, tmp: str) -> None:
+    """`cli.train` for one epoch of VARIANT_N generated rows (2 bf16 steps
+    at B=512, then an evaluation at B=40) with the EmbeddingNet and with the
+    cls token, each run's launches as `expected_fit_launches` says, and
+    `cli.evaluate` on its best_r1 checkpoint equal to the trainer's record.
+    The EmbeddingNet run's checkpoint holds its 8 running buffers, moved
+    off their init, and `cli.index build` on it raises the engine's
+    ValueError.  The cls run: `cli.index build` and `query --run-dir
+    <run> --ckpt last` on the card, the index equal to build_music_index on
+    the same checkpoint and the reply to RetrievalEngine.query; then that
+    checkpoint in a float32 engine on the encoder-layer kernel against the
+    plain engine at B=1 and B=32 (ids, scores, spans; launches read)."""
+    root = None
+    for name, model_over in (("mlp", dict(agg_module="mlp")),
+                             ("cls", dict(with_cls_token=True))):
+        cfg = variant(model_over, {})
+        over = [a for k, v in model_over.items() for a in (f"--model.{k}", json.dumps(v))]
+        out_dir = os.path.join(tmp, f"agg_{name}")
+        data = (["--synthetic", str(VARIANT_N)] if root is None else
+                ["--data.train_csv", os.path.join(root, "data.csv"),
+                 "--data.val_csv", os.path.join(root, "data.csv"), "--data.feature_root", root])
+        reset_counts()
+        t0 = time.perf_counter()
+        result = train_cli.main(["--train.epochs", "1", "--train.output_dir", out_dir,
+                                 *data, *over])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+        root = root or os.path.join(out_dir, "synthetic_data")
+        rec = result["history"][0]
+        if len(result["history"]) != 1 or not np.isfinite(rec["train"]["loss"]):
+            raise AssertionError(f"agg-cls cli.train {name}: {result['history']}")
+        if launches != expected_fit_launches(cfg, VARIANT_N):
+            raise AssertionError(f"agg-cls cli.train {name}: launches {launches}, want "
+                                 f"{expected_fit_launches(cfg, VARIANT_N)}")
+        run_dir = os.path.join(out_dir, cfg.train.name)
+        reset_counts()
+        results = evaluate_cli.main(["--ckpt", "best_r1", "--run-dir", run_dir, "--split", "val",
+                                     "--data.val_csv", os.path.join(root, "data.csv"),
+                                     "--data.feature_root", root, *over])
+        eval_counts = read_counts()
+        got, want = results["best_r1"], rec["eval"]
+        bad = [k for k in RANK_KEYS if got[k] != want[k]]
+        if bad or not abs(got["mIoU"] - want["mIoU"]) <= MIOU_ATOL:
+            raise AssertionError(f"agg-cls cli.evaluate {name} differs from the trainer's "
+                                 f"record: {bad} mIoU {got['mIoU']} vs {want['mIoU']}")
+        if eval_counts != eval_launches(cfg, VARIANT_N):
+            raise AssertionError(f"agg-cls cli.evaluate {name}: launches {eval_counts}")
+        phase("agg-cls-cli", branch=name, rows=VARIANT_N, steps=rec["train"]["steps"],
+              loss=rec["train"]["loss"], R1=got["R1"], mIoU=got["mIoU"],
+              evaluate_equal_to_record=True, seconds_with_eval=f"{seconds:.2f}",
+              **{k: v for k, v in launches.items() if v})
+
+        store_dir = os.path.join(root, "music_store")
+        ckpt = ["--ckpt", "last", "--run-dir", run_dir]
+        index_path = os.path.join(out_dir, "index.npz")
+        if name == "mlp":
+            saved = CheckpointManager(run_dir).restore("last")["params"]
+            init = MaDe(cfg, torch.Generator().manual_seed(cfg.train.seed)).state_dict()
+            bufs = [n for n in saved if n.endswith(("running_mean", "running_var"))]
+            if len(bufs) != 8 or any(torch.equal(saved[n], init[n]) for n in bufs):
+                raise AssertionError(f"agg-cls mlp checkpoint buffers {bufs} not all moved")
+            try:
+                run_index_cli(["build", *ckpt, "--music-store", store_dir, "--out", index_path,
+                               *over])
+            except ValueError as err:
+                phase("agg-cls-cli", branch=name, checkpoint_buffers_moved=len(bufs),
+                      index_build_raised=json.dumps(str(err)))
+            else:
+                raise AssertionError("cli.index built an index of an agg_module='mlp' model")
+            continue
+
+        built = run_index_cli(["build", *ckpt, "--music-store", store_dir, "--out", index_path,
+                               *over])
+        videos = PackedFeatureStore(os.path.join(root, "video_store"))
+        vid = videos.ids[0]
+        reply = run_index_cli(["query", *ckpt, "--index", index_path, "--video-store",
+                               os.path.join(root, "video_store"), "--video-id", vid, *over])
+        model = MaDe(cfg).to(device)
+        load_weights(model, "last", run_dir, cfg)
+        store = PackedFeatureStore(store_dir)
+        rows = np.arange(len(store))
+        feats, masks = store.gather("feats", rows), store.gather("mask", rows)
+        index = build_music_index(model.eval(), store.ids, feats, masks)
+        cli_index = MusicIndex.load(index_path)
+        index_err = max(np.abs(getattr(index, f) - getattr(cli_index, f)).max()
+                        for f in ("music_embs", "seg_tokens", "seg_masks"))
+        if not (built["tracks"] == len(store) and cli_index.music_ids == index.music_ids
+                and index_err <= KERNEL_ATOL):
+            raise AssertionError(f"agg-cls cls: cli.index build differs from build_music_index "
+                                 f"({built['tracks']} tracks, max abs error {index_err})")
+        row = videos.rows([vid])
+        direct = RetrievalEngine(model, cfg, index).query(videos.gather("feats", row),
+                                                         videos.gather("mask", row))
+        compare([{k: v for k, v in reply.items() if k != "video_id"}], direct)
+        check_results(direct, 1, 5, cfg)
+
+        cfg32 = variant(model_over, {}, "float32")
+        model32 = MaDe(cfg32).to(device)
+        load_weights(model32, "last", run_dir, cfg32)
+        index32 = build_music_index(model32.eval(), store.ids, feats, masks)
+        engine = RetrievalEngine(model32, cfg32, index32)
+        plain = RetrievalEngine(model32, cfg32, index32, use_fused_kernels=False)
+        if not engine.use_fused_kernels:
+            raise AssertionError("the cls engine on a CUDA device must take the kernel")
+        sel = videos.rows(videos.ids[:32])
+        vfeats, vmask = videos.gather("feats", sel), videos.gather("mask", sel)
+        for n in (1, 32):
+            engine.query(vfeats[:n], vmask[:n])
+            plain.query(vfeats[:n], vmask[:n])
+            reset_counts()
+            res, ms = timed_query(engine, vfeats[:n], vmask[:n])
+            counts = read_counts()
+            if counts != {**dict.fromkeys(COUNTERS, 0),
+                          "fused_encoder_layer": cfg32.model.detr_enc_layers}:
+                raise AssertionError(f"agg-cls cls engine launches {counts}")
+            check_results(res, n, 5, cfg32)
+            plain_res, plain_ms = timed_query(plain, vfeats[:n], vmask[:n])
+            span_err, score_err = compare(res, plain_res)
+            phase("agg-cls-engine", branch=name, tracks=len(store), B=n, top_k=5,
+                  dtype="float32", ms=f"{ms:.2f}", plain_ms=f"{plain_ms:.2f}",
+                  span_err_s=span_err, score_err=score_err,
+                  fused_encoder_layer=counts["fused_encoder_layer"])
+        phase("agg-cls-cli", branch=name, index_tracks=built["tracks"], query_video=vid,
+              cli_index_vs_build_err=index_err, cli_query_equals_engine=True)
+        del model, model32, engine, plain
+        torch.cuda.empty_cache()
+
+
 def check_eval_q(device: torch.device, data_root: str) -> dict:
     """`evaluate` of the generated rows at Q_MULTI moment queries in float32
     (weights from SEED), with the decoder on #6 and with the plain decoder:
@@ -2635,6 +2978,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         check_variant_clis(device, tmp)
     phase("variants", branches=len(BRANCHES), seconds=f"{time.perf_counter() - t0:.2f}")
+    t0 = time.perf_counter()
+    entries += check_temporal_lengths(device)
+    agg_launches = check_agg_cls(device, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        check_agg_cls_clis(device, tmp)
+    phase("agg-cls", branches=len(AGG_BRANCHES), seconds=f"{time.perf_counter() - t0:.2f}")
     entries.append(check_flash(device))
     with tempfile.TemporaryDirectory() as tmp:
         extract_launches = check_extract(device, tmp)
@@ -2648,6 +2997,10 @@ def main() -> int:
         launches[f"{kernel}@L{Config().data.max_snippet_num}"] = branch_launches["ca"][kernel]
     for kernel in ("fused_temporal_layer", "fused_temporal_layer_bwd"):  # per shared-stack step
         launches[f"{kernel}@shared"] = branch_launches["shared_fused_temporal"][kernel]
+    cls_fused = agg_launches["cls_fused_temporal"]
+    for kernel in ("fused_temporal_layer", "fused_temporal_layer_bwd"):  # per cls step, a tower each
+        for length in (Config().data.max_snippet_num + 1, Config().data.max_v_frames + 1):
+            launches[f"{kernel}@L{length}"] = cls_fused[kernel] // 2
     for e in entries:
         e["launches"] = launches[e["name"]]
     print(json.dumps({"kernels": entries}), flush=True)

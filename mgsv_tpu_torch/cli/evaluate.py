@@ -13,7 +13,9 @@
 
 `--ckpt` is a tag under `--run-dir` (best_r1, last, epoch_3, ...), a
 reference `.bin` (`pytorch_model.bin.N` included), or absent for the random
-init of train.seed.  Config overrides and their defaults are the JAX CLI's;
+init of train.seed.  A `.bin`, read or written, holds neither the
+EmbeddingNet aggregator nor the cls token: both refuse it, as the JAX CLI's
+export and import do.  Config overrides and their defaults are the JAX CLI's;
 `--device` (default cuda) replaces its platform flags.  The corpus X-Pool
 similarity runs on the evaluation kernel on a CUDA device (the plain
 blocked path on the CPU), so `--fused-sim`, the JAX CLI's switch to its
@@ -32,8 +34,6 @@ import logging
 import os
 import re
 import sys
-
-import torch
 
 from mgsv_tpu_torch.cli.overrides import parse_kv_overrides
 from mgsv_tpu_torch.config import Config
@@ -55,19 +55,6 @@ def _epoch_sweep_tags(ckpt, run_dir):
             if m:
                 tags.append((int(m.group(1)), f"epoch_{m.group(1)}"))
     return [tag for _, tag in sorted(tags)]
-
-
-def _load_weights(model, tag: str, run_dir: str, cfg: Config) -> None:
-    """Load a reference `.bin` or a port checkpoint tag into `model`."""
-    if tag.endswith(".bin") or ".bin." in tag:
-        from mgsv_tpu_torch.interop.from_jax import load_reference_bin
-        model.load_state_dict(load_reference_bin(tag, cfg).state_dict(), strict=True)
-        return
-    from mgsv_tpu_torch.core.checkpoint import CheckpointManager
-    mgr = CheckpointManager(run_dir)
-    if not mgr.exists(tag):
-        raise FileNotFoundError(f"no checkpoint {tag!r} under {run_dir}")
-    model.load_state_dict(mgr.restore(tag)["params"], strict=True)
 
 
 def main(argv=None):
@@ -93,11 +80,13 @@ def main(argv=None):
     known, rest = parser.parse_known_args(argv if argv is not None else sys.argv[1:])
     cfg = Config.from_overrides(parse_kv_overrides(rest))
 
+    from mgsv_tpu_torch.core.checkpoint import load_weights
     from mgsv_tpu_torch.core.device import check_mesh_shape, resolve_device
     from mgsv_tpu_torch.data.dataset import MgsvDataset
     from mgsv_tpu_torch.data.device_data import DeviceResidentData, use_device_data
     from mgsv_tpu_torch.eval.evaluator import evaluate
     from mgsv_tpu_torch.eval.metrics import save_results_json
+    from mgsv_tpu_torch.interop.from_jax import save_reference_bin
     from mgsv_tpu_torch.models.made import MaDe
     from mgsv_tpu_torch.train.step import make_eval_step
 
@@ -126,7 +115,7 @@ def main(argv=None):
             tag = "random_init"
         else:
             try:
-                _load_weights(model, tag, known.run_dir or ".", cfg)
+                load_weights(model, tag, known.run_dir or ".", cfg)
             except FileNotFoundError:
                 logging.warning("checkpoint %s missing, skipped", tag)
                 continue
@@ -134,8 +123,7 @@ def main(argv=None):
             out = known.export_torch
             if len(tags) > 1:
                 out = f"{out}.{os.path.basename(str(tag))}"   # one file per tag
-            state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
-            torch.save({"epoch": 0, "loss": 0.0, "model_state_dict": state}, out)
+            save_reference_bin(model, cfg, out)
             logging.info("exported %s -> %s (reference torch format)", tag, out)
             all_results[tag] = {"exported": out}
             continue

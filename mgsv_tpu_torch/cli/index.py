@@ -1,23 +1,25 @@
 """Index CLI of the PyTorch port: build a music index from a feature store
-and a reference-format checkpoint, query it, or serve it over HTTP/JSON.
+and a checkpoint, query it, or serve it over HTTP/JSON.
 
-    # build
-    python -m mgsv_tpu_torch.cli.index build --ckpt made.bin \
+    # build, from a checkpoint the port's trainer wrote
+    python -m mgsv_tpu_torch.cli.index build --ckpt best_r1 --run-dir runs/made \
         --music-store features/packed/music_store --out index.npz
 
-    # query with a video from a store
+    # query with a video from a store (here through a reference-format .bin)
     python -m mgsv_tpu_torch.cli.index query --ckpt made.bin \
         --index index.npz --video-store features/packed/video_store \
         --video-id 113722188340 --top-k 5
 
     # serve the index over HTTP (GET /healthz, POST /query)
-    python -m mgsv_tpu_torch.cli.index serve --ckpt made.bin \
+    python -m mgsv_tpu_torch.cli.index serve --ckpt last --run-dir runs/made \
         --index index.npz --port 8008
 
-`--ckpt` is a `.bin` as `python -m mgsv_tpu.cli.evaluate --export-torch`
-or the reference writes it; config overrides (`--model.dim_input 256`, ...)
-follow the JAX CLIs.  The index `.npz` format is shared with
-`python -m mgsv_tpu.cli.index`.
+`--ckpt` is a tag under `--run-dir` (best_r1, last, epoch_3, ...), as for
+`cli.evaluate`, or a `.bin` as `python -m mgsv_tpu.cli.evaluate
+--export-torch` or the reference writes it; config overrides
+(`--model.dim_input 256`, ...) follow the JAX CLIs.  A model the engine
+does not serve (agg_module="mlp", serve/engine.py) raises ValueError.  The
+index `.npz` format is shared with `python -m mgsv_tpu.cli.index`.
 """
 
 from __future__ import annotations
@@ -31,9 +33,10 @@ import numpy as np
 
 from mgsv_tpu_torch.cli.overrides import parse_kv_overrides
 from mgsv_tpu_torch.config import Config
-from mgsv_tpu_torch.data.feature_store import PackedFeatureStore
+from mgsv_tpu_torch.core.checkpoint import load_weights
 from mgsv_tpu_torch.core.device import resolve_device
-from mgsv_tpu_torch.interop.from_jax import load_reference_bin
+from mgsv_tpu_torch.data.feature_store import PackedFeatureStore
+from mgsv_tpu_torch.models.made import MaDe
 from mgsv_tpu_torch.serve.engine import MusicIndex, RetrievalEngine, build_music_index
 
 
@@ -44,7 +47,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser("mgsv-torch-index")
     parser.add_argument("command", choices=["build", "query", "serve"])
     parser.add_argument("--ckpt", required=True,
-                        help="reference-format .bin checkpoint")
+                        help="checkpoint tag (with --run-dir) or reference-format .bin")
+    parser.add_argument("--run-dir", default=None)
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--music-store", default=None)
     parser.add_argument("--video-store", default=None)
@@ -64,7 +68,9 @@ def main(argv=None):
     known, rest = parser.parse_known_args(argv)
     cfg = Config.from_overrides(parse_kv_overrides(rest))
     device = resolve_device(known.device)
-    model = load_reference_bin(known.ckpt, cfg).to(device).eval()
+    model = MaDe(cfg).to(device)
+    load_weights(model, known.ckpt, known.run_dir or ".", cfg)
+    model.eval()
 
     if known.command == "build":
         store = PackedFeatureStore(known.music_store)

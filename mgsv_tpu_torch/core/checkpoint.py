@@ -15,6 +15,7 @@ import shutil
 from typing import Any, Dict
 
 import torch
+from torch import nn
 
 logger = logging.getLogger("mgsv_tpu_torch")
 
@@ -115,3 +116,18 @@ class BestMetricTracker:
     def should_stop(self, epoch: int, min_epochs: int = 60, patience: int = 20) -> bool:
         """Early stop, train-MaDe.py:735-736."""
         return epoch >= max(min_epochs, self.last_best_epoch() + patience)
+
+
+def load_weights(model: nn.Module, ckpt: str, run_dir: str, cfg) -> None:
+    """Load into `model` a reference-format `.bin` (`pytorch_model.bin.N`
+    included) or the weights, running buffers included, of a checkpoint tag
+    the port's Trainer wrote under `run_dir` (best_r1, last, epoch_3, ...),
+    strictly; what `cli.evaluate` and `cli.index` load."""
+    if ckpt.endswith(".bin") or ".bin." in ckpt:
+        from mgsv_tpu_torch.interop.from_jax import load_reference_bin
+        model.load_state_dict(load_reference_bin(ckpt, cfg).state_dict(), strict=True)
+        return
+    mgr = CheckpointManager(run_dir)
+    if not mgr.exists(ckpt):
+        raise FileNotFoundError(f"no checkpoint {ckpt!r} under {run_dir}")
+    model.load_state_dict(mgr.restore(ckpt)["params"], strict=True)

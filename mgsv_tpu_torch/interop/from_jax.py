@@ -1,4 +1,4 @@
-"""Carry weights into the port: JAX parameter trees and reference `.bin`
+"""Carry weights into the port: JAX variable trees and reference `.bin`
 checkpoints.
 
 MaDe's go through the reference Uni_model's state-dict names, which the
@@ -7,11 +7,18 @@ port's tower names (flax Dense kernels [in, out] transposed to torch's
 [out, in], flax convolution kernels [kh, kw, in, out] to [out, in, kh, kw],
 LayerNorm scale to weight).  Every load is `strict=True`, so every port
 parameter is covered and no stray entry passes unnoticed.
+
+The cls tokens and the EmbeddingNets (agg_module="mlp") have no reference
+names known: the JAX package's torch export and import refuse them.  Their
+names below are the port's own (`video_cls_token`,
+`audio_embedding_net.net.4.running_var`, ...), and a reference `.bin`
+neither carries nor takes them (`check_reference_format`).
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+import dataclasses
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -26,13 +33,98 @@ from mgsv_tpu_torch.models.made import MaDe
 # itself carries besides the trainable head; the port serves precomputed
 # features and holds no frozen towers.
 FROZEN_PREFIXES = ("clip_model.", "ast_model.")
+# JAX tower subtree -> the port's prefix of its cls token and EmbeddingNet
+_TOWERS = {"video_tower": "video", "audio_tower": "audio"}
+# JAX EmbeddingNet names -> the reference Sequential's indices (Linear,
+# BatchNorm, ReLU, Linear, BatchNorm, ReLU, Linear)
+_EMBEDDING_DENSE = {"fc1": "net.0", "fc2": "net.3", "fc3": "net.6"}
+_EMBEDDING_NORM = {"bn1": "net.1", "bn2": "net.4"}
+
+
+def check_reference_format(cfg: Config) -> None:
+    """Raise NotImplementedError for a configuration that a reference-format
+    checkpoint cannot hold, where the JAX package's torch export and import
+    raise (interop/torch_export.py, torch_import.py): the EmbeddingNet
+    aggregator and the cls token."""
+    m = cfg.model
+    if m.agg_module not in ("transf", "None") or m.with_cls_token:
+        raise NotImplementedError(
+            f"no reference-format checkpoint for agg_module={m.agg_module!r} / "
+            f"with_cls_token={m.with_cls_token}: the reference's names of the EmbeddingNets "
+            "and cls tokens are not known (the JAX package's export and import refuse them "
+            "too); use the port's own checkpoint, a tag under --run-dir")
+
+
+def _tower_keys(cfg: Config) -> set:
+    """The subtrees a JAX tower of cfg holds."""
+    m = cfg.model
+    depth = {"video_tower": m.video_temporal_depth, "audio_tower": m.audio_temporal_depth}
+    keys = {"proj"}
+    if m.with_cls_token:
+        keys.add("cls_token")
+    if m.agg_module == "mlp":
+        keys.add("embedding_net")
+    return {name: keys | ({"temporal"} if m.agg_module == "transf" and not
+                          m.transformer_is_share and (depth[name] or m.temporal_depth) > 0
+                          else set()) for name in _TOWERS}
+
+
+def jax_variables_to_state_dict(tree: Mapping, cfg: Config) -> Dict[str, np.ndarray]:
+    """A JAX MaDe variable tree ({"params": ...[, "batch_stats": ...]} or
+    bare params; a gradient tree alike) -> {port state-dict name: array}:
+    interop/state_dict.py's reference key map, and the port's own names for
+    the cls tokens, the EmbeddingNets and their running buffers (JAX's
+    "batch_stats", whose [L, 1] BatchNorm leaves become [L]).  Raises
+    KeyError where a tower holds a subtree the configuration does not
+    build, or batch_stats come without the EmbeddingNet."""
+    params = tree["params"] if "params" in tree else tree
+    m = cfg.model
+    ref_cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        m, agg_module="None" if m.agg_module == "mlp" else m.agg_module, with_cls_token=False))
+    out = jax_tree_to_state_dict(params, ref_cfg)
+    for name, keys in _tower_keys(cfg).items():
+        if set(params[name]) != keys:
+            raise KeyError(f"JAX {name} holds {sorted(params[name])}, the configuration "
+                           f"builds {sorted(keys)}")
+    stats = tree.get("batch_stats") if "params" in tree else None
+    if stats is not None and m.agg_module != "mlp":
+        raise KeyError(f"batch_stats given, but agg_module={m.agg_module!r} keeps none")
+    for name, port in _TOWERS.items():
+        sub = params[name]
+        if m.with_cls_token:
+            out[f"{port}_cls_token"] = _np(sub["cls_token"])
+        if m.agg_module == "mlp":
+            out.update(embedding_net_state(
+                sub["embedding_net"],
+                stats[name]["embedding_net"] if stats is not None else None,
+                f"{port}_embedding_net."))
+    return out
+
+
+def embedding_net_state(params: Mapping, stats: Optional[Mapping] = None,
+                        prefix: str = "") -> dict:
+    """A JAX EmbeddingNet's params (and its batch_stats) -> the port's
+    EmbeddingNet names under `prefix`: fc1/fc2/fc3 -> net.0/net.3/net.6,
+    bn1/bn2 -> net.1/net.4 (scale -> weight, mean and var -> running_mean
+    and running_var, [L, 1] -> [L])."""
+    out = {}
+    for jname, idx in _EMBEDDING_DENSE.items():
+        out.update(_dense(f"{prefix}{idx}", params[jname]))
+    for jname, idx in _EMBEDDING_NORM.items():
+        out[f"{prefix}{idx}.weight"] = _np(params[f"{jname}_scale"])[:, 0]
+        out[f"{prefix}{idx}.bias"] = _np(params[f"{jname}_bias"])[:, 0]
+        if stats is not None:
+            out[f"{prefix}{idx}.running_mean"] = _np(stats[f"{jname}_mean"])[:, 0]
+            out[f"{prefix}{idx}.running_var"] = _np(stats[f"{jname}_var"])[:, 0]
+    return out
 
 
 def load_jax_params(model: MaDe, params: Mapping, cfg: Config) -> MaDe:
-    """Load a JAX MaDe parameter tree ({"params": ...} or bare; leaves any
-    array numpy reads) into `model`."""
+    """Load a JAX MaDe variable tree ({"params": ...} with "batch_stats"
+    for agg_module="mlp", or bare params; leaves any array numpy reads)
+    into `model`, strictly."""
     state = {k: torch.from_numpy(np.array(v, dtype=np.float32))
-             for k, v in jax_tree_to_state_dict(params, cfg).items()}
+             for k, v in jax_variables_to_state_dict(params, cfg).items()}
     model.load_state_dict(state, strict=True)
     return model
 
@@ -40,13 +132,24 @@ def load_jax_params(model: MaDe, params: Mapping, cfg: Config) -> MaDe:
 def load_reference_bin(path: str, cfg: Config) -> MaDe:
     """A MaDe (on the CPU) with the weights of a reference-format checkpoint:
     `{"model_state_dict": ...}` as `mgsv_tpu.cli.evaluate --export-torch` and
-    the reference write it, or a bare state dict."""
+    the reference write it, or a bare state dict.  Raises where
+    `check_reference_format` does."""
+    check_reference_format(cfg)
     blob = torch.load(path, map_location="cpu", weights_only=True)
     state = blob.get("model_state_dict", blob)
     state = {k: v for k, v in state.items() if not k.startswith(FROZEN_PREFIXES)}
     model = MaDe(cfg)
     model.load_state_dict(state, strict=True)
     return model
+
+
+def save_reference_bin(model: MaDe, cfg: Config, path: str) -> None:
+    """Write `model` as a reference-format checkpoint at `path`, as the
+    reference and `mgsv_tpu.cli.evaluate --export-torch` write one.  Raises
+    where `check_reference_format` does."""
+    check_reference_format(cfg)
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    torch.save({"epoch": 0, "loss": 0.0, "model_state_dict": state}, path)
 
 
 def _np(x) -> np.ndarray:

@@ -18,8 +18,14 @@ pre-norm, as in JAX), with `fused_temporal` the temporal towers' layers too
 (FusedTemporalTransformer, float32, as in JAX; a shared stack runs both
 towers through one set of weights), and with the call argument
 `fused_decoder` the post-norm DETR decoder's layers (float32, no dropout,
-as JAX's FusedDetrDecoderLayer).  The branches `agg_module="mlp"` and
-`with_cls_token` raise (ROADMAP.md, queue 1).
+as JAX's FusedDetrDecoderLayer).  Each tower aggregates its tokens with its
+temporal stack (agg_module "transf"), with an EmbeddingNet (models/
+embedding_net.py, "mlp") or with neither ("None"), and with
+`with_cls_token` prepends a learned cls token whose output row is the
+tower's embedding.  Those modules have no reference names known, so they
+take the port's own (`video_cls_token`, `audio_cls_token`,
+`video_embedding_net`, `audio_embedding_net`), and a reference `.bin` does
+not carry them (interop/from_jax.py).
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from mgsv_tpu_torch.config import Config
 from mgsv_tpu_torch.models import layers as L
 from mgsv_tpu_torch.models.cross import CrossTransformer
 from mgsv_tpu_torch.models.detr import DetrTransformer
+from mgsv_tpu_torch.models.embedding_net import EmbeddingNet
 from mgsv_tpu_torch.models.temporal import FusedTemporalTransformer, TemporalTransformer
 from mgsv_tpu_torch.models.xpool import XPoolTransformer
 
@@ -41,21 +48,33 @@ from mgsv_tpu_torch.models.xpool import XPoolTransformer
 def tower(proj: nn.Linear, temporal: Optional[TemporalTransformer],
           pe: torch.Tensor, feats: torch.Tensor, mask: torch.Tensor,
           act_after_proj: bool = False, generator: Optional[torch.Generator] = None,
-          plain_temporal: bool = False) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Frame/snippet tower (the JAX `Tower`): mask, project, add the
-    sinusoidal table, temporal transformer (dropout only with a generator;
-    its plain layers with `plain_temporal`, as a JAX `Tower` without
-    `fused`), mask, masked mean, L2.
+          plain_temporal: bool = False, cls_token: Optional[torch.Tensor] = None,
+          embedding_net: Optional[EmbeddingNet] = None
+          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Frame/snippet tower (the JAX `Tower`): mask, project, with
+    `cls_token` [1, 1, D] prepend it (a valid mask column), then the
+    temporal transformer over the sinusoidal table (dropout only with a
+    generator; its plain layers with `plain_temporal`, as a JAX `Tower`
+    without `fused`) or the EmbeddingNet (batch statistics only with a
+    generator), mask, and L2 of the cls row or of the masked mean.
 
-    feats [B, L, D_in], mask [B, L] -> (tokens [B, L, D], emb [B, D], mask)."""
+    feats [B, L, D_in], mask [B, L] -> (tokens [B, L, D], emb [B, D], mask),
+    the tokens and mask without the cls row."""
     mask = mask.to(feats.dtype)
     x = proj(feats * mask[..., None])
     if act_after_proj:
         x = L.quick_gelu(x)
+    if cls_token is not None:
+        x = torch.cat([cls_token.to(x.dtype).expand(x.shape[0], 1, -1), x], dim=1)
+        mask = torch.cat([mask.new_ones(mask.shape[0], 1), mask], dim=1)
     if temporal is not None:
         run = temporal.plain_forward if plain_temporal else temporal
         x = run(x + pe[None, : x.shape[1]], mask, generator)
         x = x * mask[..., None]
+    elif embedding_net is not None:
+        x = embedding_net(x, training=generator is not None) * mask[..., None]
+    if cls_token is not None:
+        return x[:, 1:], L.l2_normalize(x[:, 0]), mask[:, 1:]
     return x, L.l2_normalize(L.masked_mean(x, mask)), mask
 
 
@@ -69,26 +88,11 @@ def uses_fused_sim(cfg: Config) -> bool:
             and m.moment_query_type != "xpool")
 
 
-def _unsupported(cfg: Config) -> Optional[str]:
-    m = cfg.model
-    checks = {
-        "agg_module": (m.agg_module, "transf"),
-        "with_cls_token": (m.with_cls_token, False),
-    }
-    bad = [f"{k}={v!r}" for k, (v, want) in checks.items() if v != want]
-    return ", ".join(bad) or None
-
-
 class MaDe(nn.Module):
     """Container of MaDe's submodules under reference names."""
 
     def __init__(self, cfg: Config, generator: Optional[torch.Generator] = None):
         super().__init__()
-        bad = _unsupported(cfg)
-        if bad:
-            raise NotImplementedError(
-                f"not ported yet: {bad} (ROADMAP.md, queue 1: the EmbeddingNet "
-                "aggregator and the cls token)")
         self.cfg = cfg
         m, data = cfg.model, cfg.data
         d = m.dim_input
@@ -113,15 +117,25 @@ class MaDe(nn.Module):
         self.ast_proj = nn.Linear(data.ast_dim, d)
         v_depth = m.video_temporal_depth or m.temporal_depth
         a_depth = m.audio_temporal_depth or m.temporal_depth
-        if m.transformer_is_share:
+        if m.agg_module not in ("transf", "mlp", "None"):
+            raise ValueError(f"unsupported agg_module: {m.agg_module!r}")
+        if m.transformer_is_share and not v_depth == a_depth == m.temporal_depth:
+            raise ValueError("transformer_is_share uses one temporal stack; per-tower "
+                             f"depths {v_depth} / {a_depth} cannot apply")
+        if m.agg_module == "transf" and m.transformer_is_share:
             # one temporal stack for both towers (each adds its own table)
-            if not v_depth == a_depth == m.temporal_depth:
-                raise ValueError("transformer_is_share uses one temporal stack; per-tower "
-                                 f"depths {v_depth} / {a_depth} cannot apply")
             self.share_transformer = temporal(m.temporal_depth)
-        else:
+        elif m.agg_module == "transf":
             self.video_transformer = temporal(v_depth)
             self.audio_transformer = temporal(a_depth)
+        # the sequence lengths the towers see: frames or snippets, and the cls row
+        extra = int(m.with_cls_token)
+        if m.agg_module == "mlp":
+            self.video_embedding_net = EmbeddingNet(d, data.max_v_frames + extra)
+            self.audio_embedding_net = EmbeddingNet(d, data.max_snippet_num + extra)
+        if m.with_cls_token:
+            self.video_cls_token = nn.Parameter(torch.zeros(1, 1, d))
+            self.audio_cls_token = nn.Parameter(torch.zeros(1, 1, d))
         self.register_buffer("video_pe", torch.from_numpy(
             L.sinusoidal_table(m.video_pe_len, d)), persistent=False)
         self.register_buffer("audio_pe", torch.from_numpy(
@@ -165,8 +179,9 @@ class MaDe(nn.Module):
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
         """The JAX package's initializers: lecun-normal Dense layers and MLP
-        heads, xavier-uniform attention and DETR, xavier-normal CA fusion,
-        identity X-Pool, N(0, 1) query embedding, logit_scale =
+        heads, xavier-uniform attention and DETR, xavier-normal CA fusion and
+        EmbeddingNets, identity X-Pool, N(0, 1) query embedding, cls tokens
+        N(0, 0.02) truncated at two deviations, logit_scale =
         log(1 / temperature)."""
         dense = [self.vit_proj, self.ast_proj]
         if self.detr_heads:
@@ -180,6 +195,12 @@ class MaDe(nn.Module):
         for trm in {id(t): t for t in (self.temporal("video"), self.temporal("music"))
                     if t is not None}.values():
             trm.reset_parameters(generator)
+        for which in ("video", "audio"):
+            if hasattr(self, f"{which}_embedding_net"):
+                getattr(self, f"{which}_embedding_net").reset_parameters(generator)
+            if hasattr(self, f"{which}_cls_token"):      # flax truncated_normal(0.02)
+                nn.init.trunc_normal_(getattr(self, f"{which}_cls_token"), 0.0, 0.02, -0.04,
+                                      0.04, generator=generator)
         for name in ("video_guided_to_music_pooling_cross_transformer",
                      "music_guided_to_video_pooling_cross_transformer"):
             if hasattr(self, name):
@@ -194,20 +215,26 @@ class MaDe(nn.Module):
 
     def temporal(self, which: str) -> Optional[TemporalTransformer]:
         """The temporal stack of the "video" or "music" tower: the shared
-        one under transformer_is_share."""
+        one under transformer_is_share; None where agg_module is not
+        "transf" or the depth is 0."""
         if self.cfg.model.transformer_is_share:
-            return self.share_transformer
-        return self.video_transformer if which == "video" else self.audio_transformer
+            return getattr(self, "share_transformer", None)
+        return getattr(self, "video_transformer" if which == "video" else "audio_transformer",
+                       None)
 
     def video_tower(self, feats: torch.Tensor, mask: torch.Tensor,
                     generator: Optional[torch.Generator] = None, plain_temporal: bool = False):
         return tower(self.vit_proj, self.temporal("video"), self.video_pe, feats,
-                     mask, self.cfg.model.with_act_after_proj, generator, plain_temporal)
+                     mask, self.cfg.model.with_act_after_proj, generator, plain_temporal,
+                     getattr(self, "video_cls_token", None),
+                     getattr(self, "video_embedding_net", None))
 
     def music_tower(self, feats: torch.Tensor, mask: torch.Tensor,
                     generator: Optional[torch.Generator] = None, plain_temporal: bool = False):
         return tower(self.ast_proj, self.temporal("music"), self.audio_pe, feats,
-                     mask, self.cfg.model.with_act_after_proj, generator, plain_temporal)
+                     mask, self.cfg.model.with_act_after_proj, generator, plain_temporal,
+                     getattr(self, "audio_cls_token", None),
+                     getattr(self, "audio_embedding_net", None))
 
     def forward(self, frame_feats: torch.Tensor, frame_mask: torch.Tensor,
                 segment_feats: torch.Tensor, segment_mask: torch.Tensor,

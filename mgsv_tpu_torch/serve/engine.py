@@ -14,7 +14,12 @@ runs them either way).  The engine serves what JAX's serves: the
 video-guided music X-Pool, concat fusion, the video moment query and the
 DETR heads; a config without one of them raises ValueError (JAX's engine
 fails on a missing X-Pool or head with a KeyError, and would run concat
-fusion and the video query where the model was trained otherwise).
+fusion and the video query where the model was trained otherwise).  Either
+aggregator but the EmbeddingNet, with or without the cls token, is served:
+the index keeps the music tokens without the cls row, and a query's video
+duration comes from the raw frame mask, as JAX's.  An agg_module="mlp"
+model raises ValueError at the index build and at the engine: JAX's engine
+hands its towers no BatchNorm buffers and fails there.
 """
 
 from __future__ import annotations
@@ -59,12 +64,24 @@ class MusicIndex:
             seg_masks=z["seg_masks"])
 
 
+def check_aggregator(cfg: Config) -> None:
+    """Raise ValueError for agg_module="mlp", which JAX's engine cannot
+    serve (mgsv_tpu/serve/engine.py:76, :295-297)."""
+    if cfg.model.agg_module == "mlp":
+        raise ValueError(
+            "the serving engine does not serve agg_module='mlp': JAX's engine hands its "
+            "towers the params collection alone, without the EmbeddingNet's batch_stats, "
+            "and fails with flax's ScopeCollectionNotFound ('bn1_mean')")
+
+
 @torch.no_grad()
 def build_music_index(model: MaDe, music_ids: Sequence[str],
                       segment_feats: np.ndarray,    # [M, S, ast_dim]
                       segment_masks: np.ndarray,    # [M, S]
                       batch_size: int = 128) -> MusicIndex:
-    """Run the music tower over a collection once, on the model's device."""
+    """Run the music tower over a collection once, on the model's device;
+    raises where `check_aggregator` does."""
+    check_aggregator(model.cfg)
     device = next(model.parameters()).device
     tokens_all, embs_all, masks_all = [], [], []
     for i in range(0, len(music_ids), batch_size):
@@ -102,6 +119,7 @@ class RetrievalEngine:
         # index_dtype "bfloat16" halves the device-resident token store;
         # compute promotes it back to float32, so only stored values round.
         m = cfg.model
+        check_aggregator(cfg)
         unserved = {"vmr_fusion": (m.vmr_fusion, model.xpool is not None),
                     "mml_fusion": (m.mml_fusion, m.mml_fusion == "concat"),
                     "moment_query_type": (m.moment_query_type, m.moment_query_type == "video"),

@@ -43,11 +43,16 @@ from mgsv_tpu_torch.train.schedule import make_schedule
 
 TEMPORAL, MATCHING, DETECTION, FROZEN = "temporal", "matching", "detection", "frozen"
 
-# top-level MaDe modules (reference state-dict names) -> group
+# top-level MaDe modules (reference state-dict names; the cls tokens' and
+# EmbeddingNets' are the port's own, in TEMPORAL as JAX's towers hold them)
+# -> group.  The EmbeddingNets' running buffers are no parameters: Adam
+# never sees them.
 _GROUP_OF_MODULE = {
     "vit_proj": TEMPORAL, "ast_proj": TEMPORAL,
     "video_transformer": TEMPORAL, "audio_transformer": TEMPORAL,
     "share_transformer": TEMPORAL,
+    "video_cls_token": TEMPORAL, "audio_cls_token": TEMPORAL,
+    "video_embedding_net": TEMPORAL, "audio_embedding_net": TEMPORAL,
     "video_guided_to_music_pooling_cross_transformer": MATCHING,
     "music_guided_to_video_pooling_cross_transformer": MATCHING,
     "logit_scale": MATCHING,

@@ -313,14 +313,16 @@ def _temporal_layer(dev):
     return _perturbed(layer, 6).to(dev)
 
 
-@pytest.mark.parametrize("b,L", [(4, 96), (12, 50), (3, 21), (2, 300), (40, 96), (40, 50)])
+@pytest.mark.parametrize("b,L", [(4, 96), (12, 50), (3, 21), (2, 300), (40, 96), (40, 50),
+                                 (4, 97), (12, 51)])
 @pytest.mark.parametrize("rate", [0.0, 0.8])
 def test_cuda_temporal_kernels_match_plain_version(dev, rate, b, L):
     """The temporal layer's forward and backward kernels (#5) against
     autograd through the plain version: the towers' L = 96 and 50 (B*L of
     384 and 600 rows, the second a ragged last 128-row tile), fewer rows
-    than one tile, the longest L, and the evaluation's B=40 at both towers'
-    L; ragged key masks with a row that keeps no key."""
+    than one tile, the longest L, the evaluation's B=40 at both towers' L,
+    and the cls token's L = 97 and 51 (a last attention chunk of one row at
+    97); ragged key masks with a row that keeps no key."""
     rng = np.random.default_rng(b * L)
     x, g = _randn(rng, (b, L, 256), dev), _randn(rng, (b, L, 256), dev)
     mask = _ragged(rng, b, L, dev)
@@ -377,7 +379,8 @@ def test_cuda_temporal_backward_is_bit_reproducible(dev):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("b,L", [(4, 96), (12, 50), (3, 21), (2, 300), (40, 96), (40, 50)])
+@pytest.mark.parametrize("b,L", [(4, 96), (12, 50), (3, 21), (2, 300), (40, 96), (40, 50),
+                                 (4, 97), (12, 51)])
 @pytest.mark.parametrize("rate", [0.0, 0.8])
 def test_cuda_temporal_backward_from_saved_acts_equals_recompute(dev, rate, b, L):
     """The training forward's saved activations (#5) against their plain

@@ -31,7 +31,7 @@ for name in names:
     importlib.import_module(name)
 assert {"mgsv_tpu_torch.ops.lsap", "mgsv_tpu_torch.ops.cuda.fused_decoder_layer",
         "mgsv_tpu_torch.runtime.native", "mgsv_tpu_torch.data.device_data",
-        "mgsv_tpu_torch.models.cross"} <= set(names)
+        "mgsv_tpu_torch.models.cross", "mgsv_tpu_torch.models.embedding_net"} <= set(names)
 import chip_smoke
 for script in ("scripts/profile_serving_cuda.py", "scripts/profile_train_cuda.py",
                "scripts/profile_eval_cuda.py",

@@ -269,9 +269,10 @@ def test_step_profiler_writes_one_window(tmp_path):
 
 
 def test_unported_paths_raise(tmp_path, data):
-    """A mesh (multi-device), the branches still to port (the EmbeddingNet
-    aggregator, the cls token) and a vmr_loss JAX's evaluation refuses
-    raise instead of running something else."""
+    """A mesh (multi-device) and a vmr_loss JAX's evaluation refuses raise
+    instead of running something else; the EmbeddingNet aggregator and the
+    cls token, once refused, build a Trainer whose model holds them
+    (tests/test_torch_port_aggregators.py holds them to JAX)."""
     from mgsv_tpu_torch.eval.evaluator import corpus_similarity, evaluate
 
     cfg = _cfg(tmp_path, "raise")
@@ -280,10 +281,10 @@ def test_unported_paths_raise(tmp_path, data):
     model = MaDe(cfg)
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         evaluate(model, data, cfg, mesh=object())
-    for over in ({"agg_module": "mlp"}, {"with_cls_token": True}):
-        unported = cfg.replace(model=dataclasses.replace(cfg.model, **over))
-        with pytest.raises(NotImplementedError, match="queue 1: the EmbeddingNet"):
-            Trainer(unported, train_data=data, device="cpu").init_state()
+    for over, module in (({"agg_module": "mlp"}, "video_embedding_net"),
+                         ({"with_cls_token": True}, "video_cls_token")):
+        ported = cfg.replace(model=dataclasses.replace(cfg.model, **over))
+        assert hasattr(Trainer(ported, train_data=data, device="cpu").init_state(), module)
     oneloss = cfg.replace(model=dataclasses.replace(cfg.model, vmr_fusion="XA-music-video"),
                           loss=dataclasses.replace(cfg.loss, vmr_loss="dual_single_oneloss"))
     d, s = cfg.model.dim_input, cfg.data.max_snippet_num

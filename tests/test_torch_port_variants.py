@@ -31,6 +31,7 @@ import torch
 
 from mgsv_tpu.config import Config as JaxConfig
 from mgsv_tpu.eval.evaluator import corpus_similarity as jax_corpus_similarity
+from mgsv_tpu.interop.torch_export import export_uni_state_dict
 from mgsv_tpu.interop.torch_import import import_uni_state_dict
 from mgsv_tpu.models.made import MaDe as JaxMaDe
 from mgsv_tpu.ops.spans import eval_iou_batch as jax_eval_iou_batch
@@ -41,7 +42,8 @@ from mgsv_tpu.train.step import decode_top_span as jax_decode_top_span
 from mgsv_tpu_torch.config import Config
 from mgsv_tpu_torch.data.example_batch import example_batch, to_tensors
 from mgsv_tpu_torch.eval.evaluator import corpus_similarity
-from mgsv_tpu_torch.interop.from_jax import load_jax_params
+from mgsv_tpu_torch.interop.from_jax import (load_jax_params, load_reference_bin,
+                                             save_reference_bin)
 from mgsv_tpu_torch.interop.state_dict import jax_tree_to_state_dict
 from mgsv_tpu_torch.models import made as made_mod
 from mgsv_tpu_torch.models.cross import CrossTransformer
@@ -426,16 +428,20 @@ def test_xa_video_refused_where_jax_fails():
 @pytest.mark.parametrize("extra", [{"model.agg_module": "mlp"},
                                    {"model.with_cls_token": True}])
 def test_unported_branches_raise(extra):
-    """The EmbeddingNet aggregator and the cls token stay unported: MaDe
-    raises, naming them and their queue item; every other switch is off
-    the list."""
-    cfg, _ = _configs(extra)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1: the EmbeddingNet"):
-        MaDe(cfg)
-    assert made_mod._unsupported(cfg) == ", ".join(f"{k.split('.')[1]}={v!r}"
-                                                   for k, v in extra.items())
-    every_other = {"model.transformer_is_share": True, "model.vmr_fusion": "XA-music-video",
-                   "model.mml_fusion": "CA", "model.mml_localization": "regression",
-                   "model.detr_pre_norm": True, "model.moment_loss": True,
-                   "model.moment_query_type": "zero"}
-    assert made_mod._unsupported(_configs(every_other)[0]) is None
+    """The EmbeddingNet aggregator and the cls token, once refused, now
+    build (tests/test_torch_port_aggregators.py holds them to JAX); what
+    raises for them is a reference-format checkpoint, read or written,
+    exactly where JAX's torch export and import raise."""
+    cfg, jcfg = _configs(extra)
+    model = MaDe(cfg)
+    added = {"model.agg_module": "video_embedding_net", "model.with_cls_token":
+             "video_cls_token"}[next(iter(extra))]
+    assert hasattr(model, added) and not hasattr(made_mod, "_unsupported")
+    with pytest.raises(NotImplementedError, match="agg_module"):
+        export_uni_state_dict({}, jcfg)
+    with pytest.raises(NotImplementedError, match="agg_module"):
+        import_uni_state_dict({}, jcfg)
+    with pytest.raises(NotImplementedError, match="no reference-format checkpoint"):
+        save_reference_bin(model, cfg, "never-written.bin")
+    with pytest.raises(NotImplementedError, match="no reference-format checkpoint"):
+        load_reference_bin("never-read.bin", cfg)
