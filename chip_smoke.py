@@ -51,7 +51,9 @@ failure:
   6. train    one float32 training step of MaDe (Config() widths, dropout
               on) through the kernels and one through the plain versions,
               from the same weights, batch and seed: the loss and every
-              parameter's gradient compared; launches per step, the step's
+              parameter's gradient compared (the plain steps take the
+              kernel step's gates where a ReLU outside the kernels lies
+              within rounding of zero); launches per step, the step's
               device operations and peak memory read; then
               the same for Config(fused_temporal=True) (temporal-train) and
               for ten moment queries with fused_decoder=True (train-q: the
@@ -156,6 +158,29 @@ failure:
               track encoded again with the plain towers; videos/s, tracks/s,
               host and device seconds
 
+ 23. ddp    data parallelism, 2 ranks on the one card over gloo (CUDA
+              tensors; NCCL refuses two ranks on one device), each a process
+              of this script (`--ddp-rank`), at Config() in float32 with a
+              global B=512, 256 rows a rank: one step at every dropout rate 0
+              from the [train] step's weights and batch, its loss and every
+              synchronized gradient held as [train] holds the kernel step
+              (against the plain and float64 one-process steps, which take
+              the one-process kernel step's gates; each rank takes its rows'
+              share of those gates), bit-identical gradients on both ranks,
+              each rank's #1/#2/#3 launches, timed steps beside the
+              one-process step, the gradient sync's ms and bytes, the
+              split tables' batch assembly at B=512 and 40; one step
+              at the configured rates from fresh weights, bit-identical
+              weights on both ranks; `evaluate` of 2,048 generated rows,
+              resident and split over the ranks, with #4 split over the
+              tracks: its similarity within 1e-4 of the one-process #4's,
+              the same ranks off near ties; a world of one over NCCL equal
+              to the step without a group bit for bit (loss, gradients,
+              weights); `cli.train --coordinator` on 2 ranks, 1 epoch of
+              2,048 rows at dropout 0 in float32 (data resident and split),
+              MP_RESULT lines equal, records equal to one process's, and
+              `cli.evaluate` on 2 ranks equal to one process's
+
 then prints the kernels' JSON line and, last, {"ok": true, "device": ...}.
 It exits non-zero, without that last line, when no CUDA device is present
 or any phase fails.
@@ -188,8 +213,10 @@ from mgsv_tpu_torch.cli import extract_features as extract_cli
 from mgsv_tpu_torch.cli import index as index_cli
 from mgsv_tpu_torch.cli import train as train_cli
 from mgsv_tpu_torch.config import Config
+from mgsv_tpu_torch.core import dist
 from mgsv_tpu_torch.core.checkpoint import CheckpointManager, load_weights
 from mgsv_tpu_torch.core.device import resolve_device
+from mgsv_tpu_torch.core.mesh import local_rows, make_mesh, sync_gradients
 from mgsv_tpu_torch.data import synthetic_raw
 from mgsv_tpu_torch.data.audio import extract_snippets, resample_sinc
 from mgsv_tpu_torch.data.dataset import MgsvDataset, epoch_index_batches
@@ -200,6 +227,7 @@ from mgsv_tpu_torch.data.feature_store import PackedFeatureStore
 from mgsv_tpu_torch.data.frames import load_clip_frames
 from mgsv_tpu_torch.data.media import load_wav
 from mgsv_tpu_torch.data.pipeline import prefetch_epoch
+from mgsv_tpu_torch.data import synthetic
 from mgsv_tpu_torch.data.synthetic import open_synthetic
 from mgsv_tpu_torch.eval.evaluator import evaluate
 from mgsv_tpu_torch.eval.similarity import (xpool_eval_inputs, xpool_sim_fused,
@@ -343,6 +371,18 @@ SCORE_ATOL = 1e-4
 # the GT's (twice KERNEL_ATOL: each side may move by up to it).
 RANK_TIE_ATOL = 2e-4
 MIOU_ATOL = 1e-6           # the evaluation CLI's mIoU against the trainer's record
+DDP_RANKS = 2              # ranks of the ddp phase, on the one card
+DDP_TIMED_STEPS = 3        # float32 steps timed on each rank and in one process
+SYNC_REPS = 5              # timed gradient syncs a rank
+DDP_RANK_TIMEOUT = 600     # seconds a rank job may take
+# the 2-rank cli.train's and cli.evaluate's records against one process's
+# (float32, dropout 0; one epoch of 4 steps): the losses agree to float32
+# rounding of sums taken in another order, the retrieval metrics to a rank
+# or two of 2,048 rows (the ranks' batches of 20 rows round otherwise than
+# one process's 40 near a tie)
+DDP_LOSS_RTOL = 1e-4
+DDP_RECALL_ATOL = 0.1
+DDP_MIOU_ATOL = 1e-3
 
 COUNTERS = {"fused_encoder_layer": fel.fused_encoder_layer,
             "fused_encoder_layer_bwd": fel.fused_encoder_layer_bwd,
@@ -1122,19 +1162,26 @@ def record_gates(model, store: dict) -> list:
         for n, mod in model.named_modules() if RELU_SITES.search(n)]
 
 
-def impose_gates(model, gates: dict, counts: list) -> list:
+def impose_gates(model, gates: dict, counts: list, mesh=None) -> list:
     """Forward hooks that give each ReLU site the gates `gates` recorded
     where its own pre-activation lies within STEP_FLIP_EPS of zero and on
     the other side: the value is negated there (it moves by under
     2 STEP_FLIP_EPS) with a gradient of 1, so the gate turns.  The flips
-    made are appended to `counts`."""
+    made are appended to `counts`.  mesh: the gates were recorded over the
+    global batch and the model runs this rank's rows; each call takes the
+    rank's block of the axis on which the two sizes differ (the batch
+    axis)."""
     hooks = []
     for n, mod in model.named_modules():
         if n in gates:
             calls = iter(gates[n])
 
             def hook(m, i, o, calls=calls):
-                want = next(calls).to(o.dtype) > 0
+                want = next(calls).to(o.device)
+                if want.shape != o.shape:
+                    axis = next(a for a in range(o.dim()) if o.shape[a] != want.shape[a])
+                    want = want.narrow(axis, mesh.rank * o.shape[axis], o.shape[axis])
+                want = want.to(o.dtype) > 0
                 flip = ((o > 0) != want) & (o.abs() < STEP_FLIP_EPS)
                 counts.append(int(flip.sum()))
                 return torch.where(flip, o - 2 * o.detach(), o)
@@ -1196,7 +1243,7 @@ def train_runs(device: torch.device, cfg: Config, batch_size: int = TRAIN_B,
         del log, step
     return {"logs": logs, "grads": grads, "launches": launches, "device_ops": device_ops,
             "peak_gb": peak_gb, "solves": solves, "batch": batch, "flips": flips,
-            "buffers": buffers}
+            "buffers": buffers, "gates": gates}
 
 
 def hold_step(what: str, runs: dict, want_launches: dict) -> tuple:
@@ -1239,7 +1286,9 @@ def check_train(device: torch.device, fused_temporal: bool = False,
                                                  fused_temporal=fused_temporal))
     if fused_decoder:
         cfg = multi_query(cfg)
-    runs = train_runs(device, cfg, TRAIN_B, fused_decoder)
+    # the plain and float64 steps take the kernel step's gates where rounding
+    # alone puts a ReLU pre-activation on the other side of zero
+    runs = train_runs(device, cfg, TRAIN_B, fused_decoder, share_gates=True)
     loss, worst, worst_plain, n_grads = hold_step("train step", runs,
                                                   per_step(cfg, fused_decoder))
     logs, solves = runs["logs"], runs["solves"]
@@ -1251,6 +1300,7 @@ def check_train(device: torch.device, fused_temporal: bool = False,
     phase(tag, dtype="float32", B=TRAIN_B, fused_temporal=fused_temporal, **extra,
           loss=loss["kernel"], plain_loss=loss["plain"], float64_loss=loss["exact"],
           params=n_grads, grad_max_abs_err=worst, plain_f32_grad_err=worst_plain,
+          gates_turned_plain=runs["flips"]["plain"], gates_turned_float64=runs["flips"]["exact"],
           train_iou=logs["kernel"]["train_iou"], grad_norm=logs["kernel"]["grad_norm"],
           device_ops=runs["device_ops"], peak_mem_gb=f"{runs['peak_gb']:.2f}")
     phase("launches", path="train step" + (" fused_temporal" if fused_temporal else "")
@@ -2944,11 +2994,348 @@ def near_tie_rows(sim: torch.Tensor, music_ids, atol: float) -> np.ndarray:
     return (gap.amin(dim=1) <= atol).cpu().numpy()
 
 
+def no_dropout(cfg: Config) -> Config:
+    return cfg.replace(model=dataclasses.replace(cfg.model, temporal_dropout=0.0,
+                                                 xpool_dropout=0.0, detr_dropout=0.0,
+                                                 ca_dropout=0.0))
+
+
+def ddp_config(rates: bool) -> Config:
+    """Config() in float32, at its dropout rates or at 0."""
+    base = Config()
+    cfg = base.replace(model=dataclasses.replace(base.model, compute_dtype="float32"))
+    return cfg if rates else no_dropout(cfg)
+
+
+def timed_steps(step, batch, n: int) -> list:
+    """ms of each of n steps (host clock around a step that ends in a
+    synchronize)."""
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def ddp_rank(spec_path: str, rank: int) -> int:
+    """One rank of the ddp phase (`chip_smoke.py --ddp-rank RANK SPEC`):
+    joins the group, runs its rows of the held step, timed steps, timed
+    gradient syncs, a step at the configured rates and an evaluation, and
+    writes what the parent compares into the spec's directory."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    dist.initialize(spec["coordinator"], spec["world"], rank, "cuda")
+    mesh = make_mesh()
+    device = resolve_device(dist.rank_device("cuda"))
+    out = {"rank": rank, "backend": torch.distributed.get_backend()}
+
+    cfg = ddp_config(rates=False)
+    model = MaDe(cfg, torch.Generator().manual_seed(SEED)).to(device)
+    step = make_train_step(model, cfg, make_optimizer(model, cfg, HORIZON, mesh), mesh=mesh)
+    batch = to_tensors(example_batch(np.random.RandomState(SEED), cfg, TRAIN_B), device)
+    mine = {k: local_rows(v, mesh) for k, v in batch.items()}
+    counts = []
+    hooks = impose_gates(model, torch.load(spec["gates"], weights_only=True), counts, mesh)
+    reset_counts()
+    log = step(mine)
+    torch.cuda.synchronize()
+    out["launches"] = read_counts()
+    for h in hooks:
+        h.remove()
+    out["flips"] = sum(counts)
+    out["logs"] = {k: float(v.double().mean()) for k, v in log.items()}
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    out["step_ms"] = timed_steps(step, mine, DDP_TIMED_STEPS)
+    flat = [g.clone() for g in grads.values()]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    sync_ms = []
+    for _ in range(SYNC_REPS):
+        dist.barrier("sync-timing")
+        start.record()
+        out["sync_bytes"] = sync_gradients(flat, mesh)
+        end.record()
+        torch.cuda.synchronize()
+        sync_ms.append(start.elapsed_time(end))
+    out["sync_ms"] = sync_ms
+    del model, step, flat
+
+    cfg = ddp_config(rates=True)
+    model = MaDe(cfg, torch.Generator().manual_seed(SEED)).to(device)
+    step = make_train_step(model, cfg, make_optimizer(model, cfg, HORIZON, mesh), mesh=mesh)
+    reset_counts()
+    step(mine)
+    out["rates_launches"] = read_counts()
+    params = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    del model, step
+
+    model = MaDe(cfg, torch.Generator().manual_seed(SEED)).to(device).eval()
+    data = DeviceResidentData(open_synthetic(spec["data"], cfg.data), device, mesh)
+    # the split tables' batch assembly (one reduce-scatter) at the training
+    # and the evaluation batch
+    for b in (TRAIN_B, 40):
+        idx = torch.arange(b, device=device)
+        data.batch(idx)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SYNC_REPS):
+            data.batch(idx)
+        torch.cuda.synchronize()
+        out[f"gather_ms_B{b}"] = (time.perf_counter() - t0) * 1e3 / SYNC_REPS
+    reset_counts()
+    res = evaluate(model, data, cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    out["eval_launches"] = read_counts()
+    out["eval"] = {k: res["retrieval"][k] for k in RANK_KEYS}
+    torch.save({"grads": {n: g.cpu() for n, g in grads.items()}, "params": params,
+                "ranks": torch.as_tensor(np.asarray(res["ranks"])),
+                "ious": torch.from_numpy(res["ious"]),
+                "sim": res["sim"].cpu() if rank == 0 else None},
+               os.path.join(spec["dir"], f"rank{rank}.pt"))
+    with open(os.path.join(spec["dir"], f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.shutdown()
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def run_ranks(argv_of, what: str, log_dir: str) -> list:
+    """Start DDP_RANKS processes (argv_of(rank)) and wait for all; each
+    one's output goes to a file, whose end is raised with a rank that
+    fails.  Returns each rank's stdout."""
+    procs, logs = [], []
+    for r in range(DDP_RANKS):
+        logs.append(open(os.path.join(log_dir, f"{what}.rank{r}.log"), "w+"))
+        procs.append(subprocess.Popen(argv_of(r), stdout=logs[-1], stderr=subprocess.STDOUT,
+                                      text=True))
+    try:
+        for p in procs:
+            p.wait(timeout=DDP_RANK_TIMEOUT)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = []
+    for r, (p, f) in enumerate(zip(procs, logs)):
+        f.seek(0)
+        outs.append(f.read())
+        f.close()
+        if p.returncode != 0:
+            raise AssertionError(f"{what} rank {r} exited {p.returncode}:\n{outs[-1][-4000:]}")
+    return outs
+
+
+def coordinator_args(rank: int, port: int) -> list:
+    return ["--coordinator", f"localhost:{port}", "--num-processes", str(DDP_RANKS),
+            "--process-id", str(rank)]
+
+
+def check_ddp(device: torch.device, card: str) -> None:
+    """Phase 23 (module docstring)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = ddp_config(rates=False)
+        runs = train_runs(device, cfg, TRAIN_B, share_gates=True)
+        gates = os.path.join(tmp, "gates.pt")
+        torch.save({n: [g.cpu() for g in calls] for n, calls in runs["gates"].items()}, gates)
+        model, step = train_setup(cfg, device)
+        one_ms = timed_steps(step, runs["batch"], DDP_TIMED_STEPS + 1)[1:]
+        del model, step
+        data = os.path.join(tmp, "data")
+        synthetic.generate(data, n_rows=EVAL_N, data_cfg=Config().data)
+        spec = os.path.join(tmp, "spec.json")
+        with open(spec, "w") as f:
+            json.dump({"coordinator": f"localhost:{free_port()}", "world": DDP_RANKS,
+                       "gates": gates, "data": data, "dir": tmp}, f)
+        t_ranks = time.perf_counter()
+        run_ranks(lambda r: [sys.executable, os.path.abspath(__file__), "--ddp-rank", str(r),
+                             spec], "ddp", tmp)
+        rank_s = time.perf_counter() - t_ranks
+        info = []
+        for r in range(DDP_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                info.append(json.load(f))
+        saved = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=True)
+                 for r in range(DDP_RANKS)]
+
+        # the held step: rank 0's loss and synchronized gradients in the kernel run's place
+        held = dict(runs, logs={**runs["logs"], "kernel": info[0]["logs"]},
+                    grads={**runs["grads"], "kernel": {n: g.to(device) for n, g in
+                                                       saved[0]["grads"].items()}},
+                    launches={**runs["launches"], "kernel": info[0]["launches"]})
+        loss, worst, worst_plain, n_grads = hold_step("ddp step", held, per_step(cfg))
+        one = runs["grads"]["kernel"]
+        vs_one = max((saved[0]["grads"][n].to(device) - g).abs().max().item()
+                     for n, g in one.items())
+        for r in range(1, DDP_RANKS):
+            if info[r]["launches"] != info[0]["launches"]:
+                raise AssertionError(f"ddp: rank launches differ: {info}")
+            for key in ("grads", "params"):
+                for n, t in saved[0][key].items():
+                    if not torch.equal(t, saved[r][key][n]):
+                        raise AssertionError(f"ddp: rank {r}'s {key} {n} differ from rank 0's")
+        for r in range(DDP_RANKS):
+            launched = info[r]["launches"]
+            phase("ddp", rank=r, backend=info[r]["backend"], rows=TRAIN_B // DDP_RANKS,
+                  fused_encoder_layer=launched["fused_encoder_layer"],
+                  fused_encoder_layer_bwd=launched["fused_encoder_layer_bwd"],
+                  xpool_sim_fwd=launched["xpool_sim_fwd"],
+                  xpool_sim_bwd=launched["xpool_sim_bwd"],
+                  xpool_sim_eval=info[r]["eval_launches"]["xpool_sim_eval"],
+                  gates_turned=info[r]["flips"],
+                  step_ms=",".join(f"{t:.2f}" for t in info[r]["step_ms"]),
+                  sync_ms=",".join(f"{t:.3f}" for t in info[r]["sync_ms"]),
+                  sync_mb=f"{info[r]['sync_bytes'] / 1e6:.3f}",
+                  split_gather_ms_B512=f"{info[r]['gather_ms_B512']:.2f}",
+                  split_gather_ms_B40=f"{info[r]['gather_ms_B40']:.2f}", card=json.dumps(card))
+            if info[r]["rates_launches"] != per_step(ddp_config(rates=True)):
+                raise AssertionError(f"ddp: rank {r} step at the rates launched "
+                                     f"{info[r]['rates_launches']}")
+            if not info[r]["eval_launches"]["xpool_sim_eval"] >= 1:
+                raise AssertionError(f"ddp: rank {r}'s evaluation never launched #4")
+        phase("ddp", dtype="float32", B=TRAIN_B, ranks=DDP_RANKS, loss=loss["kernel"],
+              one_process_loss=runs["logs"]["kernel"]["loss"], plain_loss=loss["plain"],
+              float64_loss=loss["exact"], params=n_grads, grad_max_abs_err=worst,
+              plain_f32_grad_err=worst_plain, grad_vs_one_process_kernel=vs_one,
+              gates_turned_plain=runs["flips"]["plain"],
+              gates_turned_float64=runs["flips"]["exact"],
+              ranks_bitwise_equal_grads_and_rate_step_weights=True,
+              one_process_step_ms=",".join(f"{t:.2f}" for t in one_ms),
+              rank_job_seconds=f"{rank_s:.2f}", card=json.dumps(card))
+
+        # the evaluation split over the ranks against one process's whole #4
+        ecfg = ddp_config(rates=True)
+        emodel = MaDe(ecfg, torch.Generator().manual_seed(SEED)).to(device).eval()
+        res = evaluate(emodel, DeviceResidentData(open_synthetic(data, ecfg.data), device),
+                       ecfg)
+        sim_err = (saved[0]["sim"].to(device) - res["sim"]).abs().max().item()
+        moved = saved[0]["ranks"].numpy() != np.asarray(res["ranks"])
+        ties = near_tie_rows(res["sim"], res["music_ids"], 2e-4)
+        if not sim_err <= 1e-4 or (moved & ~ties).any():
+            raise AssertionError(f"ddp evaluate: sim error {sim_err}, ranks moved off near "
+                                 f"ties {int((moved & ~ties).sum())}")
+        if not all(torch.equal(saved[0][k], saved[r][k]) for r in range(1, DDP_RANKS)
+                   for k in ("ranks", "ious")):
+            raise AssertionError("ddp evaluate: ranks differ between ranks")
+        phase("ddp-eval", rows=EVAL_N, ranks=DDP_RANKS, sim_max_abs_err=sim_err,
+              ranks_moved=int(moved.sum()), near_tie_rows=int(ties.sum()),
+              R1=info[0]["eval"]["R1"], one_process_R1=res["retrieval"]["R1"])
+        del emodel, res
+
+        check_nccl_world_of_one(device)
+        check_ddp_clis(tmp)
+    phase("ddp", seconds=f"{time.perf_counter() - t0:.2f}")
+
+
+def check_nccl_world_of_one(device: torch.device) -> None:
+    """The step at the configured rates in a world of one over NCCL, with
+    its mesh, against the same step without a group: loss, gradients and
+    weights bit for bit."""
+    cfg = ddp_config(rates=True)
+    batch = to_tensors(example_batch(np.random.RandomState(SEED), cfg, TRAIN_B), device)
+    results = {}
+    dist.initialize(f"localhost:{free_port()}", 1, 0, "cuda")
+    try:
+        backend = torch.distributed.get_backend()
+        for mesh in (make_mesh(), None):
+            model = MaDe(cfg, torch.Generator().manual_seed(SEED)).to(device)
+            step = make_train_step(model, cfg, make_optimizer(model, cfg, HORIZON, mesh),
+                                   mesh=mesh)
+            log = step(batch)
+            results[mesh is None] = (
+                log["loss"].clone(), {n: p.grad.clone() for n, p in model.named_parameters()
+                                      if p.grad is not None},
+                {n: p.detach().clone() for n, p in model.named_parameters()})
+            del model, step
+    finally:
+        dist.shutdown()
+    (l1, g1, p1), (l0, g0, p0) = results[False], results[True]
+    same = (torch.equal(l1, l0) and g1.keys() == g0.keys()
+            and all(torch.equal(g1[n], g0[n]) for n in g0)
+            and all(torch.equal(p1[n], p0[n]) for n in p0))
+    if backend != "nccl" or not same:
+        raise AssertionError(f"ddp world of one over {backend}: the step differs from the "
+                             "step without a group")
+    phase("ddp-nccl", world=1, backend=backend, dtype="float32", B=TRAIN_B,
+          loss=float(l1), bitwise_equal_to_no_group=True)
+
+
+def check_ddp_clis(tmp: str) -> None:
+    """`cli.train` on 2 ranks against one process (float32, dropout 0, one
+    epoch of EVAL_N generated rows), then `cli.evaluate` on 2 ranks against
+    one process on its best_r1 checkpoint."""
+    args = ["--synthetic", str(EVAL_N), "--train.epochs", "1", "--model.compute_dtype",
+            "float32", "--model.temporal_dropout", "0.0", "--model.xpool_dropout", "0.0",
+            "--model.detr_dropout", "0.0"]
+    multi, single = os.path.join(tmp, "cli2"), os.path.join(tmp, "cli1")
+    port = free_port()
+    t0 = time.perf_counter()
+    outs = run_ranks(lambda r: [sys.executable, "-m", "mgsv_tpu_torch.cli.train", *args,
+                                "--train.output_dir", multi, *coordinator_args(r, port)],
+                     "ddp-train-cli", tmp)
+    multi_s = time.perf_counter() - t0
+    digests = [json.loads(re.search(r"^MP_RESULT (.*)$", o, re.M).group(1)) for o in outs]
+    if [d.pop("process") for d in digests] != list(range(DDP_RANKS)) or any(
+            d != digests[0] for d in digests):
+        raise AssertionError(f"ddp train-cli: MP_RESULT lines differ: {digests}")
+    train_cli.main([*args, "--train.output_dir", single])
+    recs = []
+    for root in (multi, single):
+        with open(os.path.join(root, Config().train.name, "history.json")) as f:
+            recs.append(json.load(f)[0])
+    got, want = recs
+    if not (abs(got["train"]["loss"] - want["train"]["loss"])
+            <= DDP_LOSS_RTOL * abs(want["train"]["loss"])
+            and all(abs(got["eval"][k] - want["eval"][k]) <= DDP_RECALL_ATOL
+                    for k in ("R1", "R5", "R10"))
+            and abs(got["eval"]["mIoU"] - want["eval"]["mIoU"]) <= DDP_MIOU_ATOL):
+        raise AssertionError(f"ddp train-cli records differ: {got} vs {want}")
+    phase("ddp-train-cli", ranks=DDP_RANKS, rows=EVAL_N, dtype="float32", steps=got["train"]["steps"],
+          loss=got["train"]["loss"], one_process_loss=want["train"]["loss"],
+          R1=got["eval"]["R1"], one_process_R1=want["eval"]["R1"], mIoU=got["eval"]["mIoU"],
+          one_process_mIoU=want["eval"]["mIoU"], mp_result_equal=True,
+          clips_per_s=f"{got['train']['clips_per_sec']:.1f}",
+          one_process_clips_per_s=f"{want['train']['clips_per_sec']:.1f}",
+          seconds_with_launch=f"{multi_s:.2f}")
+
+    run_dir = os.path.join(multi, Config().train.name)
+    root = os.path.join(multi, "synthetic_data")
+    eargs = ["--ckpt", "best_r1", "--run-dir", run_dir, "--split", "val", "--data.val_csv",
+             os.path.join(root, "data.csv"), "--data.feature_root", root,
+             "--model.compute_dtype", "float32"]
+    port = free_port()
+    outs = run_ranks(lambda r: [sys.executable, "-m", "mgsv_tpu_torch.cli.evaluate", *eargs,
+                                *coordinator_args(r, port)], "ddp-evaluate-cli", tmp)
+    evals = [json.loads(re.search(r"^EVAL_RESULT (.*)$", o, re.M).group(1))["results"]
+             for o in outs]
+    alone = evaluate_cli.main(eargs)["best_r1"]
+    got = evals[0]["best_r1"]
+    if any(e != evals[0] for e in evals) or any(
+            abs(got[k] - alone[k]) > DDP_RECALL_ATOL for k in ("R1", "R5", "R10")) or not abs(
+            got["mIoU"] - alone["mIoU"]) <= DDP_MIOU_ATOL:
+        raise AssertionError(f"ddp evaluate-cli: {evals} vs one process {alone}")
+    phase("ddp-evaluate-cli", ranks=DDP_RANKS, rows=EVAL_N, R1=got["R1"],
+          one_process_R1=alone["R1"], mIoU=got["mIoU"], one_process_mIoU=alone["mIoU"],
+          equal_across_ranks=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one NVIDIA GPU",
               file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--ddp-rank"]:
+        return ddp_rank(sys.argv[3], int(sys.argv[2]))
     device = resolve_device("cuda")
     name, card = check_device()
     build_kernels()
@@ -2987,6 +3374,7 @@ def main() -> int:
     entries.append(check_flash(device))
     with tempfile.TemporaryDirectory() as tmp:
         extract_launches = check_extract(device, tmp)
+    check_ddp(device, card)
     launches["xpool_sim_eval"] = fit_launches["xpool_sim_eval"]      # per evaluation
     launches["flash_attention"] = extract_launches["flash_attention"]  # per extraction
     for kernel in ("fused_temporal_layer", "fused_temporal_layer_bwd"):  # per fused_temporal step

@@ -24,6 +24,13 @@ Trainer's policy (data/device_data.py::use_device_data): "on" makes the
 split resident on the device, "auto" (the default) does so on a CUDA device
 when its stores take under 6 GiB, "off" feeds it from the host.  Prints
 each tag's metrics and, last, one `EVAL_RESULT` line.
+
+`--coordinator host:port --num-processes N --process-id i` (or torchrun's
+environment) evaluates over N ranks, one process each, as the train CLI
+trains: each rank runs the eval step on its rows of every batch, the
+evaluation kernel's tracks are split over the ranks, every rank prints
+the same metrics and an `EVAL_RESULT` line with its process index, and
+rank 0 alone writes `--save-json` and `--export-torch`.
 """
 
 from __future__ import annotations
@@ -77,11 +84,17 @@ def main(argv=None):
                         help="write the loaded checkpoint as a reference-format .bin "
                              "at PATH and stop")
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--coordinator", type=str, default=None,
+                        help="data parallelism: rank 0's host:port")
+    parser.add_argument("--num-processes", type=int, default=None)
+    parser.add_argument("--process-id", type=int, default=None)
     known, rest = parser.parse_known_args(argv if argv is not None else sys.argv[1:])
     cfg = Config.from_overrides(parse_kv_overrides(rest))
 
+    from mgsv_tpu_torch.core import dist
     from mgsv_tpu_torch.core.checkpoint import load_weights
     from mgsv_tpu_torch.core.device import check_mesh_shape, resolve_device
+    from mgsv_tpu_torch.core.mesh import make_mesh
     from mgsv_tpu_torch.data.dataset import MgsvDataset
     from mgsv_tpu_torch.data.device_data import DeviceResidentData, use_device_data
     from mgsv_tpu_torch.eval.evaluator import evaluate
@@ -90,11 +103,19 @@ def main(argv=None):
     from mgsv_tpu_torch.models.made import MaDe
     from mgsv_tpu_torch.train.step import make_eval_step
 
-    check_mesh_shape(cfg.train.mesh_shape)
-    device = resolve_device(known.device)
+    joined = dist.initialize(known.coordinator, known.num_processes, known.process_id,
+                             known.device)
+    mesh = None
+    if dist.process_count() > 1:
+        mesh = make_mesh(cfg.train.mesh_shape)
+        if not dist.is_primary():
+            logging.getLogger().setLevel(logging.WARNING)
+    else:
+        check_mesh_shape(cfg.train.mesh_shape)
+    device = resolve_device(dist.rank_device(known.device))
     model = MaDe(cfg).to(device).eval()
     init_state = {k: v.clone() for k, v in model.state_dict().items()}
-    eval_step = make_eval_step(model, cfg)
+    eval_step = make_eval_step(model, cfg, mesh=mesh)
 
     if known.test_best:
         tags = ["best_r1", "best_iou", "best_r1iou05", "best_r1iou07"]
@@ -123,7 +144,8 @@ def main(argv=None):
             out = known.export_torch
             if len(tags) > 1:
                 out = f"{out}.{os.path.basename(str(tag))}"   # one file per tag
-            save_reference_bin(model, cfg, out)
+            if dist.is_primary():
+                save_reference_bin(model, cfg, out)
             logging.info("exported %s -> %s (reference torch format)", tag, out)
             all_results[tag] = {"exported": out}
             continue
@@ -132,15 +154,16 @@ def main(argv=None):
             data = MgsvDataset.open(csv, os.path.join(cfg.data.feature_root, "video_store"),
                                     os.path.join(cfg.data.feature_root, "music_store"),
                                     cfg.data.max_m_duration)
-            if use_device_data(cfg.train.device_data, device, data):
-                data = DeviceResidentData(data, device)
+            if use_device_data(cfg.train.device_data, device, data,
+                               1 if mesh is None else mesh.dp):
+                data = DeviceResidentData(data, device, mesh)
                 logging.info("device-resident dataset enabled on %s", data.device)
-        res = evaluate(model, data, cfg, eval_step=eval_step)
+        res = evaluate(model, data, cfg, eval_step=eval_step, mesh=mesh)
         summary = {**res["retrieval"], **res["localization"], **res["composite"]}
         summary.pop("cols", None)
         all_results[tag] = summary
         print(tag, json.dumps(summary, indent=2, default=float))
-        if known.save_json:
+        if known.save_json and dist.is_primary():
             loc_results = [
                 dict(video_id=v, music_id=m, m_duration=float(d), gt_moment=g.tolist(),
                      pred_st=float(p[0]), pred_ed=float(p[1]))
@@ -149,11 +172,13 @@ def main(argv=None):
                                          res["pred_spans"])]
             save_results_json(res["ret_results"], loc_results, res["ious"], known.save_json,
                               cfg.data.max_m_duration)
-    digest = {"process": 0,
+    digest = {"process": dist.process_index(),
               "results": {str(t): ({k: float(v) for k, v in r.items()}
                                    if "exported" not in r else r)
                           for t, r in all_results.items()}}
     print("EVAL_RESULT " + json.dumps(digest, default=float), flush=True)
+    if joined:
+        dist.shutdown()
     return all_results
 
 

@@ -24,12 +24,27 @@ def resolve_device(name: str | torch.device = "cuda") -> torch.device:
     return device
 
 
-def check_mesh_shape(mesh_shape) -> None:
-    """Raise for a `train.mesh_shape` other than (1, 1): the JAX package
-    builds its device mesh from it (train/loop.py, cli/evaluate.py), and
-    the port runs on one device until multi-GPU lands, so a larger mesh
-    must not train or evaluate on one device without a word."""
-    if tuple(mesh_shape) != (1, 1):
+def check_mesh_shape(mesh_shape, world: int = 1) -> None:
+    """Check a `train.mesh_shape` (dp, mp) against a run of `world`
+    processes, one rank each (core/mesh.py).  dp -1 and (1, 1) mean every
+    rank, as JAX's Trainer reads (1, 1) as every device; dp may also be the
+    world itself.  mp > 1 raises NotImplementedError: only JAX's 2-D
+    evaluation similarity uses the model axis, and it is not ported.  A dp
+    above 1 in a single process raises NotImplementedError too: JAX runs
+    such a mesh over several devices of one process, the port one process a
+    rank.  Any other dp raises ValueError."""
+    dp, mp = (int(v) for v in mesh_shape)
+    if mp not in (1, -1) or (mp == -1 and world > 1 and dp != world):
         raise NotImplementedError(
-            f"train.mesh_shape={tuple(mesh_shape)}: the port runs on one device; "
-            "multi-GPU is not ported yet (ROADMAP.md, queue 1: multi-GPU)")
+            f"train.mesh_shape={tuple(mesh_shape)}: a model axis above 1 serves JAX's 2-D "
+            "evaluation similarity, which is not ported yet (ROADMAP.md, queue 1: the 2-D "
+            "similarity)")
+    if dp in (-1, world) or (dp, mp) == (1, 1):
+        return
+    if world == 1:
+        raise NotImplementedError(
+            f"train.mesh_shape={tuple(mesh_shape)} in one process: the port runs one "
+            "process a rank; launch dp processes (cli.train --coordinator, or torchrun) "
+            "(ROADMAP.md, queue 1: multi-GPU, one process over several devices)")
+    raise ValueError(f"train.mesh_shape={tuple(mesh_shape)} in a run of {world} ranks: dp "
+                     f"must be -1 or {world}")

@@ -1,5 +1,5 @@
 """A full evaluation: forward every batch, corpus similarity, metrics;
-ported from mgsv_tpu/eval/evaluator.py (single device).
+ported from mgsv_tpu/eval/evaluator.py.
 
 One implementation serves the training loop and the evaluation CLI, as in
 the JAX package.  The per-batch outputs stay on the device until the one
@@ -14,6 +14,14 @@ similarity runs on the evaluation kernel
 (ops/cuda/xpool_sim.py::xpool_sim_eval) on a CUDA device and blocked in
 plain PyTorch on the CPU, unless `use_fused_sim` says otherwise; the
 ranking runs where the similarity lies.
+
+Over a data-parallel mesh (core/mesh.py), as JAX's evaluate over its dp
+mesh (mgsv_tpu/eval/evaluator.py:80-99): the batch is padded to a
+multiple of dp, each rank runs the eval step on its rows (the losses the
+global batch's), the per-row outputs are all-gathered to every rank, the
+evaluation kernel's tracks are split over the ranks
+(eval/similarity.py::xpool_sim_fused_sharded), and every rank computes the
+same metrics.
 """
 
 from __future__ import annotations
@@ -24,12 +32,13 @@ import numpy as np
 import torch
 
 from mgsv_tpu_torch.config import Config
+from mgsv_tpu_torch.core.mesh import Mesh, check_mesh, gather_rows
 from mgsv_tpu_torch.data.dataset import MgsvDataset
-from mgsv_tpu_torch.data.device_data import DeviceResidentData, gather_batch
+from mgsv_tpu_torch.data.device_data import DeviceResidentData
 from mgsv_tpu_torch.data.pipeline import prefetch_epoch
 from mgsv_tpu_torch.eval import metrics as M
 from mgsv_tpu_torch.eval.similarity import (dual_similarity, xpool_sim_fused,
-                                            xpool_similarity_blocked)
+                                            xpool_sim_fused_sharded, xpool_similarity_blocked)
 from mgsv_tpu_torch.models.made import MaDe
 from mgsv_tpu_torch.train.step import make_eval_step
 
@@ -52,13 +61,17 @@ def evaluate(
     the model's weights, on the model's device.  use_fused_sim None takes the
     evaluation kernel on a CUDA device and the blocked plain path on the
     CPU.  fused_decoder: the eval step's DETR decoder on the decoder-layer
-    kernel (when no eval_step is given)."""
-    if mesh is not None:
-        raise NotImplementedError("multi-device evaluation is not ported yet "
-                                  "(ROADMAP.md, queue 1: multi-GPU)")
+    kernel (when no eval_step is given).  mesh: the ranks of a data-parallel
+    run (module docstring); an eval_step given must take the same mesh, and
+    a resident dataset must be split over it."""
+    check_mesh(mesh)
     device = next(model.parameters()).device
     batch_size = batch_size or cfg.train.batch_size_val
-    eval_step = eval_step or make_eval_step(model, cfg, fused_decoder)
+    if mesh is not None:
+        batch_size = -(-batch_size // mesh.dp) * mesh.dp
+    eval_step = eval_step or make_eval_step(model, cfg, fused_decoder, mesh=mesh)
+    if isinstance(dataset, DeviceResidentData) and dataset.mesh != mesh:
+        raise ValueError(f"resident data split over {dataset.mesh}, evaluation over {mesh}")
     if use_fused_sim is None:
         use_fused_sim = device.type == "cuda"
 
@@ -66,6 +79,8 @@ def evaluate(
     ious, pred_spans, losses, weights = [], [], [], []
 
     def collect(out, valid_rows: int) -> None:
+        if mesh is not None:        # every rank's rows, on every rank
+            out = {k: v if v.dim() == 0 else gather_rows(v, mesh) for k, v in out.items()}
         video_embs.append(out["video_emb"])
         music_embs.append(out["music_emb"])
         seg_tokens.append(out["seg_tokens"])
@@ -85,13 +100,13 @@ def evaluate(
         order = np.concatenate([np.arange(n), np.full(pad, n - 1)])
         chunks = torch.from_numpy(order.reshape(-1, batch_size)).to(device)
         for i, idx in enumerate(chunks):
-            collect(eval_step(gather_batch(dataset.tree, idx)),
+            collect(eval_step(dataset.batch(idx)),
                     batch_size - pad if i == len(chunks) - 1 else batch_size)
         video_ids, music_ids = list(dataset.index.video_ids), list(dataset.index.music_ids)
     else:
         video_ids, music_ids = [], []
         for batch, meta in prefetch_epoch(dataset, batch_size, shuffle=False,
-                                          drop_last=False, device=device):
+                                          drop_last=False, device=device, mesh=mesh):
             collect(eval_step(batch), int(meta.valid.sum()))
             video_ids.extend(v for v, ok in zip(meta.video_ids, meta.valid) if ok)
             music_ids.extend(m for m, ok in zip(meta.music_ids, meta.valid) if ok)
@@ -100,7 +115,8 @@ def evaluate(
     n = len(video_ids)
     sim = corpus_similarity(model, torch.cat(video_embs)[:n], torch.cat(music_embs)[:n],
                             torch.cat(seg_tokens)[:n], torch.cat(seg_masks)[:n], cfg,
-                            block_size=sim_block_size, use_fused_kernel=use_fused_sim)
+                            block_size=sim_block_size, use_fused_kernel=use_fused_sim,
+                            mesh=mesh)
     ious = torch.cat(ious)[:n].cpu().numpy()
 
     ret_metrics, ranks, ret_results = M.recall_metrics(sim, music_ids)
@@ -130,6 +146,7 @@ def corpus_similarity(
     cfg: Config,
     block_size: int = 256,
     use_fused_kernel: bool = False,
+    mesh: Optional[Mesh] = None,
 ) -> torch.Tensor:
     """[N, N] similarity fusion per vmr_loss, train-MaDe.py:577-604, on the
     device of the inputs, as JAX's: the dual similarity without X-Pool or
@@ -142,7 +159,9 @@ def corpus_similarity(
     (`xpool_similarity_blocked`).  A loss that needs the music X-Pool where
     vmr_fusion builds none (XA-video) raises ValueError, where JAX's reads
     a parameter subtree that does not exist; "dual_single_oneloss" raises
-    too, as JAX's does."""
+    too, as JAX's does.  mesh: every rank holds the whole inputs and gets
+    the whole similarity; the evaluation kernel's tracks are split over the
+    ranks (`xpool_sim_fused_sharded`), the plain path runs whole on each."""
     lc, m = cfg.loss, cfg.model
     mask = seg_masks if m.fusion_mask else None
     block = min(block_size, len(seg_tokens))
@@ -155,6 +174,8 @@ def corpus_similarity(
         return model.xpool
 
     def pooled_sim():
+        if use_fused_kernel and mesh is not None:
+            return xpool_sim_fused_sharded(video_embs, seg_tokens, mask, xpool(), mesh)
         if use_fused_kernel:
             return xpool_sim_fused(video_embs, seg_tokens, mask, xpool())
         return xpool_similarity_blocked(xpool(), video_embs, seg_tokens, mask, block_size=block)

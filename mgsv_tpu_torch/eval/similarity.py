@@ -1,7 +1,12 @@
 """Retrieval similarities, ported from mgsv_tpu/eval/similarity.py,
 mgsv_tpu/ops/pallas/xpool_sim.py::xpool_sim_fused and
-mgsv_tpu/ops/losses.py::cosine_sim_matrix (single device; the sharded
-variants wait for the multi-GPU work, ROADMAP.md queue 1)."""
+mgsv_tpu/ops/losses.py::cosine_sim_matrix.
+
+`xpool_sim_fused_sharded` splits the evaluation kernel's tracks over the
+ranks of a data-parallel mesh (core/mesh.py), as JAX's shard_map of it
+(mgsv_tpu/eval/similarity.py:234-262).  The plain blocked sharded
+similarity, which only the engine's mesh path uses, and the 2-D (dp x mp)
+similarity are not ported and raise (ROADMAP.md queue 1)."""
 
 from __future__ import annotations
 
@@ -9,6 +14,7 @@ from typing import Optional
 
 import torch
 
+from mgsv_tpu_torch.core.mesh import Mesh, gather_rows
 from mgsv_tpu_torch.models.layers import l2_normalize
 from mgsv_tpu_torch.models.xpool import XPoolTransformer, sim_matrix_music_pooling
 from mgsv_tpu_torch.ops.cuda import xpool_sim as xps
@@ -84,3 +90,52 @@ def xpool_sim_fused(
     sims = xps.xpool_sim_eval(*xpool_eval_inputs(video_embs, seg_tokens, seg_mask, xpool))
     # [M, V] -> [V, M] in row-major order, as the rankings read it row by row
     return sims.T.contiguous()
+
+
+def xpool_sim_fused_sharded(
+    video_embs: torch.Tensor,              # [V, D], every rank's whole
+    seg_tokens: torch.Tensor,              # [M, S, D], every rank's whole
+    seg_mask: Optional[torch.Tensor],      # [M, S] or None
+    xpool: XPoolTransformer,
+    mesh: Mesh,
+) -> torch.Tensor:
+    """`xpool_sim_fused` with the tracks split over the mesh's ranks: the
+    track count is padded to a multiple of dp with tracks of one valid
+    zero snippet (a finite softmax), each rank runs the evaluation kernel
+    on its block of tracks against every video, and the [tracks, V] blocks
+    are all-gathered; the pad columns are dropped, so they never rank.
+    Returns [V, M] on every rank."""
+    m, s, d = seg_tokens.shape
+    if seg_mask is None:
+        seg_mask = torch.ones(m, s, device=seg_tokens.device)
+    pad = (-m) % mesh.dp
+    if pad:
+        seg_tokens = torch.cat([seg_tokens, seg_tokens.new_zeros(pad, s, d)])
+        pad_mask = seg_mask.new_zeros(pad, s)
+        pad_mask[:, 0] = 1
+        seg_mask = torch.cat([seg_mask, pad_mask])
+    per = (m + pad) // mesh.dp
+    own = slice(mesh.rank * per, (mesh.rank + 1) * per)
+    sims = xps.xpool_sim_eval(*xpool_eval_inputs(video_embs, seg_tokens[own], seg_mask[own],
+                                                 xpool))              # [per, V]
+    return gather_rows(sims.contiguous(), mesh)[:m].T.contiguous()
+
+
+def xpool_similarity_sharded(*args, **kwargs):
+    """JAX's plain blocked similarity with the index sharded over the
+    music axis (mgsv_tpu/eval/similarity.py:97-133), which only the
+    engine's mesh path uses: not ported."""
+    raise NotImplementedError("xpool_similarity_sharded serves the engine's mesh= path, "
+                              "which is not ported yet (ROADMAP.md, queue 1: the engine's "
+                              "mesh path)")
+
+
+def xpool_similarity_mesh(*args, **kwargs):
+    """JAX's 2-D (dp x mp) corpus similarity (xpool_similarity_sharded_2d,
+    xpool_similarity_mesh, mgsv_tpu/eval/similarity.py:136-228): not
+    ported."""
+    raise NotImplementedError("the 2-D (dp x mp) corpus similarity is not ported yet "
+                              "(ROADMAP.md, queue 1: the 2-D similarity)")
+
+
+xpool_similarity_sharded_2d = xpool_similarity_mesh

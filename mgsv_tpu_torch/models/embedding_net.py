@@ -18,14 +18,23 @@ normalizes with the running buffers.  The caller says which (`training`):
 the port's steps tell training from evaluation by the dropout generator
 they pass, never by `module.training`.  The module computes in float32
 outside any autocast, as JAX's, whose Dense layers take no dtype.
+
+Over a data-parallel mesh (core/mesh.py) a training call normalizes with
+the global batch's statistics, as JAX's, whose mean spans the dp axis: the
+moments are all-reduced (the mean, then the centred second moment, each a
+differentiable sum over the ranks), so every rank normalizes alike and
+keeps identical running buffers.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mgsv_tpu_torch.core.mesh import Mesh, all_reduce_sum
 from mgsv_tpu_torch.models.layers import widen, xavier_normal_
 
 HIDDEN = 1024
@@ -53,9 +62,23 @@ class PositionBatchNorm(nn.Module):
         self.running_mean.zero_()
         self.running_var.fill_(1.0)
 
-    def forward(self, x: torch.Tensor, training: bool) -> torch.Tensor:
-        return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
-                            training=training, momentum=self.momentum, eps=self.eps)
+    def forward(self, x: torch.Tensor, training: bool,
+                mesh: Optional[Mesh] = None) -> torch.Tensor:
+        if not training or mesh is None or mesh.dp == 1:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
+                                self.bias, training=training, momentum=self.momentum,
+                                eps=self.eps)
+        # the global batch's moments per position, over (rows of every rank, D)
+        n = x.shape[0] * x.shape[2] * mesh.dp
+        mean = all_reduce_sum(x.sum(dim=(0, 2)), mesh) / n
+        centred = x - mean[None, :, None]
+        var = all_reduce_sum((centred * centred).sum(dim=(0, 2)), mesh) / n
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var.detach() * (n / (n - 1)), alpha=m)
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        return centred * scale[None, :, None] + self.bias[None, :, None]
 
 
 class EmbeddingNet(nn.Module):
@@ -80,14 +103,16 @@ class EmbeddingNet(nn.Module):
         for i in (1, 4):
             self.net[i].reset_parameters()
 
-    def forward(self, x: torch.Tensor, training: bool = False) -> torch.Tensor:
-        """training: normalize with the batch's statistics and update the
-        running buffers; else normalize with the buffers."""
+    def forward(self, x: torch.Tensor, training: bool = False,
+                mesh: Optional[Mesh] = None) -> torch.Tensor:
+        """training: normalize with the batch's statistics (the global
+        batch's over `mesh`) and update the running buffers; else normalize
+        with the buffers."""
         if x.dim() != 3 or x.shape[1] != self.length:
             raise ValueError(f"EmbeddingNet built for sequences of {self.length}, given "
                              f"{tuple(x.shape)}")
         net = self.net
         with torch.autocast(x.device.type, enabled=False):
-            h = torch.relu(net[1](net[0](widen(x)), training))
-            h = torch.relu(net[4](net[3](h), training))
+            h = torch.relu(net[1](net[0](widen(x)), training, mesh))
+            h = torch.relu(net[4](net[3](h), training, mesh))
             return net[6](h)

@@ -26,6 +26,16 @@ tower's embedding.  Those modules have no reference names known, so they
 take the port's own (`video_cls_token`, `audio_cls_token`,
 `video_embedding_net`, `audio_embedding_net`), and a reference `.bin` does
 not carry them (interop/from_jax.py).
+
+Over a data-parallel mesh (core/mesh.py, one process a rank) the forward
+takes this rank's rows of the global batch, as each device of JAX's dp mesh
+does.  The towers, the fusion, the DETR and the heads are per row; the
+X-Pools pair this rank's rows with every rank's other side (the snippet
+tokens, mask and music embeddings arrive through a differentiable
+all-gather), so the [V, M] similarities hold this rank's V rows against
+the global batch's M tracks, as JAX's shard_map of kernel #3 does
+(mgsv_tpu/models/xpool.py:202-225); the EmbeddingNets' statistics and the
+X-Pool moment query's mean over the videos span the global batch.
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ import torch
 from torch import nn
 
 from mgsv_tpu_torch.config import Config
+from mgsv_tpu_torch.core.mesh import Mesh, all_reduce_sum, gather_rows, local_rows
 from mgsv_tpu_torch.models import layers as L
 from mgsv_tpu_torch.models.cross import CrossTransformer
 from mgsv_tpu_torch.models.detr import DetrTransformer
@@ -49,14 +60,15 @@ def tower(proj: nn.Linear, temporal: Optional[TemporalTransformer],
           pe: torch.Tensor, feats: torch.Tensor, mask: torch.Tensor,
           act_after_proj: bool = False, generator: Optional[torch.Generator] = None,
           plain_temporal: bool = False, cls_token: Optional[torch.Tensor] = None,
-          embedding_net: Optional[EmbeddingNet] = None
+          embedding_net: Optional[EmbeddingNet] = None, mesh: Optional[Mesh] = None
           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Frame/snippet tower (the JAX `Tower`): mask, project, with
     `cls_token` [1, 1, D] prepend it (a valid mask column), then the
     temporal transformer over the sinusoidal table (dropout only with a
     generator; its plain layers with `plain_temporal`, as a JAX `Tower`
     without `fused`) or the EmbeddingNet (batch statistics only with a
-    generator), mask, and L2 of the cls row or of the masked mean.
+    generator, the global batch's over `mesh`), mask, and L2 of the cls row
+    or of the masked mean.
 
     feats [B, L, D_in], mask [B, L] -> (tokens [B, L, D], emb [B, D], mask),
     the tokens and mask without the cls row."""
@@ -72,7 +84,7 @@ def tower(proj: nn.Linear, temporal: Optional[TemporalTransformer],
         x = run(x + pe[None, : x.shape[1]], mask, generator)
         x = x * mask[..., None]
     elif embedding_net is not None:
-        x = embedding_net(x, training=generator is not None) * mask[..., None]
+        x = embedding_net(x, training=generator is not None, mesh=mesh) * mask[..., None]
     if cls_token is not None:
         return x[:, 1:], L.l2_normalize(x[:, 0]), mask[:, 1:]
     return x, L.l2_normalize(L.masked_mean(x, mask)), mask
@@ -223,24 +235,26 @@ class MaDe(nn.Module):
                        None)
 
     def video_tower(self, feats: torch.Tensor, mask: torch.Tensor,
-                    generator: Optional[torch.Generator] = None, plain_temporal: bool = False):
+                    generator: Optional[torch.Generator] = None, plain_temporal: bool = False,
+                    mesh: Optional[Mesh] = None):
         return tower(self.vit_proj, self.temporal("video"), self.video_pe, feats,
                      mask, self.cfg.model.with_act_after_proj, generator, plain_temporal,
                      getattr(self, "video_cls_token", None),
-                     getattr(self, "video_embedding_net", None))
+                     getattr(self, "video_embedding_net", None), mesh)
 
     def music_tower(self, feats: torch.Tensor, mask: torch.Tensor,
-                    generator: Optional[torch.Generator] = None, plain_temporal: bool = False):
+                    generator: Optional[torch.Generator] = None, plain_temporal: bool = False,
+                    mesh: Optional[Mesh] = None):
         return tower(self.ast_proj, self.temporal("music"), self.audio_pe, feats,
                      mask, self.cfg.model.with_act_after_proj, generator, plain_temporal,
                      getattr(self, "audio_cls_token", None),
-                     getattr(self, "audio_embedding_net", None))
+                     getattr(self, "audio_embedding_net", None), mesh)
 
     def forward(self, frame_feats: torch.Tensor, frame_mask: torch.Tensor,
                 segment_feats: torch.Tensor, segment_mask: torch.Tensor,
                 v_duration: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
-                fused_decoder: bool = False) -> Dict[str, Any]:
+                fused_decoder: bool = False, mesh: Optional[Mesh] = None) -> Dict[str, Any]:
         """The training forward (JAX made.py:112-311).
 
         frame_feats [B, F, vit_dim], segment_feats [B, S, ast_dim], masks
@@ -260,7 +274,13 @@ class MaDe(nn.Module):
         fused_decoder: the DETR decoder's layers on the decoder-layer kernel
         (float32 whatever the compute dtype; post-norm only).  That layer
         has no dropout, so a training call (a generator) with detr_dropout
-        > 0 raises rather than train another model."""
+        > 0 raises rather than train another model.
+
+        mesh: the batch is this rank's rows of the global batch (module
+        docstring); the X-Pool outputs then hold this rank's videos against
+        every track of the global batch (single_sim [V/dp, M], music_pooled
+        [M, V/dp, D], video_pooled [V/dp, M, D]) and every other output is
+        this rank's rows."""
         m = self.cfg.model
         d = m.dim_input
         if fused_decoder and generator is not None and m.detr_dropout > 0.0:
@@ -269,27 +289,33 @@ class MaDe(nn.Module):
                 f"{m.detr_dropout} in a training call: set detr_dropout=0.0 or run "
                 "the plain decoder")
         frame_tokens, video_emb, frame_mask = self.video_tower(frame_feats, frame_mask,
-                                                               generator)
+                                                               generator, mesh=mesh)
         seg_tokens, music_emb, segment_mask = self.music_tower(segment_feats, segment_mask,
-                                                               generator)
+                                                               generator, mesh=mesh)
         out: Dict[str, Any] = {
             "frame_tokens": frame_tokens, "video_emb": video_emb,
             "seg_tokens": seg_tokens, "music_emb": music_emb,
             "frame_mask": frame_mask, "segment_mask": segment_mask,
             "logit_scale": self.logit_scale,
         }
-        seg_mask = segment_mask if m.fusion_mask else None
+        # the X-Pools' other side: every track of the global batch
+        all_segs, all_seg_mask = seg_tokens, segment_mask
+        if mesh is not None and self.xpool is not None:
+            all_segs = gather_rows(seg_tokens, mesh)
+            all_seg_mask = gather_rows(segment_mask, mesh)
+        seg_mask = all_seg_mask if m.fusion_mask else None
         if self.use_fused_sim:
             rate = m.xpool_dropout if generator is not None else 0.0
             seed = L.draw_seed(generator) if rate > 0.0 else 0
-            mask = seg_mask if seg_mask is not None else torch.ones_like(segment_mask)
-            out["single_sim"] = self.xpool.pooled_similarity(video_emb, seg_tokens, mask,
+            mask = seg_mask if seg_mask is not None else torch.ones_like(all_seg_mask)
+            out["single_sim"] = self.xpool.pooled_similarity(video_emb, all_segs, mask,
                                                              rate, seed)
         elif self.xpool is not None:
-            out["music_pooled"] = self.xpool(video_emb, seg_tokens, seg_mask, generator)
+            out["music_pooled"] = self.xpool(video_emb, all_segs, seg_mask, generator)
         if hasattr(self, "music_guided_to_video_pooling_cross_transformer"):
+            all_music = music_emb if mesh is None else gather_rows(music_emb, mesh)
             out["video_pooled"] = self.music_guided_to_video_pooling_cross_transformer(
-                music_emb, frame_tokens, frame_mask if m.fusion_mask else None, generator)
+                all_music, frame_tokens, frame_mask if m.fusion_mask else None, generator)
 
         if m.mml_fusion == "CA":
             # snippets query frames; the fused sequence is the snippets'
@@ -309,7 +335,14 @@ class MaDe(nn.Module):
         elif m.moment_query_type == "music":
             target = music_emb[:, None, :].expand(-1, nq, -1)
         elif m.moment_query_type == "xpool":
-            target = out["music_pooled"].mean(dim=1)[:, None, :].expand(-1, nq, -1)
+            # each track's pooled features averaged over every video
+            if mesh is None or mesh.dp == 1:
+                pooled_mean = out["music_pooled"].mean(dim=1)
+            else:
+                total = all_reduce_sum(out["music_pooled"].sum(dim=1), mesh)
+                pooled_mean = local_rows(total / (out["music_pooled"].shape[1] * mesh.dp),
+                                         mesh)
+            target = pooled_mean[:, None, :].expand(-1, nq, -1)
         else:                                   # "zero" / "random": zeros
             target = None
         with torch.autocast(fused.device.type, dtype=self.compute_dtype or torch.bfloat16,

@@ -4,6 +4,11 @@ Retrieval: symmetric CLIP / InfoNCE losses over in-batch similarity
 matrices.  Detection: the DETR set criterion (span L1 + 1-D gIoU +
 eos-weighted class CE + contrastive-align NCE) with the assignment from
 ops/matcher.py, over the final and the auxiliary decoder layers.
+
+Over a data-parallel mesh (core/mesh.py) the set criterion is the global
+batch's: each rank's losses are its rows' share of the global means, with
+the matched-pair and matched-query counts summed over the ranks in one
+all-reduce, so the ranks' terms add up to the one-process loss.
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from mgsv_tpu_torch.config import LossConfig
+from mgsv_tpu_torch.core.mesh import Mesh, all_reduce_sum
 from mgsv_tpu_torch.ops.matcher import MatchResult, hungarian_match
 from mgsv_tpu_torch.ops.spans import elementwise_temporal_giou, span_cw_to_se
 
@@ -56,14 +62,36 @@ def info_nce_loss(sims: torch.Tensor, logit_scale: torch.Tensor,
     return (v2a + a2v) / 2.0
 
 
+def _query_matched(pred_logits: torch.Tensor, match: MatchResult) -> torch.Tensor:
+    """[B, Q] bool: the queries the assignment gives a valid target."""
+    query_matched = torch.zeros(pred_logits.shape[:2], device=pred_logits.device)
+    return query_matched.scatter_reduce(
+        1, match.tgt_to_pred, match.pair_valid.to(query_matched.dtype), reduce="amax") > 0
+
+
+def _layer_counts(pred_logits: torch.Tensor, match: MatchResult, cfg: LossConfig
+                  ) -> torch.Tensor:
+    """[3]: this rank's matched pairs, matched queries and matched queries
+    predicted foreground, the normalizers of `_layer_criterion`."""
+    qm = _query_matched(pred_logits, match).to(pred_logits.dtype)
+    pred_fg = (pred_logits.argmax(dim=-1) == cfg.foreground_label).to(pred_logits.dtype)
+    return torch.stack([match.pair_valid.to(pred_logits.dtype).sum(), qm.sum(),
+                        (pred_fg * qm).sum()]).detach()
+
+
 def _layer_criterion(pred_logits, pred_spans, proj_queries, proj_vid_mem,
-                     tgt_spans, match: MatchResult, cfg: LossConfig) -> Dict[str, torch.Tensor]:
+                     tgt_spans, match: MatchResult, cfg: LossConfig,
+                     counts: Optional[torch.Tensor] = None, dp: int = 1
+                     ) -> Dict[str, torch.Tensor]:
     """One decoder layer: pred_logits / pred_spans [B, Q, 2], proj_queries
     [B, Q, Dc] | None, proj_vid_mem [B, F, Dc] | None, tgt_spans [B, T, 2],
-    and the layer's assignment."""
+    and the layer's assignment.  counts: the global batch's `_layer_counts`
+    over dp ranks, which makes each loss this rank's share of the global
+    mean; None: this batch alone."""
     w = match.pair_valid.to(pred_spans.dtype)                       # [B, T]
-    n_pairs = torch.clamp(w.sum(), min=1.0)
+    n_pairs = torch.clamp(w.sum() if counts is None else counts[0], min=1.0)
     losses: Dict[str, torch.Tensor] = {}
+    mean = (lambda t: t.mean()) if dp == 1 else (lambda t: t.sum() / (t.numel() * dp))
 
     idx = match.tgt_to_pred
     matched = torch.gather(pred_spans, 1, idx[..., None].expand(-1, -1, 2))   # [B, T, 2]
@@ -73,18 +101,19 @@ def _layer_criterion(pred_logits, pred_spans, proj_queries, proj_vid_mem,
     losses["loss_giou"] = ((1.0 - giou) * w).sum() / n_pairs
 
     # per-query CE, eos_coef-weighted background, plain mean over B * Q
-    query_matched = torch.zeros(pred_logits.shape[:2], device=pred_logits.device)
-    query_matched = query_matched.scatter_reduce(
-        1, idx, match.pair_valid.to(query_matched.dtype), reduce="amax") > 0
+    query_matched = _query_matched(pred_logits, match)
     target_classes = torch.where(query_matched, cfg.foreground_label, cfg.background_label)
     logp = F.log_softmax(pred_logits, dim=-1)
     nll = -torch.gather(logp, -1, target_classes[..., None])[..., 0]
     class_weight = torch.where(query_matched, 1.0, cfg.eos_coef)    # eos_coef on background
-    losses["loss_label"] = (nll * class_weight).mean()
+    losses["loss_label"] = mean(nll * class_weight)
 
     qm = query_matched.to(pred_logits.dtype)
-    pred_fg = (pred_logits.argmax(dim=-1) == cfg.foreground_label).to(pred_logits.dtype)
-    acc = (pred_fg * qm).sum() / torch.clamp(qm.sum(), min=1.0) * 100.0
+    if counts is None:
+        pred_fg = (pred_logits.argmax(dim=-1) == cfg.foreground_label).to(pred_logits.dtype)
+        acc = (pred_fg * qm).sum() / torch.clamp(qm.sum(), min=1.0) * 100.0
+    else:
+        acc = counts[2] / torch.clamp(counts[1], min=1.0) * 100.0
     losses["class_error"] = (100.0 - acc).detach()
 
     if cfg.contrastive_align_loss and proj_queries is not None and proj_vid_mem is not None:
@@ -93,30 +122,37 @@ def _layer_criterion(pred_logits, pred_spans, proj_queries, proj_vid_mem,
         pos_term = (logits * qm).sum(dim=1)
         num_pos = torch.clamp(qm.sum(dim=1), min=1.0)
         neg_term = torch.logsumexp(logits, dim=1)
-        losses["loss_contrastive_align"] = (-pos_term / num_pos + neg_term).mean()
+        losses["loss_contrastive_align"] = mean(-pos_term / num_pos + neg_term)
     return losses
 
 
 def set_criterion(pred_logits_layers: torch.Tensor, pred_spans_layers: torch.Tensor,
                   proj_queries_layers: Optional[torch.Tensor],
                   proj_vid_mem: Optional[torch.Tensor], tgt_spans: torch.Tensor,
-                  cfg: LossConfig):
+                  cfg: LossConfig, mesh: Optional[Mesh] = None):
     """SetCriterion over every decoder layer ([L, B, Q, *], final last),
     matching re-run per layer (the layers' assignments solved as one batch:
     each is independent of the others).  Returns (total, log) with the
     final layer's losses and, with aux_loss, `{name}_{i}` for the earlier
-    layers."""
+    layers.  mesh: the rows are this rank's, and each loss is their share
+    of the global batch's (module docstring)."""
     tgt_mask = tgt_spans[..., 1] != 0
     num_layers, b = pred_logits_layers.shape[:2]
     layers_first = lambda t: t.reshape(num_layers * b, *t.shape[2:])
     tiled = lambda t: t.repeat(num_layers, *[1] * (t.dim() - 1))
     match = hungarian_match(layers_first(pred_logits_layers), layers_first(pred_spans_layers),
                             tiled(tgt_spans), tiled(tgt_mask), cfg)
+    matches = [MatchResult(*(t[i * b:(i + 1) * b] for t in match)) for i in range(num_layers)]
+    counts = [None] * num_layers
+    if mesh is not None:
+        counts = all_reduce_sum(torch.stack([
+            _layer_counts(pred_logits_layers[i], matches[i], cfg)
+            for i in range(num_layers)]), mesh).unbind()
     per_layer = [
         _layer_criterion(pred_logits_layers[i], pred_spans_layers[i],
                          None if proj_queries_layers is None else proj_queries_layers[i],
-                         proj_vid_mem, tgt_spans,
-                         MatchResult(*(t[i * b:(i + 1) * b] for t in match)), cfg)
+                         proj_vid_mem, tgt_spans, matches[i], cfg, counts[i],
+                         1 if mesh is None else mesh.dp)
         for i in range(num_layers)]
     layer_losses = {name: torch.stack([d[name] for d in per_layer]) for name in per_layer[0]}
 

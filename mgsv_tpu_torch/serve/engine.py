@@ -1,6 +1,6 @@
 """Serving: music index + retrieval/localization query engine, ported from
 mgsv_tpu/serve/engine.py (single device; the sharded-index `mesh=` path is
-still to port, ROADMAP.md).
+still to port and raises, ROADMAP.md queue 1: the engine's mesh path).
 
 A query runs the video tower, the dual + pooled X-Pool similarity against
 the whole index, top-k, and DETR localization of every (query, candidate)
@@ -14,7 +14,11 @@ runs them either way).  The engine serves what JAX's serves: the
 video-guided music X-Pool, concat fusion, the video moment query and the
 DETR heads; a config without one of them raises ValueError (JAX's engine
 fails on a missing X-Pool or head with a KeyError, and would run concat
-fusion and the video query where the model was trained otherwise).  Either
+fusion and the video query where the model was trained otherwise).  It
+ranks by the dual similarity plus the pooled one, which is the evaluation's
+ranking under vmr_loss dual_single_loss_fuse and dual_single_sim_fuse
+only, so every other vmr_loss raises ValueError too (JAX's engine serves
+them with that one ranking all the same).  Either
 aggregator but the EmbeddingNet, with or without the cls token, is served:
 the index keeps the music tokens without the cls row, and a query's video
 duration comes from the raw frame mask, as JAX's.  An agg_module="mlp"
@@ -100,6 +104,11 @@ def build_music_index(model: MaDe, music_ids: Sequence[str],
                       seg_masks=np.concatenate(masks_all))
 
 
+# the vmr_loss whose evaluation ranking (eval/evaluator.py::corpus_similarity)
+# is the engine's: the pooled X-Pool similarity plus the dual one
+SERVED_LOSSES = ("dual_single_loss_fuse", "dual_single_sim_fuse")
+
+
 def _bucket(n: int) -> int:
     """Next power of two: every batch size maps to one of log2(max_b)
     launch shapes."""
@@ -115,19 +124,28 @@ class RetrievalEngine:
     def __init__(self, model: MaDe, cfg: Config, index: MusicIndex,
                  sim_block_size: int = 256,
                  use_fused_kernels: Optional[bool] = None,
-                 index_dtype: str = "float32"):
+                 index_dtype: str = "float32", mesh=None):
         # index_dtype "bfloat16" halves the device-resident token store;
         # compute promotes it back to float32, so only stored values round.
         m = cfg.model
+        if mesh is not None:
+            raise NotImplementedError(
+                "the engine's mesh= path (the index sharded over the music axis, "
+                "mgsv_tpu/serve/engine.py:154-182) is not ported yet (ROADMAP.md, queue 1: "
+                "the engine's mesh path)")
         check_aggregator(cfg)
         unserved = {"vmr_fusion": (m.vmr_fusion, model.xpool is not None),
+                    "vmr_loss": (cfg.loss.vmr_loss, cfg.loss.vmr_loss in SERVED_LOSSES),
                     "mml_fusion": (m.mml_fusion, m.mml_fusion == "concat"),
                     "moment_query_type": (m.moment_query_type, m.moment_query_type == "video"),
                     "mml_localization": (m.mml_localization, m.mml_localization == "detr")}
         bad = [f"{k}={v!r}" for k, (v, ok) in unserved.items() if not ok]
         if bad:
             raise ValueError(f"RetrievalEngine serves the video-guided music X-Pool, concat "
-                             f"fusion, the video moment query and the DETR heads; not "
+                             f"fusion, the video moment query, the DETR heads and the "
+                             f"vmr_loss {' or '.join(SERVED_LOSSES)}, whose evaluation ranks "
+                             f"by the dual plus the pooled similarity (not 'dual', 'single', "
+                             f"'dual_single_feature_fuse' or 'dual_single_oneloss'); not "
                              f"{', '.join(bad)}")
         self.model = model.eval()
         self.cfg = cfg

@@ -1,6 +1,5 @@
 """The training loop: epochs, evaluation, best-metric checkpoints, early
-stop and step-granular resume; ported from mgsv_tpu/train/loop.py (single
-process, one device).
+stop and step-granular resume; ported from mgsv_tpu/train/loop.py.
 
 One Trainer replaces the reference's duplicated train-MaDe.py /
 test-MaDe.py loops.  A step launches its work and returns: the loss is read
@@ -10,6 +9,16 @@ micro-batch: with train.gradient_accumulation_steps = k the optimizer
 updates every k-th.  train.device_data decides, as in JAX, whether the
 datasets are made resident on the device (data/device_data.py) or fed by
 the host pipeline.
+
+Over a data-parallel mesh (core/mesh.py; one is made from
+train.mesh_shape when the process is one rank of a torch.distributed group)
+every rank trains on its rows of each global batch, takes the same update
+and keeps the same weights (train/step.py), and evaluates its rows into
+metrics every rank computes alike (eval/evaluator.py).  Only rank 0 writes
+checkpoints, TensorBoard and history.json; every rank takes the snapshots
+(a collective with gradient accumulation) and loads a resume point.  The
+epoch's per-row aggregates are gathered to every rank (core/dist.py::
+to_host), and the ranks meet at a barrier at the end of `fit`.
 """
 
 from __future__ import annotations
@@ -26,8 +35,10 @@ import numpy as np
 import torch
 
 from mgsv_tpu_torch.config import Config
+from mgsv_tpu_torch.core import dist
 from mgsv_tpu_torch.core.checkpoint import BestMetricTracker, CheckpointManager
 from mgsv_tpu_torch.core.device import check_mesh_shape, resolve_device
+from mgsv_tpu_torch.core.mesh import check_mesh, make_mesh
 from mgsv_tpu_torch.core.profiling import StepProfiler
 from mgsv_tpu_torch.data.dataset import MgsvDataset
 from mgsv_tpu_torch.data.device_data import DeviceResidentData, use_device_data
@@ -80,20 +91,27 @@ class Trainer:
         train.device_data "on", or "auto" on a CUDA device with stores
         under the budget, the training data is made resident on the device,
         and the validation data too, sharing the copy when it is the same
-        dataset."""
-        if mesh is not None:
-            raise NotImplementedError("multi-device training is not ported yet "
-                                      "(ROADMAP.md, queue 1: multi-GPU)")
-        check_mesh_shape(cfg.train.mesh_shape)
+        dataset.  mesh: a core.mesh.Mesh; None makes one from
+        train.mesh_shape in a process group of several ranks, and runs one
+        process alone otherwise.  Over a mesh the device is this rank's
+        (core/dist.py::rank_device)."""
+        check_mesh(mesh)
+        if mesh is None and dist.process_count() > 1:
+            mesh = make_mesh(cfg.train.mesh_shape)
+        check_mesh_shape(cfg.train.mesh_shape, 1 if mesh is None else mesh.dp)
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.primary = mesh is None or mesh.rank == 0
+        self.device = resolve_device(dist.rank_device(device))
+        dp = 1 if mesh is None else mesh.dp
         if train_data is not None and use_device_data(cfg.train.device_data, self.device,
-                                                      train_data):
-            resident = DeviceResidentData(train_data, self.device)
-            logger.info("device-resident dataset enabled on %s", resident.device)
+                                                      train_data, dp):
+            resident = DeviceResidentData(train_data, self.device, mesh)
+            logger.info("device-resident dataset enabled on %s%s", resident.device,
+                        f" (tables split over {dp} ranks)" if mesh is not None else "")
             if val_data is not None:
                 val_data = (resident if val_data is train_data
-                            else DeviceResidentData(val_data, self.device))
+                            else DeviceResidentData(val_data, self.device, mesh))
             train_data = resident
         self.train_data = train_data
         self.val_data = val_data
@@ -119,9 +137,9 @@ class Trainer:
         example batch is needed)."""
         cfg = self.cfg
         self.model = MaDe(cfg, torch.Generator().manual_seed(cfg.train.seed)).to(self.device)
-        self.optimizer = make_optimizer(self.model, cfg, self.total_steps)
-        self.train_step = make_train_step(self.model, cfg, self.optimizer)
-        self.eval_step = make_eval_step(self.model, cfg)
+        self.optimizer = make_optimizer(self.model, cfg, self.total_steps, self.mesh)
+        self.train_step = make_train_step(self.model, cfg, self.optimizer, mesh=self.mesh)
+        self.eval_step = make_eval_step(self.model, cfg, mesh=self.mesh)
         n_params = sum(p.numel() for p in self.model.parameters())
         logger.info("initialized %0.3fM trainable-head params on %s", n_params / 1e6,
                     self.device)
@@ -133,8 +151,15 @@ class Trainer:
         """Micro-batches applied so far (the JAX state's `step`)."""
         return self.optimizer.micro_step
 
+    def _save(self, tag: str, state: Dict[str, Any]) -> None:
+        """Write a checkpoint: rank 0 alone."""
+        if self.primary:
+            self.ckpt.save(tag, state)
+
     def _snapshot(self, epoch: int, with_opt: bool = True, **extra) -> Dict[str, Any]:
-        """The state as CPU copies: {params, [opt_state,] step, epoch, ...}."""
+        """The state as CPU copies: {params, [opt_state,] step, epoch, ...};
+        with the optimizer state a collective over a mesh (every rank takes
+        it at the same point)."""
         state: Dict[str, Any] = {"params": _cpu_copy(self.model.state_dict())}
         if with_opt:
             state["opt_state"] = {k: _cpu_copy(v) if isinstance(v, dict) else v
@@ -155,7 +180,7 @@ class Trainer:
                          "time)", epoch, self._saved_in_epoch)
             return
         if self._epoch_start_state:
-            self.ckpt.save("last", self._epoch_start_state)
+            self._save("last", self._epoch_start_state)
             logger.error("non-finite loss in epoch %d: emergency 'last' checkpoint written "
                          "from the epoch-start state (step %d)", epoch,
                          self._epoch_start_state["step"])
@@ -173,12 +198,14 @@ class Trainer:
                 f"non-finite loss at epoch {epoch} step {steps - len(vals) + bad + 1}: "
                 f"{vals[bad]} (resumable 'last' checkpoint on disk; nothing poisoned "
                 "was saved)")
-        self.ckpt.save("last", self._snapshot(epoch, step_in_epoch=steps))
+        self._save("last", self._snapshot(epoch, step_in_epoch=steps))
         self._saved_in_epoch = steps
 
     def _tb_writer(self):
         """A tensorboardX writer into the run directory, when the package is
-        installed; None otherwise."""
+        installed, on rank 0; None otherwise."""
+        if self._tb is None and not self.primary:
+            self._tb = False
         if self._tb is None:
             try:
                 from tensorboardX import SummaryWriter
@@ -218,7 +245,7 @@ class Trainer:
         else:
             stream = prefetch_epoch(self.train_data, batch_size, shuffle=True,
                                     device=self.device, seed=cfg.train.seed, epoch=epoch,
-                                    start_batch=start_step)
+                                    start_batch=start_step, mesh=self.mesh)
         with contextlib.closing(stream) as batches:
             for batch, _meta in batches:
                 profiler.step(steps)
@@ -267,7 +294,7 @@ class Trainer:
             loss = float(step_losses.mean())
             ret = float(torch.stack(ret_losses).cpu().numpy().astype(np.float64).mean())
             loc = float(torch.stack(loc_losses).cpu().numpy().astype(np.float64).mean())
-            miou = float(np.mean(torch.cat(ious).cpu().numpy()))
+            miou = float(np.mean(dist.to_host(torch.cat(ious))))
         else:
             # eval-only replay: restore found the epoch trained but unrecorded
             loss = ret = loc = miou = float("nan")
@@ -286,7 +313,8 @@ class Trainer:
     def eval_epoch(self, epoch: int) -> Dict[str, Any]:
         if self.val_data is None or self.model is None:
             raise ValueError("eval_epoch needs val_data and an initialized model")
-        res = evaluate(self.model, self.val_data, self.cfg, eval_step=self.eval_step)
+        res = evaluate(self.model, self.val_data, self.cfg, eval_step=self.eval_step,
+                       mesh=self.mesh)
         r, l, c = res["retrieval"], res["localization"], res["composite"]
         logger.info(
             "eval %d >>> R@1 %.2f R@5 %.2f R@10 %.2f MdR %.1f MRR %.4f | "
@@ -358,8 +386,10 @@ class Trainer:
 
     # -------------------------------------------------------------------- fit
     def _write_history(self, history) -> None:
-        """history.json through tmp + rename: a kill mid-write leaves the
-        previous file whole."""
+        """history.json through tmp + rename, on rank 0: a kill mid-write
+        leaves the previous file whole."""
+        if not self.primary:
+            return
         path = os.path.join(self.run_dir, "history.json")
         with open(path + ".tmp", "w") as f:
             json.dump(history, f, indent=2, default=float)
@@ -399,12 +429,12 @@ class Trainer:
                 improved = self.tracker.update(epoch, flat)
                 if self.ckpt:
                     for tag in improved:
-                        self.ckpt.save(tag, self._snapshot(epoch, with_opt=False))
+                        self._save(tag, self._snapshot(epoch, with_opt=False))
             if self.ckpt and cfg.train.save_every_epoch:
-                self.ckpt.save(f"epoch_{epoch}", self._snapshot(epoch, with_opt=False))
+                self._save(f"epoch_{epoch}", self._snapshot(epoch, with_opt=False))
             if self.ckpt and cfg.train.checkpoint_every_steps:
                 # epoch-boundary 'last': supersedes this epoch's mid-epoch save
-                self.ckpt.save("last", self._snapshot(epoch))
+                self._save("last", self._snapshot(epoch))
             history.append(record)
             self._write_history(history)
             if self.val_data is not None and self.tracker.should_stop(
@@ -414,5 +444,7 @@ class Trainer:
         self._write_history(history)
         if self.ckpt:
             # "last" carries the optimizer state so training can resume
-            self.ckpt.save("last", self._snapshot(history[-1]["epoch"] if history else 0))
+            self._save("last", self._snapshot(history[-1]["epoch"] if history else 0))
+        if self.mesh is not None:
+            dist.barrier("fit-end")
         return {"history": history, "best": self.tracker.best}

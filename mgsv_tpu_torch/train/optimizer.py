@@ -28,17 +28,28 @@ update count, mu, nu, the accumulation's mini_step, gradient_step and mean
 by parameter name, so a checkpoint restores into a fresh optimizer and a
 resumed run replays bit for bit (the step's dropout is keyed on
 `micro_step`).
+
+Over a data-parallel mesh (core/mesh.py) each rank's gradients are its
+share of the global batch's.  At k = 1 the training step sums them before
+the update (train/step.py); at k > 1 each rank folds its shares into its
+running mean and the update sums the means over the ranks once, before
+the clipping: the sum is linear, so this equals a sum at every
+micro-batch, with one all-reduce per update instead of k.  Between
+updates each rank's mean is its own share, so `state_dict` sums it over
+the ranks (every rank must call it) and `load_state_dict` gives the sum to
+rank 0 and zeros to the others.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import torch
 from torch import nn
 
 from mgsv_tpu_torch.config import Config
+from mgsv_tpu_torch.core.mesh import Mesh, all_reduce_sum, sync_gradients
 from mgsv_tpu_torch.train.schedule import make_schedule
 
 TEMPORAL, MATCHING, DETECTION, FROZEN = "temporal", "matching", "detection", "frozen"
@@ -89,9 +100,12 @@ class GroupedAdam:
     """Adam with per-group global-norm clipping and a schedule per group,
     accumulating k micro-batches per update."""
 
-    def __init__(self, model: nn.Module, cfg: Config, total_steps: int):
-        """total_steps: micro-batches over the run."""
+    def __init__(self, model: nn.Module, cfg: Config, total_steps: int,
+                 mesh: Optional[Mesh] = None):
+        """total_steps: micro-batches over the run.  mesh: the ranks whose
+        shares an accumulated update sums (module docstring)."""
         t = cfg.train
+        self.mesh = mesh
         self.k = max(1, t.gradient_accumulation_steps)
         total_steps = max(1, total_steps // self.k)
         warmup = int(total_steps * t.warmup_rate)
@@ -118,17 +132,22 @@ class GroupedAdam:
     def state_dict(self) -> Dict[str, Any]:
         """{"count", "mu", "nu", "mini_step", "gradient_step", "acc_grads"}:
         the live tensors, not copies; gradient_step (MultiStepsState's name)
-        equals count."""
+        equals count.  Over a mesh the accumulated mean is the ranks' sum, a
+        new tensor (a collective: every rank calls this)."""
+        acc = dict(self.acc)
+        if self.mesh is not None and self.acc:
+            acc = {name: all_reduce_sum(a, self.mesh) for name, a in acc.items()}
         return {"count": self.count,
                 "mu": {name: mu for name, (mu, _) in self.state.items()},
                 "nu": {name: nu for name, (_, nu) in self.state.items()},
                 "mini_step": self.mini_step, "gradient_step": self.count,
-                "acc_grads": dict(self.acc)}
+                "acc_grads": acc}
 
     @torch.no_grad()
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         """Copy a `state_dict` (any device) into this optimizer's tensors;
-        the names must be this optimizer's, exactly."""
+        the names must be this optimizer's, exactly.  Over a mesh rank 0
+        takes the accumulated mean and the other ranks zeros."""
         acc = state.get("acc_grads", {})
         for key, have, got in (("mu", self.state, state["mu"]),
                                ("nu", self.state, state["nu"]),
@@ -143,8 +162,12 @@ class GroupedAdam:
         for name, (mu, nu) in self.state.items():
             mu.copy_(state["mu"][name])
             nu.copy_(state["nu"][name])
+        share = self.mesh is None or self.mesh.rank == 0
         for name, a in self.acc.items():
-            a.copy_(acc[name])
+            if share:
+                a.copy_(acc[name])
+            else:
+                a.zero_()
         self.count = int(state["count"])
         self.mini_step = mini_step
 
@@ -171,6 +194,8 @@ class GroupedAdam:
         if n < self.k:
             self.mini_step = n
             return
+        if self.mesh is not None:       # the ranks' shares of the mean, summed once
+            sync_gradients(list(self.acc.values()), self.mesh)
         self._update(lambda named: [self.acc[name] for name, _ in named])
         for a in self.acc.values():
             a.zero_()
@@ -240,7 +265,9 @@ def log_param_audit(logger: logging.Logger, model: nn.Module,
     return audit
 
 
-def make_optimizer(model: nn.Module, cfg: Config, total_steps: int) -> GroupedAdam:
+def make_optimizer(model: nn.Module, cfg: Config, total_steps: int,
+                   mesh: Optional[Mesh] = None) -> GroupedAdam:
     """total_steps: micro-batches over the run; the schedules' horizon is
-    total_steps // gradient_accumulation_steps updates."""
-    return GroupedAdam(model, cfg, total_steps)
+    total_steps // gradient_accumulation_steps updates.  mesh: the ranks
+    an accumulated update sums over."""
+    return GroupedAdam(model, cfg, total_steps, mesh)

@@ -6,26 +6,41 @@ span decode and IoU the reference computes every batch.  The X-Pool
 similarity and the DETR encoder layers run on the CUDA kernels, forward and
 backward.  The evaluation step is the same forward without dropout and
 without gradients, its loss, and the decoded span's IoU.
+
+Over a data-parallel mesh (core/mesh.py) both steps take this rank's rows
+of the global batch and compute the global batch's loss (train/
+objective.py).  The training step sums the ranks' partial gradients once
+per update (core/mesh.py::sync_gradients; with gradient accumulation the
+optimizer does, at the update), so every rank clips by the same norm and
+applies the same update.  The rank is folded into the step's dropout
+generator (core/mesh.py::fold_axis_into_seed), from which every plain
+dropout mask and every kernel's Philox seed is drawn, so one local row
+draws other masks on each rank, as JAX folds the dp index into its
+kernels' seeds.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from mgsv_tpu_torch.config import Config
+from mgsv_tpu_torch.core.mesh import Mesh, fold_axis_into_seed, sync_gradients
 from mgsv_tpu_torch.models.made import MaDe
 from mgsv_tpu_torch.ops.spans import eval_iou_batch, span_cw_to_se
 from mgsv_tpu_torch.train.objective import total_loss
 from mgsv_tpu_torch.train.optimizer import GroupedAdam, global_norm
 
 
-def step_generator(seed: int, step: int, device: torch.device) -> torch.Generator:
+def step_generator(seed: int, step: int, device: torch.device, rank: int = 0
+                   ) -> torch.Generator:
     """The step's dropout generator on `device`, keyed on (seed, step) as
-    the JAX step keys its rng with fold_in(rng, step)."""
-    key = int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0])
+    the JAX step keys its rng with fold_in(rng, step), with the rank folded
+    into the seed (rank 0 keeps it)."""
+    key = int(np.random.SeedSequence([fold_axis_into_seed(seed, rank), step])
+              .generate_state(1, np.uint64)[0])
     return torch.Generator(device=device).manual_seed(key)
 
 
@@ -43,7 +58,7 @@ def decode_top_span(outputs: Dict[str, Any], cfg: Config) -> Tuple[torch.Tensor,
 
 
 def make_train_step(model: MaDe, cfg: Config, optimizer: GroupedAdam,
-                    fused_decoder: bool = False):
+                    fused_decoder: bool = False, mesh: Optional[Mesh] = None):
     """step(batch) -> log.  batch: tensors on the model's device, keyed as
     data/example_batch.py makes them.  The log holds the losses,
     train_iou [B] and grad_norm (the norm over every gradient, frozen
@@ -54,46 +69,65 @@ def make_train_step(model: MaDe, cfg: Config, optimizer: GroupedAdam,
     optimizer's micro_step): JAX folds state.step into its rng, and flax's
     apply_gradients advances state.step on every micro-batch.
     fused_decoder: the DETR decoder on the decoder-layer kernel
-    (MaDe.forward; it raises for a detr_dropout above 0)."""
+    (MaDe.forward; it raises for a detr_dropout above 0).
+
+    mesh: the batch is this rank's rows (their music codes coded over the
+    global batch); the losses in the log are the global batch's and
+    train_iou is this rank's rows.  At gradient_accumulation_steps 1 the
+    .grad after the step is the global gradient; above 1 it is this rank's
+    share, the optimizer sums the ranks' accumulated mean at the update,
+    and the log has no grad_norm (the micro-batch's global norm would take
+    a sync of its own)."""
     params = list(model.parameters())
+    if optimizer.mesh != mesh:
+        raise ValueError(f"the step's mesh {mesh} is not its optimizer's {optimizer.mesh}")
+    sync_now = mesh is not None and optimizer.k == 1
 
     def train_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         generator = step_generator(cfg.train.seed, optimizer.micro_step,
-                                   batch["frame_feats"].device)
+                                   batch["frame_feats"].device,
+                                   0 if mesh is None else mesh.rank)
         for p in params:
             p.grad = None
         out = model(batch["frame_feats"], batch["frame_mask"], batch["segment_feats"],
                     batch["segment_mask"], v_duration=batch.get("v_duration"),
-                    generator=generator, fused_decoder=fused_decoder)
+                    generator=generator, fused_decoder=fused_decoder, mesh=mesh)
         loss, log = total_loss(out, batch["spans_target"], cfg,
-                               music_codes=batch.get("music_codes"))
+                               music_codes=batch.get("music_codes"), mesh=mesh)
         loss.backward()
-        grad_norm = global_norm([p.grad for p in params if p.grad is not None])
+        grads = [p.grad for p in params if p.grad is not None]
+        if sync_now:
+            sync_gradients(grads, mesh)
+        grad_norm = global_norm(grads) if mesh is None or sync_now else None
         optimizer.step()
         with torch.no_grad():
             spans_sec, _ = decode_top_span(out, cfg)
             log = {k: v.detach() for k, v in log.items()}
             log["train_iou"] = eval_iou_batch(batch["gt_moment"][:, 0, :], batch["m_duration"],
                                               spans_sec, cfg.data.max_m_duration)
-            log["grad_norm"] = grad_norm
+            if grad_norm is not None:
+                log["grad_norm"] = grad_norm
         return log
 
     return train_step
 
 
-def make_eval_step(model: MaDe, cfg: Config, fused_decoder: bool = False):
+def make_eval_step(model: MaDe, cfg: Config, fused_decoder: bool = False,
+                   mesh: Optional[Mesh] = None):
     """eval_step(batch) -> the JAX eval step's outputs as tensors on the
     model's device: the embeddings, snippet tokens and mask the corpus
     similarity needs, the top-1 span in seconds, its score and IoU [B], and
     the three losses (the in-batch retrieval loss, no music codes).
-    fused_decoder: the DETR decoder on the decoder-layer kernel."""
+    fused_decoder: the DETR decoder on the decoder-layer kernel.  mesh: the
+    batch and the per-row outputs are this rank's rows, the losses the
+    global batch's."""
 
     @torch.no_grad()
     def eval_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         out = model(batch["frame_feats"], batch["frame_mask"], batch["segment_feats"],
                     batch["segment_mask"], v_duration=batch.get("v_duration"),
-                    fused_decoder=fused_decoder)
-        loss, log = total_loss(out, batch["spans_target"], cfg)
+                    fused_decoder=fused_decoder, mesh=mesh)
+        loss, log = total_loss(out, batch["spans_target"], cfg, mesh=mesh)
         spans_sec, score = decode_top_span(out, cfg)
         return {
             "video_emb": out["video_emb"],
@@ -104,7 +138,7 @@ def make_eval_step(model: MaDe, cfg: Config, fused_decoder: bool = False):
             "pred_score": score,
             "iou": eval_iou_batch(batch["gt_moment"][:, 0, :], batch["m_duration"], spans_sec,
                                   cfg.data.max_m_duration),
-            "loss": loss,
+            "loss": log["loss"],
             "retrieval_loss": log["retrieval_loss"],
             "localization_loss": log["localization_loss"],
         }

@@ -770,3 +770,37 @@ def test_cuda_xpool_backward_against_float64(dev, vc, m, s, rate):
     second = xps.xpool_sim_bwd(q, k, v, mask, vhat, weights, g, rate, 9)
     for a, c in zip([*first[:4], *first[4]], [*second[:4], *second[4]]):
         assert torch.isfinite(a).all() and torch.equal(a, c)
+
+
+def test_cuda_two_ranks_over_nccl_equal_one_process(dev, tmp_path):
+    """tests/test_torch_port_dist.py's (a) over NCCL, one card a rank: one
+    float32 step of Config()'s widths at every dropout rate 0 on 2 ranks
+    (8 rows each, music codes repeating across the ranks, ignore_same_music
+    0) equals the one-process step on the global batch of 16, with the
+    kernels on both sides, within that test's tolerances; both ranks end
+    with bit-identical weights.  Skips below two cards: NCCL refuses two
+    ranks on one device (chip_smoke.py's [ddp] phase runs them over gloo)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: NCCL takes one card a rank")
+    import torch_port_dist_worker as W
+    from mgsv_tpu_torch.config import Config
+    from mgsv_tpu_torch.data.example_batch import example_batch
+    from mgsv_tpu_torch.models.made import MaDe
+
+    over = {"model.compute_dtype": "float32", "model.temporal_dropout": 0.0,
+            "model.xpool_dropout": 0.0, "model.detr_dropout": 0.0,
+            "train.scheduler": "constant", "loss.ignore_same_music": 0}
+    cfg = Config.from_overrides(over)
+    batch = example_batch(np.random.RandomState(0), cfg, 16)
+    batch["music_codes"] = np.arange(16, dtype=np.int32) % 5
+    weights, batches = str(tmp_path / "w.pt"), str(tmp_path / "b.npz")
+    torch.save(MaDe(cfg, torch.Generator().manual_seed(3)).state_dict(), weights)
+    np.savez(batches, **{f"{k}/0": v for k, v in batch.items()})
+    case = {"kind": "step", "overrides": over, "weights": weights, "batches": batches,
+            "device": "cuda"}
+    ranks = W.launch({"step": case}, str(tmp_path), 2, "cuda")["step"]
+    for key in ranks[0]:
+        if key.startswith(("param/", "grad/")):
+            assert np.array_equal(ranks[0][key], ranks[1][key]), key
+    want = W.run_case(case, None)
+    W.assert_close_to_one_process(ranks[0], want, cfg)
