@@ -180,6 +180,19 @@ failure:
               2,048 rows at dropout 0 in float32 (data resident and split),
               MP_RESULT lines equal, records equal to one process's, and
               `cli.evaluate` on 2 ranks equal to one process's
+ 24. model-axis  the model axis over gloo on the one card, each rank a
+              process of this script (`--model-axis-rank`): the engine with
+              the 4,096-track index sharded over 2 ranks (dp), at B=1 and
+              32, top_k 5, against the one-process engine (same ids off
+              near ties, moments 5e-3 s, scores 1e-4), #1's launches and
+              the pairs each rank localized, query p50 per rank beside the
+              one process's; then 4 ranks at (2, 2), Config() in float32,
+              B=512: [ddp]'s held step (its gates, against the one-process
+              and float64 steps), the 4 ranks' gradients and weights after
+              a step at the rates bit-identical, and `evaluate` of [ddp]'s
+              2,048 rows with the plain 2-D similarity and with #4 split
+              over dp, each within 1e-4 of one process's, ranks moved only
+              at near ties
 
 then prints the kernels' JSON line and, last, {"ok": true, "device": ...}.
 It exits non-zero, without that last line, when no CUDA device is present
@@ -231,7 +244,7 @@ from mgsv_tpu_torch.data import synthetic
 from mgsv_tpu_torch.data.synthetic import open_synthetic
 from mgsv_tpu_torch.eval.evaluator import evaluate
 from mgsv_tpu_torch.eval.similarity import (xpool_eval_inputs, xpool_sim_fused,
-                                            xpool_similarity_blocked)
+                                            xpool_similarity_blocked, xpool_similarity_mesh)
 from mgsv_tpu_torch.models.detr import DetrDecoderLayer, DetrEncoderLayer
 from mgsv_tpu_torch.models.layers import l2_normalize
 from mgsv_tpu_torch.models.made import MaDe, uses_fused_sim
@@ -383,6 +396,11 @@ DDP_RANK_TIMEOUT = 600     # seconds a rank job may take
 DDP_LOSS_RTOL = 1e-4
 DDP_RECALL_ATOL = 0.1
 DDP_MIOU_ATOL = 1e-3
+MA_ENGINE_RANKS = 2        # the model-axis phase's engine: the index over 2 ranks (dp)
+MA_MESH_SHAPE = (2, 2)     # its step and evaluation: dp x mp ranks on the one card
+MA_MESH_RANKS = MA_MESH_SHAPE[0] * MA_MESH_SHAPE[1]
+MA_QUERY_REPS = 10         # timed queries a batch, for the p50
+MA_SIM_REPS = 3            # timed 2-D similarities of EVAL_N x EVAL_N a rank
 
 COUNTERS = {"fused_encoder_layer": fel.fused_encoder_layer,
             "fused_encoder_layer_bwd": fel.fused_encoder_layer_bwd,
@@ -1169,8 +1187,8 @@ def impose_gates(model, gates: dict, counts: list, mesh=None) -> list:
     2 STEP_FLIP_EPS) with a gradient of 1, so the gate turns.  The flips
     made are appended to `counts`.  mesh: the gates were recorded over the
     global batch and the model runs this rank's rows; each call takes the
-    rank's block of the axis on which the two sizes differ (the batch
-    axis)."""
+    rank's dp index's block of the axis on which the two sizes differ (the
+    batch axis)."""
     hooks = []
     for n, mod in model.named_modules():
         if n in gates:
@@ -1180,7 +1198,7 @@ def impose_gates(model, gates: dict, counts: list, mesh=None) -> list:
                 want = next(calls).to(o.device)
                 if want.shape != o.shape:
                     axis = next(a for a in range(o.dim()) if o.shape[a] != want.shape[a])
-                    want = want.narrow(axis, mesh.rank * o.shape[axis], o.shape[axis])
+                    want = want.narrow(axis, mesh.dp_index * o.shape[axis], o.shape[axis])
                 want = want.to(o.dtype) > 0
                 flip = ((o > 0) != want) & (o.abs() < STEP_FLIP_EPS)
                 counts.append(int(flip.sum()))
@@ -3019,18 +3037,13 @@ def timed_steps(step, batch, n: int) -> list:
     return out
 
 
-def ddp_rank(spec_path: str, rank: int) -> int:
-    """One rank of the ddp phase (`chip_smoke.py --ddp-rank RANK SPEC`):
-    joins the group, runs its rows of the held step, timed steps, timed
-    gradient syncs, a step at the configured rates and an evaluation, and
-    writes what the parent compares into the spec's directory."""
-    with open(spec_path) as f:
-        spec = json.load(f)
-    dist.initialize(spec["coordinator"], spec["world"], rank, "cuda")
-    mesh = make_mesh()
-    device = resolve_device(dist.rank_device("cuda"))
-    out = {"rank": rank, "backend": torch.distributed.get_backend()}
-
+def rank_steps(spec: dict, mesh, device: torch.device) -> tuple:
+    """This rank's rows of the held step (the one-process kernel step's
+    gates, spec["gates"]), timed steps, and a step at the configured rates
+    from the same weights: ({"launches", "flips", "logs", "step_ms",
+    "rates_launches"}, the held step's gradients on the device, the
+    weights after the rate step on the host)."""
+    out = {}
     cfg = ddp_config(rates=False)
     model = MaDe(cfg, torch.Generator().manual_seed(SEED)).to(device)
     step = make_train_step(model, cfg, make_optimizer(model, cfg, HORIZON, mesh), mesh=mesh)
@@ -3049,6 +3062,30 @@ def ddp_rank(spec_path: str, rank: int) -> int:
     grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
              if p.grad is not None}
     out["step_ms"] = timed_steps(step, mine, DDP_TIMED_STEPS)
+    del model, step
+
+    cfg = ddp_config(rates=True)
+    model = MaDe(cfg, torch.Generator().manual_seed(SEED)).to(device)
+    step = make_train_step(model, cfg, make_optimizer(model, cfg, HORIZON, mesh), mesh=mesh)
+    reset_counts()
+    step(mine)
+    out["rates_launches"] = read_counts()
+    return out, grads, {n: p.detach().cpu() for n, p in model.named_parameters()}
+
+
+def ddp_rank(spec_path: str, rank: int) -> int:
+    """One rank of the ddp phase (`chip_smoke.py --ddp-rank RANK SPEC`):
+    joins the group, runs `rank_steps`, timed gradient syncs and an
+    evaluation, and writes what the parent compares into the spec's
+    directory."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    dist.initialize(spec["coordinator"], spec["world"], rank, "cuda")
+    mesh = make_mesh()
+    device = resolve_device(dist.rank_device("cuda"))
+    out = {"rank": rank, "backend": torch.distributed.get_backend()}
+    steps, grads, params = rank_steps(spec, mesh, device)
+    out.update(steps)
     flat = [g.clone() for g in grads.values()]
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     sync_ms = []
@@ -3060,17 +3097,9 @@ def ddp_rank(spec_path: str, rank: int) -> int:
         torch.cuda.synchronize()
         sync_ms.append(start.elapsed_time(end))
     out["sync_ms"] = sync_ms
-    del model, step, flat
+    del flat
 
     cfg = ddp_config(rates=True)
-    model = MaDe(cfg, torch.Generator().manual_seed(SEED)).to(device)
-    step = make_train_step(model, cfg, make_optimizer(model, cfg, HORIZON, mesh), mesh=mesh)
-    reset_counts()
-    step(mine)
-    out["rates_launches"] = read_counts()
-    params = {n: p.detach().cpu() for n, p in model.named_parameters()}
-    del model, step
-
     model = MaDe(cfg, torch.Generator().manual_seed(SEED)).to(device).eval()
     data = DeviceResidentData(open_synthetic(spec["data"], cfg.data), device, mesh)
     # the split tables' batch assembly (one reduce-scatter) at the training
@@ -3108,12 +3137,12 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def run_ranks(argv_of, what: str, log_dir: str) -> list:
-    """Start DDP_RANKS processes (argv_of(rank)) and wait for all; each
-    one's output goes to a file, whose end is raised with a rank that
-    fails.  Returns each rank's stdout."""
+def run_ranks(argv_of, what: str, log_dir: str, world: int = DDP_RANKS) -> list:
+    """Start `world` processes (argv_of(rank)) and wait for all; each one's
+    output goes to a file, whose end is raised with a rank that fails.
+    Returns each rank's stdout."""
     procs, logs = [], []
-    for r in range(DDP_RANKS):
+    for r in range(world):
         logs.append(open(os.path.join(log_dir, f"{what}.rank{r}.log"), "w+"))
         procs.append(subprocess.Popen(argv_of(r), stdout=logs[-1], stderr=subprocess.STDOUT,
                                       text=True))
@@ -3140,101 +3169,103 @@ def coordinator_args(rank: int, port: int) -> list:
             "--process-id", str(rank)]
 
 
-def check_ddp(device: torch.device, card: str) -> None:
-    """Phase 23 (module docstring)."""
+def check_ddp(device: torch.device, card: str, tmp: str) -> dict:
+    """Phase 23 (module docstring), its files under `tmp`; returns the
+    one-process steps (train_runs) whose gates are saved at tmp/gates.pt."""
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        cfg = ddp_config(rates=False)
-        runs = train_runs(device, cfg, TRAIN_B, share_gates=True)
-        gates = os.path.join(tmp, "gates.pt")
-        torch.save({n: [g.cpu() for g in calls] for n, calls in runs["gates"].items()}, gates)
-        model, step = train_setup(cfg, device)
-        one_ms = timed_steps(step, runs["batch"], DDP_TIMED_STEPS + 1)[1:]
-        del model, step
-        data = os.path.join(tmp, "data")
-        synthetic.generate(data, n_rows=EVAL_N, data_cfg=Config().data)
-        spec = os.path.join(tmp, "spec.json")
-        with open(spec, "w") as f:
-            json.dump({"coordinator": f"localhost:{free_port()}", "world": DDP_RANKS,
-                       "gates": gates, "data": data, "dir": tmp}, f)
-        t_ranks = time.perf_counter()
-        run_ranks(lambda r: [sys.executable, os.path.abspath(__file__), "--ddp-rank", str(r),
-                             spec], "ddp", tmp)
-        rank_s = time.perf_counter() - t_ranks
-        info = []
-        for r in range(DDP_RANKS):
-            with open(os.path.join(tmp, f"rank{r}.json")) as f:
-                info.append(json.load(f))
-        saved = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=True)
-                 for r in range(DDP_RANKS)]
+    cfg = ddp_config(rates=False)
+    runs = train_runs(device, cfg, TRAIN_B, share_gates=True)
+    gates = os.path.join(tmp, "gates.pt")
+    torch.save({n: [g.cpu() for g in calls] for n, calls in runs["gates"].items()}, gates)
+    model, step = train_setup(cfg, device)
+    one_ms = timed_steps(step, runs["batch"], DDP_TIMED_STEPS + 1)[1:]
+    del model, step
+    data = os.path.join(tmp, "data")
+    synthetic.generate(data, n_rows=EVAL_N, data_cfg=Config().data)
+    spec = os.path.join(tmp, "spec.json")
+    with open(spec, "w") as f:
+        json.dump({"coordinator": f"localhost:{free_port()}", "world": DDP_RANKS,
+                   "gates": gates, "data": data, "dir": tmp}, f)
+    t_ranks = time.perf_counter()
+    run_ranks(lambda r: [sys.executable, os.path.abspath(__file__), "--ddp-rank", str(r),
+                         spec], "ddp", tmp)
+    rank_s = time.perf_counter() - t_ranks
+    info = []
+    for r in range(DDP_RANKS):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            info.append(json.load(f))
+    saved = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=True)
+             for r in range(DDP_RANKS)]
 
-        # the held step: rank 0's loss and synchronized gradients in the kernel run's place
-        held = dict(runs, logs={**runs["logs"], "kernel": info[0]["logs"]},
-                    grads={**runs["grads"], "kernel": {n: g.to(device) for n, g in
-                                                       saved[0]["grads"].items()}},
-                    launches={**runs["launches"], "kernel": info[0]["launches"]})
-        loss, worst, worst_plain, n_grads = hold_step("ddp step", held, per_step(cfg))
-        one = runs["grads"]["kernel"]
-        vs_one = max((saved[0]["grads"][n].to(device) - g).abs().max().item()
-                     for n, g in one.items())
-        for r in range(1, DDP_RANKS):
-            if info[r]["launches"] != info[0]["launches"]:
-                raise AssertionError(f"ddp: rank launches differ: {info}")
-            for key in ("grads", "params"):
-                for n, t in saved[0][key].items():
-                    if not torch.equal(t, saved[r][key][n]):
-                        raise AssertionError(f"ddp: rank {r}'s {key} {n} differ from rank 0's")
-        for r in range(DDP_RANKS):
-            launched = info[r]["launches"]
-            phase("ddp", rank=r, backend=info[r]["backend"], rows=TRAIN_B // DDP_RANKS,
-                  fused_encoder_layer=launched["fused_encoder_layer"],
-                  fused_encoder_layer_bwd=launched["fused_encoder_layer_bwd"],
-                  xpool_sim_fwd=launched["xpool_sim_fwd"],
-                  xpool_sim_bwd=launched["xpool_sim_bwd"],
-                  xpool_sim_eval=info[r]["eval_launches"]["xpool_sim_eval"],
-                  gates_turned=info[r]["flips"],
-                  step_ms=",".join(f"{t:.2f}" for t in info[r]["step_ms"]),
-                  sync_ms=",".join(f"{t:.3f}" for t in info[r]["sync_ms"]),
-                  sync_mb=f"{info[r]['sync_bytes'] / 1e6:.3f}",
-                  split_gather_ms_B512=f"{info[r]['gather_ms_B512']:.2f}",
-                  split_gather_ms_B40=f"{info[r]['gather_ms_B40']:.2f}", card=json.dumps(card))
-            if info[r]["rates_launches"] != per_step(ddp_config(rates=True)):
-                raise AssertionError(f"ddp: rank {r} step at the rates launched "
-                                     f"{info[r]['rates_launches']}")
-            if not info[r]["eval_launches"]["xpool_sim_eval"] >= 1:
-                raise AssertionError(f"ddp: rank {r}'s evaluation never launched #4")
-        phase("ddp", dtype="float32", B=TRAIN_B, ranks=DDP_RANKS, loss=loss["kernel"],
-              one_process_loss=runs["logs"]["kernel"]["loss"], plain_loss=loss["plain"],
-              float64_loss=loss["exact"], params=n_grads, grad_max_abs_err=worst,
-              plain_f32_grad_err=worst_plain, grad_vs_one_process_kernel=vs_one,
-              gates_turned_plain=runs["flips"]["plain"],
-              gates_turned_float64=runs["flips"]["exact"],
-              ranks_bitwise_equal_grads_and_rate_step_weights=True,
-              one_process_step_ms=",".join(f"{t:.2f}" for t in one_ms),
-              rank_job_seconds=f"{rank_s:.2f}", card=json.dumps(card))
+    # the held step: rank 0's loss and synchronized gradients in the kernel run's place
+    held = dict(runs, logs={**runs["logs"], "kernel": info[0]["logs"]},
+                grads={**runs["grads"], "kernel": {n: g.to(device) for n, g in
+                                                   saved[0]["grads"].items()}},
+                launches={**runs["launches"], "kernel": info[0]["launches"]})
+    loss, worst, worst_plain, n_grads = hold_step("ddp step", held, per_step(cfg))
+    one = runs["grads"]["kernel"]
+    vs_one = max((saved[0]["grads"][n].to(device) - g).abs().max().item()
+                 for n, g in one.items())
+    for r in range(1, DDP_RANKS):
+        if info[r]["launches"] != info[0]["launches"]:
+            raise AssertionError(f"ddp: rank launches differ: {info}")
+        for key in ("grads", "params"):
+            for n, t in saved[0][key].items():
+                if not torch.equal(t, saved[r][key][n]):
+                    raise AssertionError(f"ddp: rank {r}'s {key} {n} differ from rank 0's")
+    for r in range(DDP_RANKS):
+        launched = info[r]["launches"]
+        phase("ddp", rank=r, backend=info[r]["backend"], rows=TRAIN_B // DDP_RANKS,
+              fused_encoder_layer=launched["fused_encoder_layer"],
+              fused_encoder_layer_bwd=launched["fused_encoder_layer_bwd"],
+              xpool_sim_fwd=launched["xpool_sim_fwd"],
+              xpool_sim_bwd=launched["xpool_sim_bwd"],
+              xpool_sim_eval=info[r]["eval_launches"]["xpool_sim_eval"],
+              gates_turned=info[r]["flips"],
+              step_ms=",".join(f"{t:.2f}" for t in info[r]["step_ms"]),
+              sync_ms=",".join(f"{t:.3f}" for t in info[r]["sync_ms"]),
+              sync_mb=f"{info[r]['sync_bytes'] / 1e6:.3f}",
+              split_gather_ms_B512=f"{info[r]['gather_ms_B512']:.2f}",
+              split_gather_ms_B40=f"{info[r]['gather_ms_B40']:.2f}", card=json.dumps(card))
+        if info[r]["rates_launches"] != per_step(ddp_config(rates=True)):
+            raise AssertionError(f"ddp: rank {r} step at the rates launched "
+                                 f"{info[r]['rates_launches']}")
+        if not info[r]["eval_launches"]["xpool_sim_eval"] >= 1:
+            raise AssertionError(f"ddp: rank {r}'s evaluation never launched #4")
+    phase("ddp", dtype="float32", B=TRAIN_B, ranks=DDP_RANKS, loss=loss["kernel"],
+          one_process_loss=runs["logs"]["kernel"]["loss"], plain_loss=loss["plain"],
+          float64_loss=loss["exact"], params=n_grads, grad_max_abs_err=worst,
+          plain_f32_grad_err=worst_plain, grad_vs_one_process_kernel=vs_one,
+          gates_turned_plain=runs["flips"]["plain"],
+          gates_turned_float64=runs["flips"]["exact"],
+          ranks_bitwise_equal_grads_and_rate_step_weights=True,
+          one_process_step_ms=",".join(f"{t:.2f}" for t in one_ms),
+          rank_job_seconds=f"{rank_s:.2f}", card=json.dumps(card))
 
-        # the evaluation split over the ranks against one process's whole #4
-        ecfg = ddp_config(rates=True)
-        emodel = MaDe(ecfg, torch.Generator().manual_seed(SEED)).to(device).eval()
-        res = evaluate(emodel, DeviceResidentData(open_synthetic(data, ecfg.data), device),
-                       ecfg)
-        sim_err = (saved[0]["sim"].to(device) - res["sim"]).abs().max().item()
-        moved = saved[0]["ranks"].numpy() != np.asarray(res["ranks"])
-        ties = near_tie_rows(res["sim"], res["music_ids"], 2e-4)
-        if not sim_err <= 1e-4 or (moved & ~ties).any():
-            raise AssertionError(f"ddp evaluate: sim error {sim_err}, ranks moved off near "
-                                 f"ties {int((moved & ~ties).sum())}")
-        if not all(torch.equal(saved[0][k], saved[r][k]) for r in range(1, DDP_RANKS)
-                   for k in ("ranks", "ious")):
-            raise AssertionError("ddp evaluate: ranks differ between ranks")
-        phase("ddp-eval", rows=EVAL_N, ranks=DDP_RANKS, sim_max_abs_err=sim_err,
-              ranks_moved=int(moved.sum()), near_tie_rows=int(ties.sum()),
-              R1=info[0]["eval"]["R1"], one_process_R1=res["retrieval"]["R1"])
-        del emodel, res
+    # the evaluation split over the ranks against one process's whole #4
+    ecfg = ddp_config(rates=True)
+    emodel = MaDe(ecfg, torch.Generator().manual_seed(SEED)).to(device).eval()
+    res = evaluate(emodel, DeviceResidentData(open_synthetic(data, ecfg.data), device),
+                   ecfg)
+    sim_err = (saved[0]["sim"].to(device) - res["sim"]).abs().max().item()
+    moved = saved[0]["ranks"].numpy() != np.asarray(res["ranks"])
+    ties = near_tie_rows(res["sim"], res["music_ids"], 2e-4)
+    if not sim_err <= 1e-4 or (moved & ~ties).any():
+        raise AssertionError(f"ddp evaluate: sim error {sim_err}, ranks moved off near "
+                             f"ties {int((moved & ~ties).sum())}")
+    if not all(torch.equal(saved[0][k], saved[r][k]) for r in range(1, DDP_RANKS)
+               for k in ("ranks", "ious")):
+        raise AssertionError("ddp evaluate: ranks differ between ranks")
+    phase("ddp-eval", rows=EVAL_N, ranks=DDP_RANKS, sim_max_abs_err=sim_err,
+          ranks_moved=int(moved.sum()), near_tie_rows=int(ties.sum()),
+          R1=info[0]["eval"]["R1"], one_process_R1=res["retrieval"]["R1"])
+    del emodel, res
 
-        check_nccl_world_of_one(device)
-        check_ddp_clis(tmp)
+    check_nccl_world_of_one(device)
+    check_ddp_clis(tmp)
     phase("ddp", seconds=f"{time.perf_counter() - t0:.2f}")
+    del runs["gates"]
+    return runs
 
 
 def check_nccl_world_of_one(device: torch.device) -> None:
@@ -3329,6 +3360,275 @@ def check_ddp_clis(tmp: str) -> None:
           equal_across_ranks=True)
 
 
+def query_p50(engine: RetrievalEngine, feats, mask, reps: int = MA_QUERY_REPS) -> float:
+    """The median ms of `reps` queries (host clock; a query ends in a copy
+    to the host)."""
+    return float(np.median([timed_query(engine, feats, mask)[1] for _ in range(reps)]))
+
+
+def engine_vs_one(got: list, want: list) -> tuple:
+    """A sharded engine's results against the one-process engine's: (ids
+    moved off near ties, worst moment error in s, worst score error) over
+    the positions whose ids agree.  A position may hold another id where
+    the one-process score there lies within RANK_TIE_ATOL of a neighbour's
+    (or, at the last position, of the sharded engine's own)."""
+    moved, span, score = 0, 0.0, 0.0
+    for a, b in zip(got, want):
+        ref = np.asarray(b["retrieval_scores"])
+        for j, (x, y) in enumerate(zip(a["music_ids"], b["music_ids"])):
+            if x != y:
+                gaps = [abs(ref[j] - ref[k]) for k in (j - 1, j + 1) if 0 <= k < len(ref)]
+                if j == len(ref) - 1:
+                    gaps.append(abs(a["retrieval_scores"][j] - ref[j]))
+                moved += min(gaps) > RANK_TIE_ATOL
+                continue
+            span = max(span, float(np.abs(np.subtract(a["moments"][j], b["moments"][j])).max()))
+            score = max(score, abs(a["retrieval_scores"][j] - ref[j]),
+                        abs(a["moment_scores"][j] - b["moment_scores"][j]))
+    return moved, span, score
+
+
+def similarity_inputs(device: torch.device, cfg: Config) -> tuple:
+    """Seeded [EVAL_N, D] video embeddings, [EVAL_N, S, D] snippet tokens
+    and ragged masks on the device: the same on every process of a card."""
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    d, s = cfg.model.dim_input, cfg.data.max_snippet_num
+    video = torch.randn(EVAL_N, d, generator=gen, device=device)
+    toks = torch.randn(EVAL_N, s, d, generator=gen, device=device)
+    lens = torch.randint(8, s + 1, (EVAL_N, 1), generator=gen, device=device)
+    return video, toks, (torch.arange(s, device=device) < lens).float()
+
+
+def model_axis_rank(spec_path: str, rank: int) -> int:
+    """One rank of the model-axis phase (`chip_smoke.py --model-axis-rank
+    RANK SPEC`).  Job "engine": the index sharded over dp, queries at B=1
+    and B=32 (results, #1's launches, the pairs localized, p50).  Job
+    "mesh": over (2, 2), the held step and a step at the rates, then an
+    evaluation with the plain 2-D similarity and one with #4 split over
+    dp, and the plain 2-D similarity of seeded inputs timed alone."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    dist.initialize(spec["coordinator"], spec["world"], rank, "cuda")
+    mesh = make_mesh(spec["mesh_shape"])
+    device = resolve_device(dist.rank_device("cuda"))
+    out = {"rank": rank, "backend": torch.distributed.get_backend()}
+    saved = {}
+    if spec["job"] == "engine":
+        cfg = ddp_config(rates=True)
+        model = MaDe(cfg, torch.Generator().manual_seed(SEED)).to(device).eval()
+        z = {k: np.load(os.path.join(spec["dir"], f"{k}.npy"))
+             for k in ("music_embs", "seg_tokens", "seg_masks", "videos", "vmask")}
+        index = MusicIndex([f"track{i:05d}" for i in range(len(z["music_embs"]))],
+                           z["music_embs"], z["seg_tokens"], z["seg_masks"])
+        engine = RetrievalEngine(model, cfg, index, mesh=mesh, mesh_axis="dp")
+        out["shard_tracks"] = engine._seg_tokens.shape[0]
+        pairs = []
+        core = engine._localize_core
+        engine._localize_core = lambda *a: (pairs.append(a[0].shape[0]), core(*a))[1]
+        for b in (1, 32):
+            feats, mask = z["videos"][:b], z["vmask"][:b]
+            engine.query(feats, mask)                   # first use
+            pairs.clear()
+            reset_counts()
+            out[f"B{b}"] = engine.query(feats, mask)
+            out[f"B{b}_launches"] = read_counts()["fused_encoder_layer"]
+            out[f"B{b}_pairs"] = sum(pairs)
+            out[f"B{b}_p50_ms"] = query_p50(engine, feats, mask)
+    else:
+        steps, grads, saved["params"] = rank_steps(spec, mesh, device)
+        out.update(steps)
+        saved["grads"] = {n: g.cpu() for n, g in grads.items()}
+        del grads
+        cfg = ddp_config(rates=True)
+        model = MaDe(cfg, torch.Generator().manual_seed(SEED)).to(device).eval()
+        data = DeviceResidentData(open_synthetic(spec["data"], cfg.data), device, mesh)
+        for name, fused in (("plain", False), ("fused", True)):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = evaluate(model, data, cfg, mesh=mesh, use_fused_sim=fused)
+            torch.cuda.synchronize()
+            out[f"{name}_eval_s"] = time.perf_counter() - t0
+            out[f"{name}_eval_launches"] = read_counts()
+            out[f"{name}_R1"] = res["retrieval"]["R1"]
+            saved[f"{name}_ranks"] = torch.as_tensor(np.asarray(res["ranks"]))
+            saved[f"{name}_ious"] = torch.from_numpy(res["ious"])
+            saved[f"{name}_sim"] = res["sim"].cpu() if rank == 0 else None
+        video, toks, mask = similarity_inputs(device, cfg)
+        sim_ms = []
+        with torch.no_grad():
+            for _ in range(MA_SIM_REPS + 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sim = xpool_similarity_mesh(model.xpool, video, toks, mask, mesh)
+                torch.cuda.synchronize()
+                sim_ms.append((time.perf_counter() - t0) * 1e3)
+        out["sim2d_ms"] = sim_ms[1:]
+        saved["sim2d"] = sim.cpu() if rank == 0 else None
+    torch.save(saved, os.path.join(spec["dir"], f"rank{rank}.pt"))
+    with open(os.path.join(spec["dir"], f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.shutdown()
+    return 0
+
+
+def model_axis_job(tmp: str, job: str, world: int, mesh_shape, **extra) -> tuple:
+    """Run a model-axis job on `world` ranks; (each rank's json, each
+    rank's saved tensors, the job's seconds)."""
+    spec = os.path.join(tmp, "spec.json")
+    with open(spec, "w") as f:
+        json.dump({"coordinator": f"localhost:{free_port()}", "world": world, "job": job,
+                   "mesh_shape": list(mesh_shape), "dir": tmp, **extra}, f)
+    t0 = time.perf_counter()
+    run_ranks(lambda r: [sys.executable, os.path.abspath(__file__), "--model-axis-rank",
+                         str(r), spec], f"model-axis-{job}", tmp, world)
+    seconds = time.perf_counter() - t0
+    info, saved = [], []
+    for r in range(world):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            info.append(json.load(f))
+        saved.append(torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=True))
+    return info, saved, seconds
+
+
+def check_model_axis_engine(device: torch.device, card: str, tmp: str, index: MusicIndex,
+                            videos: np.ndarray, vmask: np.ndarray) -> None:
+    """(a) The engine with the 4,096-track index sharded over 2 ranks (dp)
+    against the one-process engine, both on #1, at B=1 and B=32."""
+    cfg = ddp_config(rates=True)
+    for k in ("music_embs", "seg_tokens", "seg_masks"):
+        np.save(os.path.join(tmp, f"{k}.npy"), getattr(index, k))
+    np.save(os.path.join(tmp, "videos.npy"), videos)
+    np.save(os.path.join(tmp, "vmask.npy"), vmask)
+    info, _, seconds = model_axis_job(tmp, "engine", MA_ENGINE_RANKS, (MA_ENGINE_RANKS, 1))
+    engine = RetrievalEngine(MaDe(cfg, torch.Generator().manual_seed(SEED)).to(device).eval(),
+                             cfg, index)
+    for b in (1, 32):
+        feats, mask = videos[:b], vmask[:b]
+        engine.query(feats, mask)
+        want = engine.query(feats, mask)
+        one_ms = query_p50(engine, feats, mask)
+        for r in range(MA_ENGINE_RANKS):
+            got = info[r][f"B{b}"]
+            check_results(got, b, 5, cfg)
+            moved, span, score = engine_vs_one(got, want)
+            launched, pairs = info[r][f"B{b}_launches"], info[r][f"B{b}_pairs"]
+            if moved or not (span <= SPAN_ATOL_S and score <= SCORE_ATOL):
+                raise AssertionError(f"model-axis engine rank {r} B={b}: ids moved off near "
+                                     f"ties {moved}, span {span} s, score {score}")
+            if launched != (cfg.model.detr_enc_layers if pairs else 0):
+                raise AssertionError(f"model-axis engine rank {r} B={b}: #1 launched "
+                                     f"{launched} times for {pairs} pairs")
+            phase("model-axis", engine_rank=r, backend=info[r]["backend"], B=b, top_k=5,
+                  tracks=len(index.music_ids), shard_tracks=info[r]["shard_tracks"],
+                  pairs_localized=pairs, fused_encoder_layer=launched,
+                  span_err_s=span, score_err=score, ids_moved_off_ties=moved,
+                  p50_ms=f"{info[r][f'B{b}_p50_ms']:.2f}", one_process_p50_ms=f"{one_ms:.2f}",
+                  card=json.dumps(card))
+        if sum(info[r]["B32_launches"] > 0 for r in range(MA_ENGINE_RANKS)) < MA_ENGINE_RANKS:
+            raise AssertionError("model-axis engine: a rank localized no pair at B=32")
+    phase("model-axis", engine_job_seconds=f"{seconds:.2f}")
+
+
+def check_model_axis_mesh(device: torch.device, card: str, tmp: str, runs: dict,
+                          gates: str, data: str) -> None:
+    """(b) 4 ranks at (2, 2): the held step and its bitwise-equal ranks, an
+    evaluation with the plain 2-D similarity and one with #4 split over dp,
+    against one process."""
+    cfg = ddp_config(rates=False)
+    info, saved, seconds = model_axis_job(tmp, "mesh", MA_MESH_RANKS, MA_MESH_SHAPE,
+                                          gates=gates, data=data)
+    held = dict(runs, logs={**runs["logs"], "kernel": info[0]["logs"]},
+                grads={**runs["grads"], "kernel": {n: g.to(device) for n, g in
+                                                   saved[0]["grads"].items()}},
+                launches={**runs["launches"], "kernel": info[0]["launches"]})
+    loss, worst, worst_plain, n_grads = hold_step("model-axis step", held, per_step(cfg))
+    vs_one = max((saved[0]["grads"][n].to(device) - g).abs().max().item()
+                 for n, g in runs["grads"]["kernel"].items())
+    for r in range(1, MA_MESH_RANKS):
+        if info[r]["launches"] != info[0]["launches"]:
+            raise AssertionError(f"model-axis: rank launches differ: {info}")
+        for key in ("grads", "params"):
+            for n, t in saved[0][key].items():
+                if not torch.equal(t, saved[r][key][n]):
+                    raise AssertionError(f"model-axis: rank {r}'s {key} {n} differ from rank 0's")
+        for key in ("plain_ranks", "plain_ious", "fused_ranks", "fused_ious"):
+            if not torch.equal(saved[0][key], saved[r][key]):
+                raise AssertionError(f"model-axis: rank {r}'s {key} differ from rank 0's")
+    for r in range(MA_MESH_RANKS):
+        if info[r]["rates_launches"] != per_step(ddp_config(rates=True)):
+            raise AssertionError(f"model-axis: rank {r} step at the rates launched "
+                                 f"{info[r]['rates_launches']}")
+        phase("model-axis", mesh_rank=r, dp_index=r // MA_MESH_SHAPE[1],
+              mp_index=r % MA_MESH_SHAPE[1], backend=info[r]["backend"],
+              rows=TRAIN_B // MA_MESH_SHAPE[0], gates_turned=info[r]["flips"],
+              fused_encoder_layer=info[r]["launches"]["fused_encoder_layer"],
+              fused_encoder_layer_bwd=info[r]["launches"]["fused_encoder_layer_bwd"],
+              xpool_sim_fwd=info[r]["launches"]["xpool_sim_fwd"],
+              xpool_sim_bwd=info[r]["launches"]["xpool_sim_bwd"],
+              xpool_sim_eval=info[r]["fused_eval_launches"]["xpool_sim_eval"],
+              plain_eval_xpool_sim_eval=info[r]["plain_eval_launches"]["xpool_sim_eval"],
+              step_ms=",".join(f"{t:.2f}" for t in info[r]["step_ms"]),
+              plain_eval_s=f"{info[r]['plain_eval_s']:.2f}",
+              fused_eval_s=f"{info[r]['fused_eval_s']:.2f}", card=json.dumps(card))
+        if info[r]["fused_eval_launches"]["xpool_sim_eval"] < 1 or info[r][
+                "plain_eval_launches"]["xpool_sim_eval"]:
+            raise AssertionError(f"model-axis: rank {r}'s evaluations launched #4 "
+                                 f"{info[r]['fused_eval_launches']['xpool_sim_eval']} and "
+                                 f"{info[r]['plain_eval_launches']['xpool_sim_eval']} times")
+    phase("model-axis", mesh=json.dumps(list(MA_MESH_SHAPE)), dtype="float32", B=TRAIN_B,
+          loss=loss["kernel"], one_process_loss=runs["logs"]["kernel"]["loss"],
+          float64_loss=loss["exact"], params=n_grads, grad_max_abs_err=worst,
+          plain_f32_grad_err=worst_plain, grad_vs_one_process_kernel=vs_one,
+          ranks_bitwise_equal_grads_and_rate_step_weights=True,
+          rank_job_seconds=f"{seconds:.2f}", card=json.dumps(card))
+
+    ecfg = ddp_config(rates=True)
+    emodel = MaDe(ecfg, torch.Generator().manual_seed(SEED)).to(device).eval()
+    resident = DeviceResidentData(open_synthetic(data, ecfg.data), device)
+    for name, fused in (("plain", False), ("fused", True)):
+        res = evaluate(emodel, resident, ecfg, use_fused_sim=fused)
+        sim_err = (saved[0][f"{name}_sim"].to(device) - res["sim"]).abs().max().item()
+        moved = saved[0][f"{name}_ranks"].numpy() != np.asarray(res["ranks"])
+        ties = near_tie_rows(res["sim"], res["music_ids"], RANK_TIE_ATOL)
+        if not sim_err <= 1e-4 or (moved & ~ties).any():
+            raise AssertionError(f"model-axis evaluate ({name}): sim error {sim_err}, ranks "
+                                 f"moved off near ties {int((moved & ~ties).sum())}")
+        phase("model-axis-eval", similarity="2-D plain" if name == "plain" else "#4 over dp",
+              rows=EVAL_N, mesh=json.dumps(list(MA_MESH_SHAPE)), sim_max_abs_err=sim_err,
+              ranks_moved=int(moved.sum()), near_tie_rows=int(ties.sum()),
+              R1=info[0][f"{name}_R1"], one_process_R1=res["retrieval"]["R1"])
+    video, toks, mask = similarity_inputs(device, ecfg)
+    one_ms = []
+    with torch.no_grad():
+        for _ in range(MA_SIM_REPS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sim = xpool_similarity_blocked(emodel.xpool, video, toks, mask)
+            torch.cuda.synchronize()
+            one_ms.append((time.perf_counter() - t0) * 1e3)
+    sim_err = (saved[0]["sim2d"].to(device) - sim).abs().max().item()
+    if not sim_err <= 1e-4:
+        raise AssertionError(f"model-axis 2-D similarity: error {sim_err} against one process")
+    phase("model-axis-sim", V=EVAL_N, M=EVAL_N, mesh=json.dumps(list(MA_MESH_SHAPE)),
+          sim_max_abs_err=sim_err,
+          rank_ms=";".join(",".join(f"{t:.2f}" for t in i["sim2d_ms"]) for i in info),
+          one_process_blocked_ms=",".join(f"{t:.2f}" for t in one_ms[1:]), card=json.dumps(card))
+
+
+def check_model_axis(device: torch.device, card: str, tmp: str, runs: dict,
+                     index: MusicIndex, videos: np.ndarray, vmask: np.ndarray) -> None:
+    """Phase 24 (module docstring); `tmp` holds [ddp]'s gates and data."""
+    t0 = time.perf_counter()
+    for sub in ("engine", "mesh"):
+        os.makedirs(os.path.join(tmp, "model_axis", sub))
+    check_model_axis_engine(device, card, os.path.join(tmp, "model_axis", "engine"), index,
+                            videos, vmask)
+    check_model_axis_mesh(device, card, os.path.join(tmp, "model_axis", "mesh"), runs,
+                          os.path.join(tmp, "gates.pt"), os.path.join(tmp, "data"))
+    phase("model-axis", seconds=f"{time.perf_counter() - t0:.2f}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one NVIDIA GPU",
@@ -3336,6 +3636,8 @@ def main() -> int:
         return 1
     if sys.argv[1:2] == ["--ddp-rank"]:
         return ddp_rank(sys.argv[3], int(sys.argv[2]))
+    if sys.argv[1:2] == ["--model-axis-rank"]:
+        return model_axis_rank(sys.argv[3], int(sys.argv[2]))
     device = resolve_device("cuda")
     name, card = check_device()
     build_kernels()
@@ -3348,6 +3650,7 @@ def main() -> int:
     check_timed(device, card)
     engine, videos, vmask = check_slice(device)
     check_http(engine, videos, vmask)
+    index = engine.index         # the model-axis phase shards it over 2 ranks
     del engine
     entries.append(check_eval_kernel(device))
     with tempfile.TemporaryDirectory() as tmp:
@@ -3374,7 +3677,9 @@ def main() -> int:
     entries.append(check_flash(device))
     with tempfile.TemporaryDirectory() as tmp:
         extract_launches = check_extract(device, tmp)
-    check_ddp(device, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        ddp_runs = check_ddp(device, card, tmp)
+        check_model_axis(device, card, tmp, ddp_runs, index, videos, vmask)
     launches["xpool_sim_eval"] = fit_launches["xpool_sim_eval"]      # per evaluation
     launches["flash_attention"] = extract_launches["flash_attention"]  # per extraction
     for kernel in ("fused_temporal_layer", "fused_temporal_layer_bwd"):  # per fused_temporal step

@@ -26,8 +26,11 @@ launch (mgsv_tpu/cli/train.py:38-43, :66-135):
     # or torchrun, whose environment stands in for the three flags
     torchrun --nproc-per-node 2 -m mgsv_tpu_torch.cli.train --synthetic 2048
 
-Each rank trains on its rows of every global batch of
-train.batch_size_train; rank 0 writes the synthetic data (the others wait
+`--train.mesh_shape '[dp,mp]'` lays dp x mp ranks out as JAX's (dp, mp)
+mesh (core/mesh.py): the rows split over dp, the mp replicas of a dp index
+repeat its training, and the evaluation's corpus similarity splits over
+both axes.  Each rank trains on its dp index's rows of every global batch
+of train.batch_size_train; rank 0 writes the synthetic data (the others wait
 at a barrier), the checkpoints and history.json, the other ranks log at
 WARNING, and every rank prints one `MP_RESULT` line with its per-epoch
 losses, evaluation R1 and mIoU and the best metrics, which equal across

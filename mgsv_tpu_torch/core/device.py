@@ -24,27 +24,31 @@ def resolve_device(name: str | torch.device = "cuda") -> torch.device:
     return device
 
 
-def check_mesh_shape(mesh_shape, world: int = 1) -> None:
+def check_mesh_shape(mesh_shape, world: int = 1) -> tuple:
     """Check a `train.mesh_shape` (dp, mp) against a run of `world`
-    processes, one rank each (core/mesh.py).  dp -1 and (1, 1) mean every
-    rank, as JAX's Trainer reads (1, 1) as every device; dp may also be the
-    world itself.  mp > 1 raises NotImplementedError: only JAX's 2-D
-    evaluation similarity uses the model axis, and it is not ported.  A dp
-    above 1 in a single process raises NotImplementedError too: JAX runs
-    such a mesh over several devices of one process, the port one process a
-    rank.  Any other dp raises ValueError."""
+    processes, one rank each (core/mesh.py), and return it resolved, with
+    dp * mp = world.  dp -1 means world / mp and mp -1 world / dp, as JAX's
+    make_mesh reads them (mgsv_tpu/core/mesh.py:23-43); (1, 1) means every
+    rank on dp, as JAX's Trainer reads it.  A shape of more than one rank
+    in a single process raises NotImplementedError: JAX runs such a mesh
+    over several devices of one process, the port one process a rank.  An
+    axis that does not divide the world, or a shape that is not the
+    world's, raises ValueError."""
     dp, mp = (int(v) for v in mesh_shape)
-    if mp not in (1, -1) or (mp == -1 and world > 1 and dp != world):
-        raise NotImplementedError(
-            f"train.mesh_shape={tuple(mesh_shape)}: a model axis above 1 serves JAX's 2-D "
-            "evaluation similarity, which is not ported yet (ROADMAP.md, queue 1: the 2-D "
-            "similarity)")
-    if dp in (-1, world) or (dp, mp) == (1, 1):
-        return
-    if world == 1:
+    if (dp, mp) == (1, 1):
+        return world, 1
+    if world == 1 and max(dp, mp) > 1:
         raise NotImplementedError(
             f"train.mesh_shape={tuple(mesh_shape)} in one process: the port runs one "
-            "process a rank; launch dp processes (cli.train --coordinator, or torchrun) "
-            "(ROADMAP.md, queue 1: multi-GPU, one process over several devices)")
-    raise ValueError(f"train.mesh_shape={tuple(mesh_shape)} in a run of {world} ranks: dp "
-                     f"must be -1 or {world}")
+            "process a rank; launch dp * mp processes (cli.train --coordinator, or "
+            "torchrun) (ROADMAP.md, queue 1: multi-GPU, one process over several devices)")
+    if -1 in (dp, mp) and dp != mp:
+        known = mp if dp == -1 else dp
+        if known < 1 or world % known:
+            raise ValueError(f"train.mesh_shape={tuple(mesh_shape)}: {known} does not "
+                             f"divide a run of {world} ranks")
+        dp, mp = (world // known, known) if dp == -1 else (known, world // known)
+    if dp < 1 or mp < 1 or dp * mp != world:
+        raise ValueError(f"train.mesh_shape={tuple(mesh_shape)} in a run of {world} ranks: "
+                         f"dp x mp must be {world} (dp -1: {world} / mp)")
+    return dp, mp

@@ -96,13 +96,15 @@ def is_primary() -> bool:
     return process_index() == 0
 
 
-def to_host(x: torch.Tensor) -> np.ndarray:
+def to_host(x: torch.Tensor, group=None) -> np.ndarray:
     """This rank's rows of a per-row result -> the whole result as a host
-    numpy copy, identical on every rank: the ranks' rows in rank order (an
-    all-gather over the group); outside a group, the rows themselves."""
+    numpy copy, identical on every rank of `group` (None: every rank): the
+    ranks' rows in group order (an all-gather over the group); outside a
+    group, the rows themselves.  Over a (dp, mp) mesh pass its dp group:
+    the mp replicas of a dp index hold the same rows."""
     if process_count() > 1:
-        parts = [torch.empty_like(x) for _ in range(process_count())]
-        dist.all_gather(parts, x.contiguous())
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x.contiguous(), group=group)
         x = torch.cat(parts)
     return x.detach().cpu().numpy()
 

@@ -13,12 +13,13 @@ seeded permutation, so the Trainer and the evaluator take either.  An
 epoch's indices and music codes are computed on the host and copied to the
 device once per epoch, not once per batch.
 
-Over a data-parallel mesh (core/mesh.py) the feature tables are split by
-store row over the ranks, each rank keeping 1/dp of them, as JAX's
-dp-sharded residency (`_make_lookup`, `_sharded_gather_program`,
-mgsv_tpu/data/device_data.py:84-141).  A batch is assembled by every rank
+Over a (dp, mp) mesh (core/mesh.py) the feature tables are split by
+store row over dp and replicated over mp, each rank keeping its dp index's
+1/dp of them, as JAX's dp-sharded residency (`_make_lookup`,
+`_sharded_gather_program`, mgsv_tpu/data/device_data.py:84-141;
+mgsv_tpu/train/loop.py:126-141).  A batch is assembled by every rank
 putting the global batch's rows it holds into a zeroed buffer, and one
-reduce-scatter over the ranks, JAX's psum_scatter, leaves each rank its
+reduce-scatter over its dp group, JAX's psum_scatter, leaves each rank its
 own rows: each row comes from one rank and zeros from the others, so the
 sum is exact and the batch equals the host pipeline's bit for bit.  The
 row maps and per-row metadata are small and kept whole on every rank.
@@ -97,7 +98,7 @@ def _store_share(n_rows: int, mesh: Optional[Mesh]) -> Tuple[int, int]:
     if n_rows < mesh.dp:
         raise ValueError(f"a store of {n_rows} rows cannot be split over {mesh.dp} ranks")
     per = -(-n_rows // mesh.dp)
-    lo = min(mesh.rank * per, n_rows)
+    lo = min(mesh.dp_index * per, n_rows)
     return lo, min(per, n_rows - lo)
 
 
@@ -156,7 +157,7 @@ class DeviceResidentData:
                  held(tree["mf"], mr, m_lo, m_n), held(tree["mm"], mr, m_lo, m_n)]
         buf = torch.cat(parts, dim=1)
         mine = torch.empty((b // mesh.dp, buf.shape[1]), dtype=buf.dtype, device=buf.device)
-        dist.reduce_scatter(mine, list(buf.chunk(mesh.dp)))
+        dist.reduce_scatter(mine, list(buf.chunk(mesh.dp)), group=mesh.dp_group)
         vf, vm, mf, mm = mine.split([p.shape[1] for p in parts], dim=1)
         rows = mine.shape[0]
         fm = vm.to(torch.float32)

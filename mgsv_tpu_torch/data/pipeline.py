@@ -8,11 +8,11 @@ memory when the device is a GPU, while the current step runs; the consumer copie
 device with `non_blocking=True`, so the copy overlaps the work already
 queued there.  A producer error is raised in the consumer.
 
-Over a data-parallel mesh (core/mesh.py) every rank draws the same seeded
-index stream and gathers only its own rows of each global batch
-(`process_local_rows`), the per-rank feeding of JAX's
-make_array_from_process_local_data (mgsv_tpu/data/pipeline.py:24-75).  The
-music codes are computed over the global batch and then sliced, since
+Over a (dp, mp) mesh (core/mesh.py) every rank draws the same seeded
+index stream and gathers only its dp index's rows of each global batch
+(`process_local_rows`; the mp replicas gather the same), the per-rank
+feeding of JAX's make_array_from_process_local_data
+(mgsv_tpu/data/pipeline.py:24-75).  The music codes are computed over the global batch and then sliced, since
 under loss.ignore_same_music 0 the negatives they mask span every rank;
 the batch's meta stays global.
 """

@@ -15,13 +15,13 @@ similarity runs on the evaluation kernel
 plain PyTorch on the CPU, unless `use_fused_sim` says otherwise; the
 ranking runs where the similarity lies.
 
-Over a data-parallel mesh (core/mesh.py), as JAX's evaluate over its dp
-mesh (mgsv_tpu/eval/evaluator.py:80-99): the batch is padded to a
-multiple of dp, each rank runs the eval step on its rows (the losses the
-global batch's), the per-row outputs are all-gathered to every rank, the
-evaluation kernel's tracks are split over the ranks
-(eval/similarity.py::xpool_sim_fused_sharded), and every rank computes the
-same metrics.
+Over a (dp, mp) mesh (core/mesh.py), as JAX's evaluate over its mesh
+(mgsv_tpu/eval/evaluator.py:80-99): the batch is padded to a multiple of
+dp, each rank runs the eval step on its dp index's rows (the losses the
+global batch's), the per-row outputs are all-gathered over the dp group
+to every rank, the corpus similarity is split over the mesh (the
+evaluation kernel's tracks over dp, the plain path 2-D over dp x mp;
+`corpus_similarity`), and every rank computes the same metrics.
 """
 
 from __future__ import annotations
@@ -38,7 +38,8 @@ from mgsv_tpu_torch.data.device_data import DeviceResidentData
 from mgsv_tpu_torch.data.pipeline import prefetch_epoch
 from mgsv_tpu_torch.eval import metrics as M
 from mgsv_tpu_torch.eval.similarity import (dual_similarity, xpool_sim_fused,
-                                            xpool_sim_fused_sharded, xpool_similarity_blocked)
+                                            xpool_sim_fused_sharded, xpool_similarity_blocked,
+                                            xpool_similarity_mesh)
 from mgsv_tpu_torch.models.made import MaDe
 from mgsv_tpu_torch.train.step import make_eval_step
 
@@ -160,8 +161,12 @@ def corpus_similarity(
     vmr_fusion builds none (XA-video) raises ValueError, where JAX's reads
     a parameter subtree that does not exist; "dual_single_oneloss" raises
     too, as JAX's does.  mesh: every rank holds the whole inputs and gets
-    the whole similarity; the evaluation kernel's tracks are split over the
-    ranks (`xpool_sim_fused_sharded`), the plain path runs whole on each."""
+    the whole similarity, as JAX's (mgsv_tpu/eval/evaluator.py:247-274):
+    the evaluation kernel's tracks are split over dp
+    (`xpool_sim_fused_sharded`; the mp replicas repeat their dp index's
+    block), the plain path runs 2-D over (dp, mp) or split over dp
+    (`xpool_similarity_mesh`); "dual_single_feature_fuse" runs whole on
+    each rank."""
     lc, m = cfg.loss, cfg.model
     mask = seg_masks if m.fusion_mask else None
     block = min(block_size, len(seg_tokens))
@@ -178,6 +183,9 @@ def corpus_similarity(
             return xpool_sim_fused_sharded(video_embs, seg_tokens, mask, xpool(), mesh)
         if use_fused_kernel:
             return xpool_sim_fused(video_embs, seg_tokens, mask, xpool())
+        if mesh is not None:
+            return xpool_similarity_mesh(xpool(), video_embs, seg_tokens, mask, mesh,
+                                         block_size=block)
         return xpool_similarity_blocked(xpool(), video_embs, seg_tokens, mask, block_size=block)
 
     if "XA" not in m.vmr_fusion or lc.vmr_loss == "dual":

@@ -2,11 +2,20 @@
 mgsv_tpu/ops/pallas/xpool_sim.py::xpool_sim_fused and
 mgsv_tpu/ops/losses.py::cosine_sim_matrix.
 
-`xpool_sim_fused_sharded` splits the evaluation kernel's tracks over the
-ranks of a data-parallel mesh (core/mesh.py), as JAX's shard_map of it
-(mgsv_tpu/eval/similarity.py:234-262).  The plain blocked sharded
-similarity, which only the engine's mesh path uses, and the 2-D (dp x mp)
-similarity are not ported and raise (ROADMAP.md queue 1)."""
+Over a (dp, mp) mesh (core/mesh.py), where every rank holds the whole
+inputs and gets the whole [V, M] similarity:
+- `xpool_similarity_sharded`: the plain blocked path with the tracks split
+  over one axis (JAX :94-129);
+- `xpool_similarity_sharded_2d`: the videos split over dp and the tracks
+  over mp, each rank one [V/dp, M/mp] block (JAX :132-170);
+- `xpool_similarity_mesh`: pads V and M and routes to one of the two, as
+  JAX's (:173-226);
+- `xpool_sim_fused_sharded`: the evaluation kernel with the tracks split
+  over dp, as JAX's shard_map of it (:229-262).
+Each rank computes its block alone, since the work is per (video, track)
+pair, and the blocks are all-gathered over the axis groups; every rank's
+block has one shape (all_gather needs equal sizes), so the inputs are
+padded before they are split."""
 
 from __future__ import annotations
 
@@ -14,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from mgsv_tpu_torch.core.mesh import Mesh, gather_rows
+from mgsv_tpu_torch.core.mesh import DATA_AXIS, MODEL_AXIS, Mesh, gather_rows
 from mgsv_tpu_torch.models.layers import l2_normalize
 from mgsv_tpu_torch.models.xpool import XPoolTransformer, sim_matrix_music_pooling
 from mgsv_tpu_torch.ops.cuda import xpool_sim as xps
@@ -23,6 +32,29 @@ from mgsv_tpu_torch.ops.cuda import xpool_sim as xps
 def dual_similarity(video_embs: torch.Tensor, music_embs: torch.Tensor) -> torch.Tensor:
     """Cosine similarity of the global embeddings: [V, D] x [M, D] -> [V, M]."""
     return l2_normalize(video_embs) @ l2_normalize(music_embs).T
+
+
+def pad_tracks(seg_tokens: torch.Tensor, seg_mask: Optional[torch.Tensor], multiple: int
+               ) -> tuple:
+    """(tokens, mask) with the track count padded to a multiple of
+    `multiple` by tracks of one valid zero snippet (a finite softmax); a
+    mask of None becomes all ones."""
+    m, s, d = seg_tokens.shape
+    if seg_mask is None:
+        seg_mask = torch.ones(m, s, device=seg_tokens.device)
+    pad = (-m) % multiple
+    if pad:
+        seg_tokens = torch.cat([seg_tokens, seg_tokens.new_zeros(pad, s, d)])
+        pad_mask = seg_mask.new_zeros(pad, s)
+        pad_mask[:, 0] = 1
+        seg_mask = torch.cat([seg_mask, pad_mask])
+    return seg_tokens, seg_mask
+
+
+def gather_columns(block: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """[R, C] on each rank of an `axis` group -> [R, n * C], the group's
+    blocks side by side in axis order, on every rank of it."""
+    return gather_rows(block.T.contiguous(), mesh, axis).T
 
 
 def xpool_similarity_blocked(
@@ -99,43 +131,104 @@ def xpool_sim_fused_sharded(
     xpool: XPoolTransformer,
     mesh: Mesh,
 ) -> torch.Tensor:
-    """`xpool_sim_fused` with the tracks split over the mesh's ranks: the
-    track count is padded to a multiple of dp with tracks of one valid
-    zero snippet (a finite softmax), each rank runs the evaluation kernel
-    on its block of tracks against every video, and the [tracks, V] blocks
-    are all-gathered; the pad columns are dropped, so they never rank.
-    Returns [V, M] on every rank."""
-    m, s, d = seg_tokens.shape
-    if seg_mask is None:
-        seg_mask = torch.ones(m, s, device=seg_tokens.device)
-    pad = (-m) % mesh.dp
-    if pad:
-        seg_tokens = torch.cat([seg_tokens, seg_tokens.new_zeros(pad, s, d)])
-        pad_mask = seg_mask.new_zeros(pad, s)
-        pad_mask[:, 0] = 1
-        seg_mask = torch.cat([seg_mask, pad_mask])
-    per = (m + pad) // mesh.dp
-    own = slice(mesh.rank * per, (mesh.rank + 1) * per)
+    """`xpool_sim_fused` with the tracks split over the mesh's dp axis: the
+    track count is padded to a multiple of dp (`pad_tracks`), each rank runs
+    the evaluation kernel on its dp index's block of tracks against every
+    video, and the [tracks, V] blocks are all-gathered over the dp group;
+    the pad columns are dropped, so they never rank.  The mp replicas of a
+    dp index compute the same block, as JAX's shard_map with P("dp")
+    (mgsv_tpu/eval/similarity.py:229-262).  Returns [V, M] on every rank."""
+    m = seg_tokens.shape[0]
+    seg_tokens, seg_mask = pad_tracks(seg_tokens, seg_mask, mesh.dp)
+    per = seg_tokens.shape[0] // mesh.dp
+    own = slice(mesh.dp_index * per, (mesh.dp_index + 1) * per)
     sims = xps.xpool_sim_eval(*xpool_eval_inputs(video_embs, seg_tokens[own], seg_mask[own],
                                                  xpool))              # [per, V]
     return gather_rows(sims.contiguous(), mesh)[:m].T.contiguous()
 
 
-def xpool_similarity_sharded(*args, **kwargs):
-    """JAX's plain blocked similarity with the index sharded over the
-    music axis (mgsv_tpu/eval/similarity.py:97-133), which only the
-    engine's mesh path uses: not ported."""
-    raise NotImplementedError("xpool_similarity_sharded serves the engine's mesh= path, "
-                              "which is not ported yet (ROADMAP.md, queue 1: the engine's "
-                              "mesh path)")
+def xpool_similarity_sharded(
+    xpool: XPoolTransformer,
+    video_embs: torch.Tensor,              # [V, D], every rank's whole
+    seg_tokens: torch.Tensor,              # [M, S, D], every rank's whole
+    seg_mask: Optional[torch.Tensor],      # [M, S] or None
+    mesh: Mesh,
+    axis: str = DATA_AXIS,
+    block_size: int = 256,
+) -> torch.Tensor:
+    """The blocked plain similarity with the tracks split over `axis`: each
+    rank of the axis group runs `xpool_similarity_blocked` on its block of
+    M / n tracks against every video, and the [V, M / n] blocks are
+    all-gathered over the group; mgsv_tpu/eval/similarity.py:94-129.  M
+    must divide by the axis size.  Returns [V, M] on every rank."""
+    n, m = mesh.shape[axis], seg_tokens.shape[0]
+    if m % n:
+        raise ValueError(f"music count {m} not divisible by mesh axis {axis}={n}")
+    per = m // n
+    own = slice(mesh.index(axis) * per, (mesh.index(axis) + 1) * per)
+    block = xpool_similarity_blocked(xpool, video_embs, seg_tokens[own],
+                                     None if seg_mask is None else seg_mask[own],
+                                     block_size=min(block_size, per))
+    return gather_columns(block, mesh, axis)
 
 
-def xpool_similarity_mesh(*args, **kwargs):
-    """JAX's 2-D (dp x mp) corpus similarity (xpool_similarity_sharded_2d,
-    xpool_similarity_mesh, mgsv_tpu/eval/similarity.py:136-228): not
-    ported."""
-    raise NotImplementedError("the 2-D (dp x mp) corpus similarity is not ported yet "
-                              "(ROADMAP.md, queue 1: the 2-D similarity)")
+def xpool_similarity_sharded_2d(
+    xpool: XPoolTransformer,
+    video_embs: torch.Tensor,              # [V, D], every rank's whole
+    seg_tokens: torch.Tensor,              # [M, S, D], every rank's whole
+    seg_mask: Optional[torch.Tensor],      # [M, S] or None
+    mesh: Mesh,
+    video_axis: str = DATA_AXIS,
+    music_axis: str = MODEL_AXIS,
+    block_size: int = 256,
+) -> torch.Tensor:
+    """The blocked plain similarity over the whole mesh: rank (i, j)
+    computes the [V / dp, M / mp] block of video block i and track block j
+    (no collective, the work being per pair), and the blocks are gathered
+    over the music axis's group, then over the video axis's, to the whole
+    [V, M] on every rank; mgsv_tpu/eval/similarity.py:132-170.  V must
+    divide by the video axis and M by the music axis."""
+    nv, nm = mesh.shape[video_axis], mesh.shape[music_axis]
+    v, m = video_embs.shape[0], seg_tokens.shape[0]
+    if v % nv or m % nm:
+        raise ValueError(f"[{v}, {m}] does not split over {video_axis}={nv} x "
+                         f"{music_axis}={nm}")
+    pv, pm = v // nv, m // nm
+    vi, mi = mesh.index(video_axis), mesh.index(music_axis)
+    tracks = slice(mi * pm, (mi + 1) * pm)
+    block = xpool_similarity_blocked(xpool, video_embs[vi * pv:(vi + 1) * pv],
+                                     seg_tokens[tracks],
+                                     None if seg_mask is None else seg_mask[tracks],
+                                     block_size=min(block_size, pm))
+    return gather_rows(gather_columns(block, mesh, music_axis).contiguous(), mesh, video_axis)
 
 
-xpool_similarity_sharded_2d = xpool_similarity_mesh
+def xpool_similarity_mesh(
+    xpool: XPoolTransformer,
+    video_embs: torch.Tensor,              # [V, D], every rank's whole
+    seg_tokens: torch.Tensor,              # [M, S, D], every rank's whole
+    seg_mask: Optional[torch.Tensor],      # [M, S] or None
+    mesh: Mesh,
+    block_size: int = 256,
+) -> torch.Tensor:
+    """The corpus similarity over a mesh, any V and M; JAX's
+    (mgsv_tpu/eval/similarity.py:173-226).  M is padded to a multiple of
+    mp, or of dp where mp = 1 (`pad_tracks`; a mask of None becomes all
+    ones, as JAX's evaluator passes at fusion_mask False,
+    mgsv_tpu/eval/evaluator.py:266-267); at mp > 1 V is padded to a
+    multiple of dp with rows of ones (a zero video embedding would 0/0 to
+    NaN in its own row) and the 2-D path runs, else the tracks split over
+    dp.  Returns exactly [V, M] on every rank."""
+    dp, mp = mesh.dp, mesh.mp
+    v, m = video_embs.shape[0], seg_tokens.shape[0]
+    seg_tokens, seg_mask = pad_tracks(seg_tokens, seg_mask, mp if mp > 1 else dp)
+    if mp > 1:
+        pad_v = (-v) % dp
+        if pad_v:
+            video_embs = torch.cat([video_embs, video_embs.new_ones(pad_v, video_embs.shape[1])])
+        sim = xpool_similarity_sharded_2d(xpool, video_embs, seg_tokens, seg_mask, mesh,
+                                          block_size=block_size)
+        return sim[:v, :m].contiguous()
+    sim = xpool_similarity_sharded(xpool, video_embs, seg_tokens, seg_mask, mesh,
+                                   block_size=min(block_size, seg_tokens.shape[0] // dp))
+    return sim[:, :m].contiguous()

@@ -1,6 +1,6 @@
 """Serving: music index + retrieval/localization query engine, ported from
-mgsv_tpu/serve/engine.py (single device; the sharded-index `mesh=` path is
-still to port and raises, ROADMAP.md queue 1: the engine's mesh path).
+mgsv_tpu/serve/engine.py, on one device or with the index sharded over the
+ranks of a mesh (`mesh=`, below).
 
 A query runs the video tower, the dual + pooled X-Pool similarity against
 the whole index, top-k, and DETR localization of every (query, candidate)
@@ -24,6 +24,20 @@ the index keeps the music tokens without the cls row, and a query's video
 duration comes from the raw frame mask, as JAX's.  An agg_module="mlp"
 model raises ValueError at the index build and at the engine: JAX's engine
 hands its towers no BatchNorm buffers and fails there.
+
+With `mesh=` (a core.mesh.Mesh) the index is sharded over the ranks of one
+axis, as JAX's (mgsv_tpu/serve/engine.py:154-182, :265-311), so the
+engine serves a catalog larger than one card holds.  The index is padded
+to a multiple of the axis size with tracks of one valid zero snippet and
+zero embeddings, and each rank keeps only its shard on its device,
+replicated over the other axis.  A query runs the video tower whole on
+every rank, the dual plus pooled similarity of the rank's shard ([B, M/n],
+the blocked plain path), an all-gather of it over the axis group to
+[B, M_pad] with the pad columns at -inf, and top-k, the same on every
+rank.  Each rank then localizes only the (query, candidate) pairs whose
+track it holds (none: no launch), and one all-reduce over the axis group
+of a [B * k, 3] buffer (start, end, score; zeros where another rank holds
+the pair) gives every rank the whole answer: tokens do not move.
 """
 
 from __future__ import annotations
@@ -36,7 +50,9 @@ import numpy as np
 import torch
 
 from mgsv_tpu_torch.config import Config
-from mgsv_tpu_torch.eval.similarity import dual_similarity, xpool_similarity_blocked
+from mgsv_tpu_torch.core.mesh import DATA_AXIS, MODEL_AXIS, all_reduce_sum, check_mesh
+from mgsv_tpu_torch.eval.similarity import (dual_similarity, gather_columns, pad_tracks,
+                                            xpool_similarity_blocked)
 from mgsv_tpu_torch.models import layers as L
 from mgsv_tpu_torch.models.made import MaDe
 from mgsv_tpu_torch.ops.spans import span_cw_to_se
@@ -119,20 +135,24 @@ def _bucket(n: int) -> int:
 
 
 class RetrievalEngine:
-    """Query-time engine: video features -> top-k tracks + moments."""
+    """Query-time engine: video features -> top-k tracks + moments.
+
+    index_dtype "bfloat16" halves the device-resident token store; compute
+    promotes it back to float32, so only stored values round.  mesh: a
+    core.mesh.Mesh whose `mesh_axis` ("dp" or "mp") the index is sharded
+    over (module docstring).  Under a mesh every rank must call `query` and
+    `warmup` with the same inputs, as every rank calls `evaluate` (SPMD):
+    each query takes collectives over the axis group."""
 
     def __init__(self, model: MaDe, cfg: Config, index: MusicIndex,
                  sim_block_size: int = 256,
                  use_fused_kernels: Optional[bool] = None,
-                 index_dtype: str = "float32", mesh=None):
-        # index_dtype "bfloat16" halves the device-resident token store;
-        # compute promotes it back to float32, so only stored values round.
+                 index_dtype: str = "float32", mesh=None, mesh_axis: str = DATA_AXIS):
         m = cfg.model
-        if mesh is not None:
-            raise NotImplementedError(
-                "the engine's mesh= path (the index sharded over the music axis, "
-                "mgsv_tpu/serve/engine.py:154-182) is not ported yet (ROADMAP.md, queue 1: "
-                "the engine's mesh path)")
+        check_mesh(mesh)
+        if mesh_axis not in (DATA_AXIS, MODEL_AXIS):
+            raise ValueError(f"mesh_axis={mesh_axis!r}: expected {DATA_AXIS!r} or "
+                             f"{MODEL_AXIS!r}")
         check_aggregator(cfg)
         unserved = {"vmr_fusion": (m.vmr_fusion, model.xpool is not None),
                     "vmr_loss": (cfg.loss.vmr_loss, cfg.loss.vmr_loss in SERVED_LOSSES),
@@ -162,11 +182,25 @@ class RetrievalEngine:
             store_dt = torch.float32
         else:
             raise ValueError(f"unsupported index_dtype: {index_dtype}")
+        self.mesh, self.mesh_axis = mesh, mesh_axis
         self._n_valid = len(index.music_ids)
-        self._seg_tokens = torch.as_tensor(index.seg_tokens, device=self.device).to(store_dt)
-        self._seg_masks = torch.as_tensor(index.seg_masks, dtype=torch.float32,
-                                          device=self.device)
-        self._music_embs = torch.as_tensor(index.music_embs, device=self.device).to(store_dt)
+        seg_tokens = torch.as_tensor(index.seg_tokens)
+        seg_masks = torch.as_tensor(index.seg_masks, dtype=torch.float32)
+        music_embs = torch.as_tensor(index.music_embs)
+        self._first = 0           # the global index of this rank's first track
+        if mesh is not None:
+            # pad tracks of one valid snippet and a zero embedding; they never rank (_run)
+            n = mesh.shape[mesh_axis]
+            seg_tokens, seg_masks = pad_tracks(seg_tokens, seg_masks, n)
+            music_embs = torch.cat([music_embs, music_embs.new_zeros(
+                seg_tokens.shape[0] - self._n_valid, music_embs.shape[1])])
+            per = seg_tokens.shape[0] // n
+            self._first = mesh.index(mesh_axis) * per
+            own = slice(self._first, self._first + per)
+            seg_tokens, seg_masks, music_embs = seg_tokens[own], seg_masks[own], music_embs[own]
+        self._seg_tokens = seg_tokens.to(self.device).to(store_dt)
+        self._seg_masks = seg_masks.to(self.device)
+        self._music_embs = music_embs.to(self.device).to(store_dt)
         self._autocast = cfg.model.compute_dtype == "bfloat16"
 
     def _localize_core(self, tokens, video_emb, fmask, seg_tokens, seg_masks, v_dur):
@@ -207,17 +241,41 @@ class RetrievalEngine:
         sims = sims + xpool_similarity_blocked(
             model.xpool, video_emb, self._seg_tokens,
             self._seg_masks if self.cfg.model.fusion_mask else None,
-            block_size=min(self.sim_block_size, self._n_valid))
+            block_size=min(self.sim_block_size, self._seg_tokens.shape[0]))  # [B, shard]
+        if self.mesh is not None:
+            sims = gather_columns(sims, self.mesh, self.mesh_axis)       # [B, M_pad]
+            pads = torch.arange(sims.shape[1], device=sims.device) >= self._n_valid
+            sims = sims.masked_fill(pads, float("-inf"))
         top_sims, order = torch.topk(sims, top_k, dim=1)        # [B, k]
         cand = order.reshape(-1)
-        rep = lambda t: t.repeat_interleave(top_k, dim=0)
         # video duration from the 1 fps frame mask
         v_dur = frame_mask.sum(dim=-1)
-        spans, scores = self._localize_core(
-            rep(tokens), rep(video_emb), rep(fmask),
-            self._seg_tokens[cand].float(), self._seg_masks[cand], rep(v_dur))
+        if self.mesh is not None:
+            spans, scores = self._localize_shard(tokens, video_emb, fmask, v_dur, cand, top_k)
+        else:
+            rep = lambda t: t.repeat_interleave(top_k, dim=0)
+            spans, scores = self._localize_core(
+                rep(tokens), rep(video_emb), rep(fmask),
+                self._seg_tokens[cand].float(), self._seg_masks[cand], rep(v_dur))
         b = frame_feats.shape[0]
         return order, top_sims, spans.reshape(b, top_k, 2), scores.reshape(b, top_k)
+
+    def _localize_shard(self, tokens, video_emb, fmask, v_dur, cand, top_k):
+        """Localization of the (query, candidate) pairs whose track this
+        rank's shard holds, the other pairs' rows zero, summed over the axis
+        group: every rank gets (spans [B * k, 2], scores [B * k]).  A rank
+        that holds no candidate launches nothing, and still joins the sum."""
+        local = cand - self._first
+        pair = ((local >= 0) & (local < self._seg_tokens.shape[0])).nonzero().squeeze(1)
+        out = torch.zeros(cand.shape[0], 3, device=cand.device)
+        if pair.numel():
+            rows, mine = pair // top_k, local[pair]
+            spans, scores = self._localize_core(
+                tokens[rows], video_emb[rows], fmask[rows],
+                self._seg_tokens[mine].float(), self._seg_masks[mine], v_dur[rows])
+            out[pair] = torch.cat([spans, scores[:, None]], dim=1)
+        out = all_reduce_sum(out, self.mesh, self.mesh_axis)
+        return out[:, :2], out[:, 2]
 
     def warmup(self, batch_sizes: Sequence[int] = (1, 2, 4, 8, 16, 32),
                top_k: int = 5) -> None:

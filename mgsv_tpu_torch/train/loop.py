@@ -10,15 +10,17 @@ updates every k-th.  train.device_data decides, as in JAX, whether the
 datasets are made resident on the device (data/device_data.py) or fed by
 the host pipeline.
 
-Over a data-parallel mesh (core/mesh.py; one is made from
-train.mesh_shape when the process is one rank of a torch.distributed group)
-every rank trains on its rows of each global batch, takes the same update
+Over a (dp, mp) mesh (core/mesh.py; one is made from train.mesh_shape
+when the process is one rank of a torch.distributed group) every rank
+trains on its dp index's rows of each global batch, takes the same update
 and keeps the same weights (train/step.py), and evaluates its rows into
-metrics every rank computes alike (eval/evaluator.py).  Only rank 0 writes
+metrics every rank computes alike (eval/evaluator.py); the mp replicas of
+a dp index repeat its work, as JAX's mesh does.  Only rank 0 writes
 checkpoints, TensorBoard and history.json; every rank takes the snapshots
 (a collective with gradient accumulation) and loads a resume point.  The
-epoch's per-row aggregates are gathered to every rank (core/dist.py::
-to_host), and the ranks meet at a barrier at the end of `fit`.
+epoch's per-row aggregates are gathered over the dp group to every rank
+(core/dist.py::to_host), and the ranks meet at a barrier at the end of
+`fit`.
 """
 
 from __future__ import annotations
@@ -98,7 +100,7 @@ class Trainer:
         check_mesh(mesh)
         if mesh is None and dist.process_count() > 1:
             mesh = make_mesh(cfg.train.mesh_shape)
-        check_mesh_shape(cfg.train.mesh_shape, 1 if mesh is None else mesh.dp)
+        check_mesh_shape(cfg.train.mesh_shape, 1 if mesh is None else mesh.dp * mesh.mp)
         self.cfg = cfg
         self.mesh = mesh
         self.primary = mesh is None or mesh.rank == 0
@@ -294,7 +296,8 @@ class Trainer:
             loss = float(step_losses.mean())
             ret = float(torch.stack(ret_losses).cpu().numpy().astype(np.float64).mean())
             loc = float(torch.stack(loc_losses).cpu().numpy().astype(np.float64).mean())
-            miou = float(np.mean(dist.to_host(torch.cat(ious))))
+            miou = float(np.mean(dist.to_host(
+                torch.cat(ious), None if self.mesh is None else self.mesh.dp_group)))
         else:
             # eval-only replay: restore found the epoch trained but unrecorded
             loss = ret = loc = miou = float("nan")

@@ -29,15 +29,16 @@ by parameter name, so a checkpoint restores into a fresh optimizer and a
 resumed run replays bit for bit (the step's dropout is keyed on
 `micro_step`).
 
-Over a data-parallel mesh (core/mesh.py) each rank's gradients are its
-share of the global batch's.  At k = 1 the training step sums them before
-the update (train/step.py); at k > 1 each rank folds its shares into its
-running mean and the update sums the means over the ranks once, before
-the clipping: the sum is linear, so this equals a sum at every
-micro-batch, with one all-reduce per update instead of k.  Between
-updates each rank's mean is its own share, so `state_dict` sums it over
-the ranks (every rank must call it) and `load_state_dict` gives the sum to
-rank 0 and zeros to the others.
+Over a (dp, mp) mesh (core/mesh.py) each rank's gradients are its share
+of the global batch's, and its dp group's sum is the whole.  At k = 1 the
+training step sums them before the update (train/step.py); at k > 1 each
+rank folds its shares into its running mean and the update sums the means
+over the dp group once, before the clipping: the sum is linear, so this
+equals a sum at every micro-batch, with one all-reduce per update instead
+of k.  Between updates each rank's mean is its own share, so `state_dict`
+sums it over the dp group (every rank must call it) and `load_state_dict`
+gives the sum to the rank of dp index 0 in each dp group and zeros to the
+others.
 """
 
 from __future__ import annotations
@@ -146,8 +147,9 @@ class GroupedAdam:
     @torch.no_grad()
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         """Copy a `state_dict` (any device) into this optimizer's tensors;
-        the names must be this optimizer's, exactly.  Over a mesh rank 0
-        takes the accumulated mean and the other ranks zeros."""
+        the names must be this optimizer's, exactly.  Over a mesh the rank
+        of dp index 0 in each dp group takes the accumulated mean and the
+        other ranks zeros, so each dp group's sum is the mean."""
         acc = state.get("acc_grads", {})
         for key, have, got in (("mu", self.state, state["mu"]),
                                ("nu", self.state, state["nu"]),
@@ -162,7 +164,7 @@ class GroupedAdam:
         for name, (mu, nu) in self.state.items():
             mu.copy_(state["mu"][name])
             nu.copy_(state["nu"][name])
-        share = self.mesh is None or self.mesh.rank == 0
+        share = self.mesh is None or self.mesh.dp_index == 0
         for name, a in self.acc.items():
             if share:
                 a.copy_(acc[name])

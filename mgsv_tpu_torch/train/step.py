@@ -12,11 +12,12 @@ of the global batch and compute the global batch's loss (train/
 objective.py).  The training step sums the ranks' partial gradients once
 per update (core/mesh.py::sync_gradients; with gradient accumulation the
 optimizer does, at the update), so every rank clips by the same norm and
-applies the same update.  The rank is folded into the step's dropout
+applies the same update.  The dp index is folded into the step's dropout
 generator (core/mesh.py::fold_axis_into_seed), from which every plain
 dropout mask and every kernel's Philox seed is drawn, so one local row
-draws other masks on each rank, as JAX folds the dp index into its
-kernels' seeds.
+draws other masks at each dp index, as JAX folds axis_index("dp") into its
+kernels' seeds; the mp replicas of a dp index draw the same masks and
+keep the same weights.
 """
 
 from __future__ import annotations
@@ -34,12 +35,12 @@ from mgsv_tpu_torch.train.objective import total_loss
 from mgsv_tpu_torch.train.optimizer import GroupedAdam, global_norm
 
 
-def step_generator(seed: int, step: int, device: torch.device, rank: int = 0
+def step_generator(seed: int, step: int, device: torch.device, dp_index: int = 0
                    ) -> torch.Generator:
     """The step's dropout generator on `device`, keyed on (seed, step) as
-    the JAX step keys its rng with fold_in(rng, step), with the rank folded
-    into the seed (rank 0 keeps it)."""
-    key = int(np.random.SeedSequence([fold_axis_into_seed(seed, rank), step])
+    the JAX step keys its rng with fold_in(rng, step), with the dp index
+    folded into the seed (dp index 0 keeps it)."""
+    key = int(np.random.SeedSequence([fold_axis_into_seed(seed, dp_index), step])
               .generate_state(1, np.uint64)[0])
     return torch.Generator(device=device).manual_seed(key)
 
@@ -86,7 +87,7 @@ def make_train_step(model: MaDe, cfg: Config, optimizer: GroupedAdam,
     def train_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         generator = step_generator(cfg.train.seed, optimizer.micro_step,
                                    batch["frame_feats"].device,
-                                   0 if mesh is None else mesh.rank)
+                                   0 if mesh is None else mesh.dp_index)
         for p in params:
             p.grad = None
         out = model(batch["frame_feats"], batch["frame_mask"], batch["segment_feats"],

@@ -804,3 +804,48 @@ def test_cuda_two_ranks_over_nccl_equal_one_process(dev, tmp_path):
             assert np.array_equal(ranks[0][key], ranks[1][key]), key
     want = W.run_case(case, None)
     W.assert_close_to_one_process(ranks[0], want, cfg)
+
+
+def test_cuda_sharded_engine_on_two_ranks(dev, tmp_path):
+    """The engine's mesh path on the card: Config()'s widths, 24 tracks of
+    random tower outputs sharded over 2 ranks (gloo on one card, NCCL a card
+    each on two), the DETR encoder on #1, against the one-process engine on
+    #1: ids identical, scores within 1e-4, moments within 5e-3 s (the
+    engine bar of chip_smoke.py); #1 launches only on a rank that holds a
+    candidate, and each rank's launches equal its share of the pairs."""
+    import torch_port_dist_worker as W
+    from mgsv_tpu_torch.config import Config
+    from mgsv_tpu_torch.models.made import MaDe
+    from mgsv_tpu_torch.serve.engine import MusicIndex
+
+    over = {"model.compute_dtype": "float32"}
+    cfg = Config.from_overrides(over)
+    d, s, f = cfg.model.dim_input, cfg.data.max_snippet_num, cfg.data.max_v_frames
+    rng = np.random.default_rng(0)
+    n = 24
+    weights, index, queries = (str(tmp_path / p) for p in ("w.pt", "i.npz", "q.npz"))
+    torch.save(MaDe(cfg, torch.Generator().manual_seed(3)).state_dict(), weights)
+    MusicIndex([f"m{i}" for i in range(n)], rng.standard_normal((n, d), dtype=np.float32),
+               rng.standard_normal((n, s, d), dtype=np.float32),
+               (np.arange(s)[None] < rng.integers(1, s + 1, n)[:, None]).astype(np.float32)
+               ).save(index)
+    np.savez(queries, frames=rng.standard_normal((4, f, cfg.data.vit_dim), dtype=np.float32),
+             fmask=(np.arange(f)[None] < rng.integers(2, f + 1, 4)[:, None]).astype(np.float32))
+    case = {"kind": "engine", "overrides": over, "weights": weights, "index": index,
+            "queries": queries, "queries_list": [([0], 5), ([0, 1, 2, 3], 5)],
+            "device": "cuda", "fused": True, "axis": "dp"}
+    ranks = W.launch({"engine": case}, str(tmp_path), 2, "cuda")["engine"]
+    want = W.run_case(case, None)
+    for i in range(2):
+        assert int(want[f"q{i}/launches"]) == cfg.model.detr_enc_layers
+        for got in ranks:
+            np.testing.assert_array_equal(got[f"q{i}/ids"], want[f"q{i}/ids"])
+            for key in ("retrieval_scores", "moment_scores"):
+                np.testing.assert_allclose(got[f"q{i}/{key}"], want[f"q{i}/{key}"], atol=1e-4,
+                                           rtol=0)
+            np.testing.assert_allclose(got[f"q{i}/moments"], want[f"q{i}/moments"], atol=5e-3,
+                                       rtol=0)
+            held = int(got[f"q{i}/localized_rows"])
+            assert int(got[f"q{i}/launches"]) == (cfg.model.detr_enc_layers if held else 0)
+        assert sum(int(g[f"q{i}/localized_rows"]) for g in ranks) == int(
+            want[f"q{i}/localized_rows"])

@@ -46,7 +46,6 @@ from mgsv_tpu_torch.core.device import check_mesh_shape
 from mgsv_tpu_torch.core.mesh import Mesh, fold_axis_into_seed, process_local_rows
 from mgsv_tpu_torch.data import synthetic
 from mgsv_tpu_torch.data.example_batch import example_batch
-from mgsv_tpu_torch.eval import similarity
 from mgsv_tpu_torch.interop.from_jax import load_jax_params
 from mgsv_tpu_torch.interop.state_dict import jax_tree_to_state_dict
 from mgsv_tpu_torch.models.made import MaDe
@@ -187,9 +186,16 @@ def test_two_rank_step_equals_jax_dp2_mesh(runs):
     shard_map, Pallas in interpret mode), the weights carried across from
     JAX's init: test_torch_port_train.py's tolerances (loss 1e-5, gradients
     atol 1e-5 + rtol 1e-4, the update through _assert_update)."""
-    side = runs["jax"]
+    assert_step_equals_jax_mesh(runs["jax"], runs["ranks"]["base"][0],
+                                runs["cases"]["base"]["overrides"], (2, 1))
+
+
+def assert_step_equals_jax_mesh(side: dict, got: dict, overrides: dict, shape) -> None:
+    """A rank's step results `got` against JAX's step on a mesh of `shape`
+    from the same init and global batch (`side`), at test (b)'s
+    tolerances."""
     jcfg, params, batch = side["jcfg"], side["params"], side["batch"]
-    mesh = jax_make_mesh((2, 1), jax.devices()[:2])
+    mesh = jax_make_mesh(shape, jax.devices()[:shape[0] * shape[1]])
     model = JaxMaDe(jcfg, mesh=mesh)
     jb = shard_batch(mesh, {k: jnp.asarray(v) for k, v in batch.items()})
     key = jax.random.PRNGKey(1)
@@ -207,8 +213,7 @@ def test_two_rank_step_equals_jax_dp2_mesh(runs):
     state, _ = jax_make_train_step(model, jcfg)(state, jb, key)
     after = jax.device_get(state.params)
 
-    got = runs["ranks"]["base"][0]
-    cfg = Config.from_overrides(runs["cases"]["base"]["overrides"])
+    cfg = Config.from_overrides(overrides)
     np.testing.assert_allclose(float(got["log0/loss"]), float(loss), rtol=1e-5)
     want = jax_tree_to_state_dict(jax.device_get(grads), cfg)
     for name, g in want.items():
@@ -354,32 +359,33 @@ def test_cli_train_and_evaluate_on_two_ranks(tmp_path):
 
 
 def test_model_axis_and_engine_mesh_raise():
-    """(h) What stays unported raises and names its ROADMAP.md item: a model
-    axis above 1, one process over several devices, the engine's mesh=
-    path, and the 2-D and plain sharded similarities; a dp that is not the
-    world's is refused."""
-    for shape in ((1, 2), (2, 2), (-1, 4)):
-        with pytest.raises(NotImplementedError, match="queue 1: the 2-D similarity"):
-            check_mesh_shape(shape, 2)
-    with pytest.raises(NotImplementedError, match="one process over several devices"):
-        check_mesh_shape((2, 1), 1)
-    with pytest.raises(ValueError, match="dp must be"):
+    """(h) What stays unported raises and names its ROADMAP.md item: one
+    process over several devices (a mesh shape of several ranks in one
+    process, a JAX device mesh given as the mesh); a dp x mp that is not the
+    world's, an mp that does not divide it and an engine axis that is not
+    dp or mp are refused.  The model axis, the engine's mesh path and the
+    sharded similarities are held by tests/test_torch_port_model_axis.py."""
+    for shape in ((2, 1), (1, 2), (2, 2), (-1, 2)):
+        with pytest.raises(NotImplementedError, match="one process over several devices"):
+            check_mesh_shape(shape, 1)
+    with pytest.raises(ValueError, match="dp x mp must be"):
         check_mesh_shape((3, 1), 2)
+    with pytest.raises(ValueError, match="dp x mp must be"):
+        check_mesh_shape((2, 2), 2)
+    with pytest.raises(ValueError, match="does not divide"):
+        check_mesh_shape((-1, 3), 4)
     for shape in ((2, 1), (-1, 1), (1, 1)):
-        check_mesh_shape(shape, 2)
+        assert check_mesh_shape(shape, 2) == (2, 1)
     cfg = Config.from_overrides(TINY)
     model = MaDe(cfg)
     index = tengine.MusicIndex(["a"], np.zeros((1, 32), np.float32),
                                np.zeros((1, cfg.data.max_snippet_num, 32), np.float32),
                                np.ones((1, cfg.data.max_snippet_num), np.float32))
-    with pytest.raises(NotImplementedError, match="queue 1: the engine's mesh path"):
-        tengine.RetrievalEngine(model, cfg, index, mesh=Mesh(dp=2, rank=0))
-    with pytest.raises(NotImplementedError, match="queue 1: the engine's mesh path"):
-        similarity.xpool_similarity_sharded()
-    for fn in (similarity.xpool_similarity_mesh, similarity.xpool_similarity_sharded_2d):
-        with pytest.raises(NotImplementedError, match="queue 1: the 2-D similarity"):
-            fn()
+    with pytest.raises(NotImplementedError, match="one process over several devices"):
+        tengine.RetrievalEngine(model, cfg, index, mesh=jax_make_mesh((2, 1),
+                                                                       jax.devices()[:2]))
+    with pytest.raises(ValueError, match="mesh_axis"):
+        tengine.RetrievalEngine(model, cfg, index, mesh=Mesh(dp=2, rank=0), mesh_axis="tp")
     np.testing.assert_array_equal(process_local_rows(8, Mesh(dp=2, rank=1)), np.arange(4, 8))
     with pytest.raises(ValueError):
         process_local_rows(7, Mesh(dp=2, rank=0))
-

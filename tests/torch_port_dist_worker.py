@@ -1,11 +1,13 @@
-"""One rank of the port's data-parallel checks (tests/test_torch_port_dist.py).
+"""One rank of the port's distributed checks (tests/test_torch_port_dist.py,
+tests/test_torch_port_model_axis.py).
 
     python tests/torch_port_dist_worker.py SPEC_JSON RANK
 
 joins a group of the spec's world size on the spec's device (gloo on the
-CPU, NCCL where each rank has a card) and runs each of the spec's cases on
-this rank's rows, writing `<out>/<case>.rank<RANK>.npz`; `launch` starts
-the ranks and reads their results.  The same functions run a case in one
+CPU, NCCL where each rank has a card), makes the mesh of the spec's
+`mesh_shape` (default: every rank on dp) and runs each of the spec's cases
+on this rank's rows, writing `<out>/<case>.rank<RANK>.npz`; `launch`
+starts the ranks and reads their results.  The same functions run a case in one
 process (mesh None) for the tests' reference, and
 `assert_close_to_one_process` holds a rank's step to it.  The module
 imports nothing of JAX, so the `cuda` tests use it too.  Cases:
@@ -20,6 +22,12 @@ imports nothing of JAX, so the `cuda` tests use it too.  Cases:
   over the ranks or whole.
 - resident: the epoch's batches of the dp-sharded resident tables and of
   the host pipeline, this rank's rows.
+- similarity: the plain corpus similarity of given inputs over the mesh
+  (`xpool_similarity_mesh`) and with the tracks split over dp
+  (`xpool_similarity_sharded`), or blocked in one process.
+- engine: `RetrievalEngine` queries with the index sharded over the
+  spec's axis, or whole in one process, and the pair rows each rank
+  localized.
 """
 
 from __future__ import annotations
@@ -177,8 +185,62 @@ def resident_case(case: dict, mesh: Optional[Mesh]) -> Dict[str, np.ndarray]:
     return out
 
 
+def similarity_case(case: dict, mesh: Optional[Mesh]) -> Dict[str, np.ndarray]:
+    from mgsv_tpu_torch.eval import similarity as S
+    from mgsv_tpu_torch.models.xpool import XPoolTransformer
+
+    z = np.load(case["inputs"])
+    xpool = XPoolTransformer(int(z["mesh_video"].shape[1]))
+    xpool.load_state_dict(torch.load(case["weights"], weights_only=True), strict=True)
+    out = {}
+    with torch.no_grad():
+        for name in ("mesh", "sharded"):
+            video, toks, mask = (torch.from_numpy(z[f"{name}_{k}"])
+                                 for k in ("video", "tokens", "mask"))
+            if mesh is None:
+                sim = S.xpool_similarity_blocked(xpool, video, toks, mask, block_size=4)
+            elif name == "mesh":
+                sim = S.xpool_similarity_mesh(xpool, video, toks, mask, mesh, block_size=4)
+            else:
+                sim = S.xpool_similarity_sharded(xpool, video, toks, mask, mesh, block_size=4)
+            out[name] = sim.numpy()
+    return out
+
+
+def engine_case(case: dict, mesh: Optional[Mesh]) -> Dict[str, np.ndarray]:
+    """Each query of the case's list ([rows, top_k]) through one engine (the
+    DETR encoder on #1 where the case says "fused"): the ids as index rows,
+    the scores, the moments, the pair rows this rank localized and #1's
+    launches."""
+    from mgsv_tpu_torch.ops.cuda import fused_encoder_layer as fel
+    from mgsv_tpu_torch.serve.engine import MusicIndex, RetrievalEngine
+
+    cfg = Config.from_overrides(case["overrides"])
+    model = load_model(cfg, case["weights"], device_of(case, mesh)).eval()
+    index = MusicIndex.load(case["index"])
+    engine = RetrievalEngine(model, cfg, index, sim_block_size=4,
+                             use_fused_kernels=case.get("fused", False),
+                             mesh=mesh, mesh_axis=case.get("axis", "dp"))
+    rows = []
+    core = engine._localize_core
+    engine._localize_core = lambda *a: (rows.append(a[0].shape[0]), core(*a))[1]
+    z = np.load(case["queries"])
+    row_of = {m: i for i, m in enumerate(index.music_ids)}
+    out = {}
+    for i, (take, top_k) in enumerate(case["queries_list"]):
+        rows.clear()
+        fel.fused_encoder_layer.launches = 0
+        res = engine.query(z["frames"][take], z["fmask"][take], top_k=top_k)
+        out[f"q{i}/launches"] = np.int64(fel.fused_encoder_layer.launches)
+        out[f"q{i}/ids"] = np.asarray([[row_of[m] for m in r["music_ids"]] for r in res])
+        for key in ("retrieval_scores", "moments", "moment_scores"):
+            out[f"q{i}/{key}"] = np.asarray([r[key] for r in res], np.float64)
+        out[f"q{i}/localized_rows"] = np.int64(sum(rows))
+    return out
+
+
 CASES = {"step": step_case, "dropout": dropout_case, "evaluate": evaluate_case,
-         "resident": resident_case}
+         "resident": resident_case, "similarity": similarity_case, "engine": engine_case}
 
 
 def run_case(case: dict, mesh: Optional[Mesh]) -> Dict[str, np.ndarray]:
@@ -207,15 +269,16 @@ def wait_all(procs, what: str) -> list:
     return outs
 
 
-def launch(cases: Dict[str, dict], tmp: str, world: int, device: str = "cpu") -> dict:
+def launch(cases: Dict[str, dict], tmp: str, world: int, device: str = "cpu",
+           mesh_shape=(-1, 1)) -> dict:
     """Run `cases` on `world` ranks of this file, one process each, on
-    `device`: {case: [each rank's results]}."""
+    `device`, over a mesh of `mesh_shape`: {case: [each rank's results]}."""
     out = os.path.join(tmp, "out")
     os.makedirs(out, exist_ok=True)
     spec = os.path.join(tmp, "spec.json")
     with open(spec, "w") as f:
         json.dump({"coordinator": f"localhost:{free_port()}", "world": world, "out": out,
-                   "device": device, "cases": cases}, f)
+                   "device": device, "cases": cases, "mesh_shape": list(mesh_shape)}, f)
     env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": REPO}
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), spec, str(r)],
                               cwd=REPO, env=env, text=True, stdout=subprocess.PIPE,
@@ -270,7 +333,7 @@ def main() -> None:
     with open(spec_path) as f:
         spec = json.load(f)
     dist.initialize(spec["coordinator"], spec["world"], rank, spec["device"])
-    mesh = make_mesh()
+    mesh = make_mesh(spec.get("mesh_shape", (-1, 1)))
     for name, case in spec["cases"].items():
         np.savez(os.path.join(spec["out"], f"{name}.rank{rank}.npz"), **run_case(case, mesh))
     dist.shutdown()
