@@ -193,6 +193,17 @@ failure:
               2,048 rows with the plain 2-D similarity and with #4 split
               over dp, each within 1e-4 of one process's, ranks moved only
               at near ties
+ 25. ab     the trained-behaviour A/B of scripts/ab_kernels_cuda.py at
+              the paper widths, its kernel arms (Config() on #1/#2/#3, and
+              with fused_temporal on #5 too) against the plain arm: the
+              dropout fingerprint at AB_DRAWS mask draws a scenario (one
+              64-row batch, float32; the "none" control within its bound,
+              Holm clean over each arm's means and spreads), then the
+              dropout-off check (float32, rate 0, bs 32): 24 steps of each
+              kernel arm from the plain arm's weights and optimizer state,
+              loss and gradient norm within their bounds, and the
+              free-running trajectories beside a one-ulp control; each
+              arm's launches of #1, #2, #3 and #5
 
 then prints the kernels' JSON line and, last, {"ok": true, "device": ...}.
 It exits non-zero, without that last line, when no CUDA device is present
@@ -401,6 +412,7 @@ MA_MESH_SHAPE = (2, 2)     # its step and evaluation: dp x mp ranks on the one c
 MA_MESH_RANKS = MA_MESH_SHAPE[0] * MA_MESH_SHAPE[1]
 MA_QUERY_REPS = 10         # timed queries a batch, for the p50
 MA_SIM_REPS = 3            # timed 2-D similarities of EVAL_N x EVAL_N a rank
+AB_DRAWS = 16              # mask draws a scenario of the [ab] fingerprint
 
 COUNTERS = {"fused_encoder_layer": fel.fused_encoder_layer,
             "fused_encoder_layer_bwd": fel.fused_encoder_layer_bwd,
@@ -3629,6 +3641,52 @@ def check_model_axis(device: torch.device, card: str, tmp: str, runs: dict,
     phase("model-axis", seconds=f"{time.perf_counter() - t0:.2f}")
 
 
+def check_ab(device: torch.device, card: str) -> None:
+    """Phase 25 (module docstring): scripts/ab_kernels_cuda.py's fingerprint
+    and dropout-off check, each failure raised."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
+    import ab_kernels_cuda as ab
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        a = ab.parse_args(["--device", str(device), "--dropout", "off", "--fingerprint",
+                           "--draws", str(AB_DRAWS), "--out", tmp,
+                           "--report", os.path.join(tmp, "report.md")])
+        cfg = ab.arm_config("plain", ab.base_overrides(a))
+        res = ab.run_fingerprint(a, device, ab.make_store(os.path.join(tmp, "fp"), cfg,
+                                                          a.fp_rows, a))
+        verdict = ab.fingerprint_verdict(res)
+        for arm, v in verdict.items():
+            counts = {k: sum(res["launches"][(scen, arm)][k] for scen in ab.SCENARIOS)
+                      for k in ab.COUNTERS}
+            phase("ab", mode="fingerprint", arm=arm, draws=AB_DRAWS, rows=a.fp_rows,
+                  none_max_rel=f"{v['none_max_rel']:.3e}", none_rtol=ab.NONE_RTOL,
+                  holm="clean" if v["clean"] else "REJECTED:" + ",".join(v["rejected"]),
+                  fused_encoder_layer=counts["fused_encoder_layer"],
+                  xpool_sim_fwd=counts["xpool_sim_fwd"],
+                  fused_temporal_layer=counts["fused_temporal_layer"], card=json.dumps(card))
+        if not ab.fingerprint_ok(verdict):
+            raise AssertionError(f"ab fingerprint: {verdict}")
+        res = ab.run_off(a, device, ab.make_store(os.path.join(tmp, "data"), cfg, a.rows, a),
+                         tmp)
+    for arm in ab.KERNEL_ARMS:
+        r, c = res["arms"][arm], res["launches"][arm]
+        phase("ab", mode="dropout-off", arm=arm, steps=a.steps, B=a.bs,
+              held_loss_max_rel=f"{r['max_rel']:.3e}", rtol=ab.OFF_RTOL,
+              held_grad_norm_max_rel=f"{r['grad_norm_max_rel']:.3e}",
+              grad_norm_rtol=ab.GRAD_NORM_RTOL, free_max_rel=f"{r['free_max_rel']:.3e}",
+              free_first_over=r["free_first_over"],
+              control_first_over=res["arms"]["control"]["free_first_over"],
+              fused_encoder_layer=c["fused_encoder_layer"],
+              fused_encoder_layer_bwd=c["fused_encoder_layer_bwd"],
+              xpool_sim_fwd=c["xpool_sim_fwd"], xpool_sim_bwd=c["xpool_sim_bwd"],
+              fused_temporal_layer=c["fused_temporal_layer"],
+              fused_temporal_layer_bwd=c["fused_temporal_layer_bwd"], card=json.dumps(card))
+    if not ab.off_ok(res):
+        raise AssertionError(f"ab dropout off: {res['arms']}")
+    phase("ab", seconds=f"{time.perf_counter() - t0:.2f}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one NVIDIA GPU",
@@ -3680,6 +3738,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         ddp_runs = check_ddp(device, card, tmp)
         check_model_axis(device, card, tmp, ddp_runs, index, videos, vmask)
+    check_ab(device, card)
     launches["xpool_sim_eval"] = fit_launches["xpool_sim_eval"]      # per evaluation
     launches["flash_attention"] = extract_launches["flash_attention"]  # per extraction
     for kernel in ("fused_temporal_layer", "fused_temporal_layer_bwd"):  # per fused_temporal step

@@ -25,6 +25,8 @@ magnitude plus twice the bf16 plain version's own distance from it.
 """
 
 import copy
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -849,3 +851,25 @@ def test_cuda_sharded_engine_on_two_ranks(dev, tmp_path):
             assert int(got[f"q{i}/launches"]) == (cfg.model.detr_enc_layers if held else 0)
         assert sum(int(g[f"q{i}/localized_rows"]) for g in ranks) == int(
             want[f"q{i}/localized_rows"])
+
+
+def test_cuda_ab_fingerprint(dev, tmp_path):
+    """scripts/ab_kernels_cuda.py's dropout fingerprint on the card at D=256
+    with short sequences (12 frames, 12 snippets, vit 64, ast 96, 2 decoder
+    layers): 16 mask draws a scenario of one 16-row batch, float32.  Each
+    kernel arm launches exactly its forwards (#1 and #3, and #5 in
+    kernels_temporal), its "none" control lies within NONE_RTOL of the plain
+    arm's, and Holm's step-down over its means and spreads is clean."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts"))
+    import ab_kernels_cuda as ab
+
+    a = ab.parse_args(["--device", "cuda", "--fingerprint", "--draws", "16", "--fp-rows", "16",
+                       "--out", str(tmp_path), "--report", str(tmp_path / "report.md"),
+                       "--data.max_v_frames", "12", "--data.stride", "20.0",
+                       "--data.filter_sec", "20.0", "--data.vit_dim", "64",
+                       "--data.ast_dim", "96", "--model.detr_dec_layers", "2"])
+    cfg = ab.arm_config("plain", ab.base_overrides(a))
+    res = ab.run_fingerprint(a, dev, ab.make_store(str(tmp_path / "fp"), cfg, a.fp_rows, a))
+    verdict = ab.fingerprint_verdict(res)
+    assert ab.fingerprint_ok(verdict), verdict

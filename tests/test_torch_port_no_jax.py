@@ -4,7 +4,7 @@ interpreter in which importing them, or the top-level package `mgsv_tpu`,
 fails imports
 every mgsv_tpu_torch module, chip_smoke.py and the scripts that drive the
 port on the card (scripts/profile_{serving,train,eval}_cuda.py,
-scripts/time_{encoder_layer,xpool,layers}_cuda.py)."""
+scripts/time_{encoder_layer,xpool,layers}_cuda.py, scripts/ab_kernels_cuda.py)."""
 
 import os
 import subprocess
@@ -36,7 +36,7 @@ import chip_smoke
 for script in ("scripts/profile_serving_cuda.py", "scripts/profile_train_cuda.py",
                "scripts/profile_eval_cuda.py",
                "scripts/time_encoder_layer_cuda.py", "scripts/time_xpool_cuda.py",
-               "scripts/time_layers_cuda.py"):
+               "scripts/time_layers_cuda.py", "scripts/ab_kernels_cuda.py"):
     runpy.run_path(script, run_name="not_main")
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 print(len(names))
