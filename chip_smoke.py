@@ -204,8 +204,17 @@ failure:
               loss and gradient norm within their bounds, and the
               free-running trajectories beside a one-ulp control; each
               arm's launches of #1, #2, #3 and #5
+ 26. jax-resume  a run of the JAX package's Trainer carried into the port
+              (tests/fixtures/jax_run: D=256, every other width small,
+              float32, dropout off, preempted mid-epoch by JAX and converted
+              by scripts/convert_jax_run.py) resumed by `cli.train --device
+              cuda --train.resume last` on the kernels (#1/#2/#3 in each
+              step, #4 in each evaluation): every resumed step's loss and
+              each continued history record within 1e-4 of JAX's own
+              resumed run, recorded beside the fixture; the launches
 
-then prints the kernels' JSON line and, last, {"ok": true, "device": ...}.
+Every line ends in at_s, the seconds since the script started.  Then it
+prints the kernels' JSON line and, last, {"ok": true, "device": ...}.
 It exits non-zero, without that last line, when no CUDA device is present
 or any phase fails.
 """
@@ -220,6 +229,7 @@ import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -236,9 +246,11 @@ from mgsv_tpu_torch.cli import evaluate as evaluate_cli
 from mgsv_tpu_torch.cli import extract_features as extract_cli
 from mgsv_tpu_torch.cli import index as index_cli
 from mgsv_tpu_torch.cli import train as train_cli
+from mgsv_tpu_torch.cli.overrides import overrides_to_args
 from mgsv_tpu_torch.config import Config
 from mgsv_tpu_torch.core import dist
 from mgsv_tpu_torch.core.checkpoint import CheckpointManager, load_weights
+from mgsv_tpu_torch.core.flops import peak_tflops, train_step_flops
 from mgsv_tpu_torch.core.device import resolve_device
 from mgsv_tpu_torch.core.mesh import local_rows, make_mesh, sync_gradients
 from mgsv_tpu_torch.data import synthetic_raw
@@ -269,11 +281,13 @@ from mgsv_tpu_torch.ops.cuda import fused_temporal_layer as ftl
 from mgsv_tpu_torch.ops.cuda import xpool_sim as xps
 from mgsv_tpu_torch.runtime import kernels, native
 from mgsv_tpu_torch.serve.engine import MusicIndex, RetrievalEngine, build_music_index
+from mgsv_tpu_torch.train import loop as train_loop
 from mgsv_tpu_torch.train.loop import Preempted
 from mgsv_tpu_torch.train.objective import total_loss
 from mgsv_tpu_torch.train.optimizer import GroupedAdam, make_optimizer
 from mgsv_tpu_torch.train.step import make_eval_step, make_train_step, step_generator
 
+STARTED = time.perf_counter()
 SEED = 0
 DROPOUT_SEED = 1234        # the Philox seed of the kernel phases
 TRAIN_B = 512              # the paper's training batch
@@ -284,7 +298,7 @@ SERVE_V = 32               # videos of a B=32 serving scan over the N_TRACKS ind
 SERVE_ROWS = (8, 256)      # fused rows B*k: a B=1 query, and B=32 x k-bucket 8
 TIMED_STEPS = 5
 GATHER_TURNS = 6           # host gathers of a B=512 batch, native and numpy in turns
-EVAL_TURNS = 5             # evaluations of the EVAL_N rows, resident and host in turns
+EVAL_TURNS = 3             # evaluations of the EVAL_N rows, resident and host in turns
 ACCUM_K = 2                # gradient accumulation of the train-accum phase
 Q_MULTI = 10               # moment queries of the multi-query phases
 HORIZON = 1000             # schedule length the optimizers are built for
@@ -397,7 +411,7 @@ RANK_TIE_ATOL = 2e-4
 MIOU_ATOL = 1e-6           # the evaluation CLI's mIoU against the trainer's record
 DDP_RANKS = 2              # ranks of the ddp phase, on the one card
 DDP_TIMED_STEPS = 3        # float32 steps timed on each rank and in one process
-SYNC_REPS = 5              # timed gradient syncs a rank
+SYNC_REPS = 3              # timed gradient syncs a rank
 DDP_RANK_TIMEOUT = 600     # seconds a rank job may take
 # the 2-rank cli.train's and cli.evaluate's records against one process's
 # (float32, dropout 0; one epoch of 4 steps): the losses agree to float32
@@ -410,9 +424,12 @@ DDP_MIOU_ATOL = 1e-3
 MA_ENGINE_RANKS = 2        # the model-axis phase's engine: the index over 2 ranks (dp)
 MA_MESH_SHAPE = (2, 2)     # its step and evaluation: dp x mp ranks on the one card
 MA_MESH_RANKS = MA_MESH_SHAPE[0] * MA_MESH_SHAPE[1]
-MA_QUERY_REPS = 10         # timed queries a batch, for the p50
+MA_QUERY_REPS = 6          # timed queries a batch, for the p50
 MA_SIM_REPS = 3            # timed 2-D similarities of EVAL_N x EVAL_N a rank
 AB_DRAWS = 16              # mask draws a scenario of the [ab] fingerprint
+JAX_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                           "jax_run")
+JAX_RESUME_RTOL = 1e-4     # the resumed losses on the kernels against JAX's on the CPU
 
 COUNTERS = {"fused_encoder_layer": fel.fused_encoder_layer,
             "fused_encoder_layer_bwd": fel.fused_encoder_layer_bwd,
@@ -447,6 +464,7 @@ def per_step(cfg: Config, fused_decoder: bool = False) -> dict:
 
 
 def phase(tag: str, /, **fields) -> None:
+    fields["at_s"] = f"{time.perf_counter() - STARTED:.1f}"
     print(f"[{tag}] " + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
 
 
@@ -1380,10 +1398,15 @@ def check_timed(device: torch.device, card: str) -> None:
         loss = float(log["loss"])
         if not np.isfinite(loss):
             raise AssertionError(f"bf16 step loss {loss} ({name})")
+    peak_tf = peak_tflops(torch.cuda.get_device_name(device), "bfloat16")
     for name, dt in seconds.items():
         n = 2 * TIMED_STEPS
+        # the analytic count (core/flops.py) over the measured step: a
+        # reading of the step against the card's bf16 peak, no bound
+        tflops = train_step_flops(cfgs[name][0], TRAIN_B)["train_step"] / (dt / n) / 1e12
         phase("timed", config=name, dtype="bfloat16", B=TRAIN_B, steps=n,
               step_ms=f"{dt / n * 1e3:.2f}", clips_per_s=f"{TRAIN_B * n / dt:.1f}",
+              tflops=f"{tflops:.2f}", mfu=f"{tflops / peak_tf:.4f}" if peak_tf else "null",
               peak_mem_gb=f"{peak[name] / 1e9:.2f}", card=json.dumps(card))
 
 
@@ -1916,10 +1939,10 @@ RANK_KEYS = ("R1", "R3", "R5", "R10", "R20", "R25", "R50", "R100", "MedianR", "M
 
 
 def device_busy(fn) -> tuple:
-    """(wall s, device busy s) of fn() under torch.profiler, as
-    scripts/profile_eval_cuda.py reads them."""
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+    """(wall s, device busy s) of fn() under torch.profiler, tracing the
+    device's activity alone (the host's operators, which
+    scripts/profile_eval_cuda.py lists, cost the trace most of its time)."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
@@ -3687,6 +3710,57 @@ def check_ab(device: torch.device, card: str) -> None:
     phase("ab", seconds=f"{time.perf_counter() - t0:.2f}")
 
 
+def check_jax_resume(device: torch.device, card: str, tmp: str) -> None:
+    """Phase 26 (module docstring): the converted JAX run of JAX_FIXTURE
+    resumed by cli.train on the card, held to JAX's resumed run."""
+    with open(os.path.join(JAX_FIXTURE, "expected.json")) as f:
+        want = json.load(f)
+    out = os.path.join(tmp, "jax_resume")
+    shutil.copytree(os.path.join(JAX_FIXTURE, "made"), os.path.join(out, "made"))
+    losses, make = [], train_loop.make_train_step
+
+    def recording(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def train_step(batch):
+            log = step(batch)
+            losses.append(log["loss"].detach())
+            return log
+        return train_step
+
+    argv = ["--device", str(device), "--synthetic", str(want["synthetic_rows"]),
+            *overrides_to_args(want["overrides"]), "--train.output_dir", out, "--train.resume", "last"]
+    reset_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(train_loop, "make_train_step", recording):
+        train_cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    got = np.array([float(x) for x in losses])
+    exp = np.array(want["resumed_losses"])
+    if got.shape != exp.shape:
+        raise AssertionError(f"jax-resume: {got.size} resumed steps, JAX took {exp.size}")
+    rel = np.abs(got - exp) / np.abs(exp)
+    with open(os.path.join(out, "made", "history.json")) as f:
+        history = json.load(f)
+    hist_rel = [abs(g["train"]["loss"] - e["train"]["loss"]) / abs(e["train"]["loss"])
+                for g, e in zip(history, want["resumed_history"])]
+    if [r["epoch"] for r in history] != [r["epoch"] for r in want["resumed_history"]]:
+        raise AssertionError(f"jax-resume: history epochs {[r['epoch'] for r in history]}")
+    if rel.max() > JAX_RESUME_RTOL or max(hist_rel) > JAX_RESUME_RTOL:
+        raise AssertionError(f"jax-resume: step losses {got.tolist()} against JAX's "
+                             f"{exp.tolist()}, history gaps {hist_rel}")
+    path = ("fused_encoder_layer", "fused_encoder_layer_bwd", "xpool_sim_fwd",
+            "xpool_sim_bwd", "xpool_sim_eval")
+    if not all(launches[k] for k in path):
+        raise AssertionError(f"jax-resume did not run every kernel of its path: {launches}")
+    phase("jax-resume", steps=got.size, loss_max_rel=f"{rel.max():.3e}",
+          history_max_rel=f"{max(hist_rel):.3e}", rtol=JAX_RESUME_RTOL,
+          epochs=len(history), seconds=f"{seconds:.2f}", card=json.dumps(card),
+          **{k: launches[k] for k in path})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one NVIDIA GPU",
@@ -3739,6 +3813,8 @@ def main() -> int:
         ddp_runs = check_ddp(device, card, tmp)
         check_model_axis(device, card, tmp, ddp_runs, index, videos, vmask)
     check_ab(device, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        check_jax_resume(device, card, tmp)
     launches["xpool_sim_eval"] = fit_launches["xpool_sim_eval"]      # per evaluation
     launches["flash_attention"] = extract_launches["flash_attention"]  # per extraction
     for kernel in ("fused_temporal_layer", "fused_temporal_layer_bwd"):  # per fused_temporal step

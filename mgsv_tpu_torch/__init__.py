@@ -9,4 +9,20 @@ map, the packed feature store, the HTTP server).
 
 from mgsv_tpu_torch.config import Config, DataConfig, LossConfig, ModelConfig, TrainConfig
 
-__all__ = ["Config", "DataConfig", "LossConfig", "ModelConfig", "TrainConfig"]
+__all__ = ["Config", "DataConfig", "LossConfig", "ModelConfig", "TrainConfig",
+           "MaDe", "Trainer", "evaluate"]
+
+
+def __getattr__(name):
+    # lazy, as the JAX package's: `import mgsv_tpu_torch` loads no model or
+    # trainer (nor torch) until one is asked for
+    if name == "MaDe":
+        from mgsv_tpu_torch.models.made import MaDe
+        return MaDe
+    if name == "Trainer":
+        from mgsv_tpu_torch.train.loop import Trainer
+        return Trainer
+    if name == "evaluate":
+        from mgsv_tpu_torch.eval.evaluator import evaluate
+        return evaluate
+    raise AttributeError(name)

@@ -25,3 +25,10 @@ def parse_kv_overrides(rest):
             value = raw
         overrides[key[2:]] = value
     return overrides
+
+
+def overrides_to_args(overrides: dict) -> list:
+    """The `--section.key value` pairs that `parse_kv_overrides` reads back
+    as `overrides` (strings as they are, other values as JSON)."""
+    return [a for k, v in overrides.items()
+            for a in (f"--{k}", v if isinstance(v, str) else json.dumps(v))]

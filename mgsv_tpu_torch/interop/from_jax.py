@@ -1,5 +1,5 @@
-"""Carry weights into the port: JAX variable trees and reference `.bin`
-checkpoints.
+"""Carry weights and training state into the port: JAX variable trees,
+JAX's optimizer state and reference `.bin` checkpoints.
 
 MaDe's go through the reference Uni_model's state-dict names, which the
 port's MaDe uses as its own; the frozen towers' flax trees map onto the
@@ -13,12 +13,18 @@ names known: the JAX package's torch export and import refuse them.  Their
 names below are the port's own (`video_cls_token`,
 `audio_embedding_net.net.4.running_var`, ...), and a reference `.bin`
 neither carries nor takes them (`check_reference_format`).
+
+JAX's optimizer state (optax's, mgsv_tpu/train/optimizer.py) comes across
+through `jax_opt_state_to_port` as plain numpy trees, which the JAX side
+makes from optax's objects (scripts/convert_jax_run.py); every tensor goes
+through the same key map as the weights, which is checked to move elements
+without changing them.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,6 +34,7 @@ from mgsv_tpu_torch.interop.state_dict import jax_tree_to_state_dict
 from mgsv_tpu_torch.models.ast import ASTEncoder
 from mgsv_tpu_torch.models.clip_vit import ClipVisionTower
 from mgsv_tpu_torch.models.made import MaDe
+from mgsv_tpu_torch.train.optimizer import DETECTION, FROZEN, MATCHING, TEMPORAL, group_of
 
 # Frozen CLIP / AST encoder weights a checkpoint written by the reference
 # itself carries besides the trainable head; the port serves precomputed
@@ -127,6 +134,193 @@ def load_jax_params(model: MaDe, params: Mapping, cfg: Config) -> MaDe:
              for k, v in jax_variables_to_state_dict(params, cfg).items()}
     model.load_state_dict(state, strict=True)
     return model
+
+
+# JAX's optimizer groups that hold Adam moments (its FROZEN group has none)
+ADAM_GROUPS = (TEMPORAL, MATCHING, DETECTION)
+Path = Tuple[str, ...]
+
+
+def _leaves(tree, prefix: Path = ()):
+    """(path, leaf) over a nested mapping, in sorted key order; a None (a
+    leaf or a subtree the tree's group does not own) is yielded too."""
+    if isinstance(tree, Mapping):
+        for key in sorted(tree):
+            yield from _leaves(tree[key], prefix + (key,))
+    else:
+        yield prefix, tree
+
+
+def _nest(flat: Mapping[Path, Any]) -> dict:
+    out: dict = {}
+    for path, value in flat.items():
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = value
+    return out
+
+
+def _split(tree: Mapping) -> Tuple[Mapping, Optional[Mapping]]:
+    """A variables tree -> (its params, its batch_stats or None)."""
+    if "params" in tree:
+        return tree["params"], tree.get("batch_stats")
+    return tree, None
+
+
+def _relayout(shapes: Mapping[Path, tuple], cfg: Config) -> Dict[str, np.ndarray]:
+    """The key map of `jax_variables_to_state_dict` over params of these
+    leaf shapes, as {port name: index into the leaves' elements laid end to
+    end}.  Found by mapping two probes, each leaf filled with its number and
+    each element with its index in its leaf; raises ValueError naming an
+    entry whose values are not elements of JAX's leaves moved unchanged, an
+    element two entries take, or an element no entry takes."""
+    paths = list(shapes)
+    sizes = np.array([int(np.prod(shapes[p], dtype=np.int64)) for p in paths], np.int64)
+    if sizes.max(initial=0) >= 1 << 24:                 # the probes hold exact float32 integers
+        raise ValueError(f"a leaf of {sizes.max()} elements is too large to probe")
+    offsets = np.concatenate([[0], np.cumsum(sizes)])
+    leaf_no = _nest({p: np.full(shapes[p], i, np.float32) for i, p in enumerate(paths)})
+    element = _nest({p: np.arange(n, dtype=np.float32).reshape(shapes[p])
+                     for p, n in zip(paths, sizes)})
+    by_leaf = jax_variables_to_state_dict(leaf_no, cfg)
+    by_element = jax_variables_to_state_dict(element, cfg)
+    taken = np.zeros(offsets[-1], np.int64)
+    index = {}
+    for name, leaf in by_leaf.items():
+        elem = by_element[name]
+        valid = (np.shape(leaf) == np.shape(elem)
+                 and np.array_equal(leaf, np.round(leaf)) and np.array_equal(elem, np.round(elem))
+                 and ((leaf >= 0) & (leaf < len(paths))).all())
+        leaf_i = leaf.astype(np.int64) if valid else None
+        if valid:
+            valid = bool(((elem >= 0) & (elem < sizes[leaf_i])).all())
+        if not valid:
+            raise ValueError(f"the key map's entry {name} is not a re-layout of JAX's leaves "
+                             "(its values are not their elements moved unchanged); an "
+                             "optimizer moment cannot be carried through it")
+        index[name] = offsets[leaf_i] + elem.astype(np.int64)
+        np.add.at(taken, index[name].ravel(), 1)
+    if (taken != 1).any():
+        bad = paths[int(np.searchsorted(offsets, int(np.argmax(taken != 1)), "right")) - 1]
+        raise ValueError(f"the key map takes an element of JAX's {'/'.join(bad)} "
+                         f"{int(taken[taken != 1][0])} times, not once")
+    return index
+
+
+def _gather(flat: Mapping[Path, Any], paths, shapes, index: Mapping[str, np.ndarray],
+            names) -> Dict[str, torch.Tensor]:
+    """{port name: tensor} of `names`, gathered from the leaves `flat` (a
+    None leaf reads as zeros) laid end to end in `paths` order."""
+    whole = np.concatenate([
+        np.zeros(int(np.prod(shapes[p], dtype=np.int64)), np.float32) if flat.get(p) is None
+        else np.asarray(flat[p], np.float32).ravel() for p in paths])
+    return {name: torch.from_numpy(np.array(whole[index[name]])) for name in names}
+
+
+def jax_opt_state_to_port(state: Mapping, cfg: Config) -> Dict[str, Any]:
+    """JAX's optimizer state, as plain numpy trees, -> the dict
+    `GroupedAdam.load_state_dict` takes (count, mu, nu, mini_step,
+    gradient_step, acc_grads by port parameter name).
+
+    state: {"count": {group: n}, "mu": {group: tree}, "nu": {group: tree}}
+    over the groups temporal, matching and detection (optax's
+    ScaleByAdamState of each), each tree shaped as the model's variables
+    ({"params": ...[, "batch_stats": ...]} or bare params) with None where
+    its group does not own the leaf (optax's MaskedNode); with
+    train.gradient_accumulation_steps > 1 also optax.MultiStepsState's
+    "mini_step", "gradient_step" and "acc_grads" (a whole tree).  The
+    groups' moments merge leaf by leaf, each from the group that owns it,
+    and go through `jax_variables_to_state_dict`'s key map, which must move
+    every element unchanged (`_relayout`): the moments are elementwise, so
+    a transpose, a reshape or a concatenation carries them, and any other
+    entry raises.  The accumulated mean of the frozen leaves is dropped:
+    the port keeps none.
+
+    Raises ValueError where the groups' counts differ (or gradient_step
+    differs from them), the accumulation does not match the
+    configuration's, a leaf is owned twice, a parameter the port trains is
+    owned by no group or by another group than the port's, a leaf the port
+    keeps frozen (batch_stats, query_embed unless train_query_embed) has
+    moments, or an entry of the key map is not a pure re-layout."""
+    k = max(1, cfg.train.gradient_accumulation_steps)
+    if set(state["count"]) != set(ADAM_GROUPS):
+        raise ValueError(f"optimizer groups {sorted(state['count'])}, not {sorted(ADAM_GROUPS)}")
+    counts = {g: int(n) for g, n in state["count"].items()}
+    if len(set(counts.values())) != 1:
+        raise ValueError(f"the groups' update counts differ: {counts}")
+    count = counts[TEMPORAL]
+    acc = state.get("acc_grads")
+    if (acc is not None) != (k > 1):
+        raise ValueError(f"gradient_accumulation_steps {k} with "
+                         f"{'an' if acc is not None else 'no'} accumulated gradient in the state")
+    gradient_step = int(state.get("gradient_step", count))
+    if gradient_step != count:
+        raise ValueError(f"gradient_step {gradient_step} differs from the update count {count}")
+    # optax masks whole subtrees: a group's tree holds None where a module,
+    # or a leaf, is another group's
+    moments: Dict[str, Dict[str, dict]] = {}
+    for key in ("mu", "nu"):
+        moments[key] = {}
+        for g in ADAM_GROUPS:
+            params, stats = _split(state[key][g])
+            if any(v is not None for _, v in _leaves(stats or {})):
+                raise ValueError(f"{key} of group {g} holds batch_stats moments; the running "
+                                 "buffers are never optimized")
+            moments[key][g] = {p: v for p, v in _leaves(params) if v is not None}
+    acc_flat = dict(_leaves(_split(acc)[0])) if acc is not None else {}
+    if acc is not None:
+        paths = sorted(acc_flat)
+    else:
+        owned = {p for trees in moments.values() for tree in trees.values() for p in tree}
+        masked = {p for g in ADAM_GROUPS for p, v in _leaves(_split(state["mu"][g])[0])
+                  if v is None}
+        paths = sorted(owned | {m for m in masked
+                                if not any(p[:len(m)] == m for p in owned)})
+    owner: Dict[Path, Optional[str]] = {}
+    for path in paths:
+        owners = [g for g in ADAM_GROUPS if path in moments["mu"][g]]
+        if owners != [g for g in ADAM_GROUPS if path in moments["nu"][g]]:
+            raise ValueError(f"{'/'.join(path)}: mu and nu are owned by other groups")
+        if len(owners) > 1:
+            raise ValueError(f"{'/'.join(path)} is owned twice, by {' and '.join(owners)}")
+        owner[path] = owners[0] if owners else None
+    stray = [p for trees in moments.values() for tree in trees.values() for p in tree
+             if p not in owner]
+    if stray:
+        raise ValueError(f"moments of {'/'.join(stray[0])}, which acc_grads does not hold")
+    # a leaf no group owns has its shape in acc_grads, or none anywhere: it
+    # then feeds only frozen entries, checked below
+    shapes = {p: np.shape(moments["mu"][owner[p]][p]) if owner[p] is not None
+              else np.shape(acc_flat[p]) if p in acc_flat else (1, 1) for p in paths}
+    try:
+        index = _relayout(shapes, cfg)
+    except (ValueError, IndexError, KeyError, TypeError) as err:
+        unowned = ["/".join(p) for p in paths if owner[p] is None]
+        raise ValueError(f"{err} (leaves no group owns: {unowned})") from err
+    ends = np.cumsum([int(np.prod(shapes[p], dtype=np.int64)) for p in paths])
+    held = []
+    for name, idx in index.items():
+        group = group_of(name, cfg.train.train_query_embed)
+        leaf_of = np.searchsorted(ends, idx.ravel(), "right")
+        owners = {owner[paths[i]] for i in np.unique(leaf_of)}
+        if group == FROZEN:
+            if owners != {None}:
+                raise ValueError(f"{name} is frozen in the port but owned by "
+                                 f"{sorted(owners - {None})}")
+        elif owners != {group}:
+            if None in owners:
+                raise ValueError(f"{name} is owned by no group (the port trains it in {group})")
+            raise ValueError(f"{name} is owned by {sorted(owners)}; the port trains it in {group}")
+        else:
+            held.append(name)
+    out = {"count": count, "gradient_step": count,
+           "mini_step": int(state.get("mini_step", 0)),
+           "acc_grads": _gather(acc_flat, paths, shapes, index, held) if acc is not None else {}}
+    for key in ("mu", "nu"):
+        merged = {p: moments[key][owner[p]][p] if owner[p] is not None else None for p in paths}
+        out[key] = _gather(merged, paths, shapes, index, held)
+    return out
 
 
 def load_reference_bin(path: str, cfg: Config) -> MaDe:

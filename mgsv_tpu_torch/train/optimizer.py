@@ -77,17 +77,22 @@ _GROUP_OF_MODULE = {
 }
 
 
+def group_of(name: str, train_query_embed: bool = False) -> str:
+    """The optimizer group of the parameter `name` (a MaDe state-dict name)."""
+    top = name.split(".")[0]
+    group = _GROUP_OF_MODULE.get(top)
+    if group is None:
+        raise KeyError(f"no optimizer group for parameter {name}")
+    if top == "decoder_query_embed" and train_query_embed:
+        return DETECTION
+    return group
+
+
 def param_groups(model: nn.Module, train_query_embed: bool = False) -> Dict[str, List]:
     """{group: [(name, parameter)]} over every parameter of `model`."""
     groups: Dict[str, List] = {TEMPORAL: [], MATCHING: [], DETECTION: [], FROZEN: []}
     for name, p in model.named_parameters():
-        top = name.split(".")[0]
-        group = _GROUP_OF_MODULE.get(top)
-        if group is None:
-            raise KeyError(f"no optimizer group for parameter {name}")
-        if top == "decoder_query_embed" and train_query_embed:
-            group = DETECTION
-        groups[group].append((name, p))
+        groups[group_of(name, train_query_embed)].append((name, p))
     return groups
 
 

@@ -2,9 +2,13 @@
 with the originals: the typed Config, the `--section.key` override parser,
 the reference state-dict key map, the example batch, the synthetic data
 generator, the CSV index, the epoch index stream, the native gather's C++
-source, the best-metric tracker and the host rankings."""
+source, the best-metric tracker, the host rankings, the analytic FLOP
+count, and the package's lazy exports."""
 
 import dataclasses
+import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -14,6 +18,7 @@ import pytest
 import __graft_entry__
 from mgsv_tpu.cli.train import parse_kv_overrides as jax_parse
 from mgsv_tpu.config import Config as JaxConfig
+from mgsv_tpu.core import flops as jax_flops
 from mgsv_tpu.core.checkpoint import BestMetricTracker as JaxBestMetricTracker
 from mgsv_tpu.data import synthetic as jax_synthetic
 from mgsv_tpu.data.csv_index import load_csv_index as jax_load_csv_index
@@ -23,6 +28,7 @@ from mgsv_tpu.interop.torch_export import export_uni_state_dict
 from mgsv_tpu.models.made import MaDe as JaxMaDe
 from mgsv_tpu_torch.cli.overrides import parse_kv_overrides
 from mgsv_tpu_torch.config import Config
+from mgsv_tpu_torch.core import flops
 from mgsv_tpu_torch.core.checkpoint import BestMetricTracker
 from mgsv_tpu_torch.data import synthetic
 from mgsv_tpu_torch.data.csv_index import load_csv_index
@@ -211,3 +217,42 @@ def test_host_ranks_equal_jax(seed):
     cols = sorted(set(ids)) + ["absent"]
     rect = np.round(rng.standard_normal((n, len(cols))) * 2) / 2
     np.testing.assert_array_equal(rect_rank(rect, cols, ids), jax_rect_rank(rect, cols, ids))
+
+
+@pytest.mark.parametrize("overrides", [
+    {}, {"model.num_moment_queries": 10, "model.detr_dropout": 0.0},
+    {"train.gradient_accumulation_steps": 2, "model.fused_temporal": True},
+    {"model.dim_input": 32, "model.detr_enc_layers": 1, "model.detr_dec_layers": 2,
+     "model.decoder_self_attn": False, "data.max_v_frames": 12, "data.stride": 20.0,
+     "data.filter_sec": 20.0, "model.contrastive_dim": 16}],
+    ids=["paper", "q10", "accum", "small"])
+@pytest.mark.parametrize("batch_size", [1, 512])
+def test_flops_equal_jax(overrides, batch_size):
+    """core/flops.py's forward_flops and train_step_flops against JAX's, and
+    the card's peaks: the H100's by name, None for any other card or type."""
+    ours = flops.train_step_flops(Config.from_overrides(overrides), batch_size)
+    ref = jax_flops.train_step_flops(JaxConfig.from_overrides(overrides), batch_size)
+    assert ours == ref
+    assert flops.forward_flops(Config.from_overrides(overrides), batch_size) == \
+        jax_flops.forward_flops(JaxConfig.from_overrides(overrides), batch_size)
+    assert flops.peak_tflops("NVIDIA H100 80GB HBM3") == 989.0
+    assert flops.peak_tflops("NVIDIA H100 80GB HBM3", "float32") == 495.0
+    assert flops.peak_tflops("TPU v5 lite") is None
+    assert flops.peak_tflops("NVIDIA H100 80GB HBM3", "float16") is None
+
+
+def test_package_exports_lazily():
+    """`import mgsv_tpu_torch` loads its Config alone; MaDe, Trainer and
+    evaluate come on first use, as the JAX package's lazy exports do."""
+    import mgsv_tpu_torch
+    from mgsv_tpu_torch.eval.evaluator import evaluate
+    from mgsv_tpu_torch.train.loop import Trainer
+    assert (mgsv_tpu_torch.MaDe, mgsv_tpu_torch.Trainer, mgsv_tpu_torch.evaluate) == (
+        MaDe, Trainer, evaluate)
+    assert set(mgsv_tpu_torch.__all__) >= {"MaDe", "Trainer", "evaluate", "Config"}
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    probe = ("import sys, mgsv_tpu_torch; print(sorted(m for m in sys.modules "
+             "if m.split('.')[0] in ('torch', 'mgsv_tpu_torch')))")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=repo, capture_output=True,
+                         text=True, timeout=60, env=dict(os.environ, PYTHONPATH=repo))
+    assert out.stdout.strip() == "['mgsv_tpu_torch', 'mgsv_tpu_torch.config']", out.stderr

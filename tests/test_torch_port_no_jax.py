@@ -2,9 +2,12 @@
 machine may lack them) and imports nothing of the JAX package: a fresh
 interpreter in which importing them, or the top-level package `mgsv_tpu`,
 fails imports
-every mgsv_tpu_torch module, chip_smoke.py and the scripts that drive the
-port on the card (scripts/profile_{serving,train,eval}_cuda.py,
-scripts/time_{encoder_layer,xpool,layers}_cuda.py, scripts/ab_kernels_cuda.py)."""
+every mgsv_tpu_torch module (core/flops.py and interop/from_jax.py's
+jax_opt_state_to_port among them), chip_smoke.py and the scripts that drive
+the port on the card (scripts/profile_{serving,train,eval}_cuda.py,
+scripts/time_{encoder_layer,xpool,layers}_cuda.py, scripts/ab_kernels_cuda.py).
+The CPU-side scripts, which hold the port to JAX or carry JAX's state
+across, import JAX by design and fail there."""
 
 import os
 import subprocess
@@ -14,10 +17,15 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "pandas", "tensorboardX", "mgsv_tpu")
 
+# the scripts that run where both packages are installed (the CPU), never
+# on the card
+CPU_SIDE = ("scripts/ab_port_vs_jax.py", "scripts/convert_jax_run.py")
+
 _SCRIPT = r"""
 import importlib, pkgutil, runpy, sys
 
 BLOCKED = %r
+CPU_SIDE = %r
 
 class _Block:
     def find_spec(self, name, path=None, target=None):
@@ -31,7 +39,10 @@ for name in names:
     importlib.import_module(name)
 assert {"mgsv_tpu_torch.ops.lsap", "mgsv_tpu_torch.ops.cuda.fused_decoder_layer",
         "mgsv_tpu_torch.runtime.native", "mgsv_tpu_torch.data.device_data",
-        "mgsv_tpu_torch.models.cross", "mgsv_tpu_torch.models.embedding_net"} <= set(names)
+        "mgsv_tpu_torch.models.cross", "mgsv_tpu_torch.models.embedding_net",
+        "mgsv_tpu_torch.core.flops", "mgsv_tpu_torch.interop.from_jax"} <= set(names)
+from mgsv_tpu_torch.core.flops import peak_tflops, train_step_flops
+from mgsv_tpu_torch.interop.from_jax import jax_opt_state_to_port
 import chip_smoke
 for script in ("scripts/profile_serving_cuda.py", "scripts/profile_train_cuda.py",
                "scripts/profile_eval_cuda.py",
@@ -39,8 +50,14 @@ for script in ("scripts/profile_serving_cuda.py", "scripts/profile_train_cuda.py
                "scripts/time_layers_cuda.py", "scripts/ab_kernels_cuda.py"):
     runpy.run_path(script, run_name="not_main")
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+for script in CPU_SIDE:
+    try:
+        runpy.run_path(script, run_name="not_main")
+    except ImportError:
+        continue
+    raise AssertionError(f"{script} ran without JAX")
 print(len(names))
-""" % (_BLOCKED,)
+""" % (_BLOCKED, CPU_SIDE)
 
 
 def test_port_imports_without_jax_flax_pandas():
