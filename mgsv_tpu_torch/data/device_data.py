@@ -39,6 +39,7 @@ import torch
 import torch.distributed as dist
 
 from mgsv_tpu_torch.core.mesh import Mesh, check_mesh, local_rows
+from mgsv_tpu_torch.core.profiling import span
 from mgsv_tpu_torch.data.dataset import BatchMeta, MgsvDataset, epoch_index_batches
 
 Batch = Dict[str, torch.Tensor]
@@ -73,21 +74,22 @@ def use_device_data(mode: str, device, dataset: MgsvDataset, dp: int = 1) -> boo
 def gather_batch(tree: Dict[str, torch.Tensor], idx: torch.Tensor) -> Batch:
     """The batch of dataset rows `idx` (a tensor on the tables' device),
     assembled from the resident tables (`DeviceResidentData.tree`), without
-    the music codes."""
-    vr = tree["video_rows"][idx]
-    mr = tree["music_rows"][idx]
-    fm = tree["vm"][vr].to(torch.float32)
-    sm = tree["mm"][mr].to(torch.float32)
-    ff = tree["vf"][vr].to(torch.float32) * fm[..., None]
-    sf = tree["mf"][mr].to(torch.float32) * sm[..., None]
-    return {
-        "frame_feats": ff, "frame_mask": fm,
-        "segment_feats": sf, "segment_mask": sm,
-        "spans_target": tree["spans"][idx],
-        "gt_moment": tree["gt"][idx],
-        "m_duration": tree["mdur"][idx],
-        "v_duration": tree["vdur"][idx],
-    }
+    the music codes; the span "input.gather" (core/profiling.py)."""
+    with span("input.gather"):
+        vr = tree["video_rows"][idx]
+        mr = tree["music_rows"][idx]
+        fm = tree["vm"][vr].to(torch.float32)
+        sm = tree["mm"][mr].to(torch.float32)
+        ff = tree["vf"][vr].to(torch.float32) * fm[..., None]
+        sf = tree["mf"][mr].to(torch.float32) * sm[..., None]
+        return {
+            "frame_feats": ff, "frame_mask": fm,
+            "segment_feats": sf, "segment_mask": sm,
+            "spans_target": tree["spans"][idx],
+            "gt_moment": tree["gt"][idx],
+            "m_duration": tree["mdur"][idx],
+            "v_duration": tree["vdur"][idx],
+        }
 
 
 def _store_share(n_rows: int, mesh: Optional[Mesh]) -> Tuple[int, int]:

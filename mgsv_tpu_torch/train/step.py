@@ -29,6 +29,7 @@ import torch
 
 from mgsv_tpu_torch.config import Config
 from mgsv_tpu_torch.core.mesh import Mesh, fold_axis_into_seed, sync_gradients
+from mgsv_tpu_torch.core.profiling import span
 from mgsv_tpu_torch.models.made import MaDe
 from mgsv_tpu_torch.ops.spans import eval_iou_batch, span_cw_to_se
 from mgsv_tpu_torch.train.objective import total_loss
@@ -70,7 +71,11 @@ def make_train_step(model: MaDe, cfg: Config, optimizer: GroupedAdam,
     optimizer's micro_step): JAX folds state.step into its rng, and flax's
     apply_gradients advances state.step on every micro-batch.
     fused_decoder: the DETR decoder on the decoder-layer kernel
-    (MaDe.forward; it raises for a detr_dropout above 0).
+    (MaDe.forward; it raises for a detr_dropout above 0).  The step is the
+    span "step" (core/profiling.py; its identifier the micro_step) with the
+    children "step.forward", "step.loss" (the losses, the matcher
+    included), "step.backward" and "step.optimizer" (the gradient sync,
+    the norm and the update).
 
     mesh: the batch is this rank's rows (their music codes coded over the
     global batch); the losses in the log are the global batch's and
@@ -85,30 +90,36 @@ def make_train_step(model: MaDe, cfg: Config, optimizer: GroupedAdam,
     sync_now = mesh is not None and optimizer.k == 1
 
     def train_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        generator = step_generator(cfg.train.seed, optimizer.micro_step,
-                                   batch["frame_feats"].device,
-                                   0 if mesh is None else mesh.dp_index)
-        for p in params:
-            p.grad = None
-        out = model(batch["frame_feats"], batch["frame_mask"], batch["segment_feats"],
-                    batch["segment_mask"], v_duration=batch.get("v_duration"),
-                    generator=generator, fused_decoder=fused_decoder, mesh=mesh)
-        loss, log = total_loss(out, batch["spans_target"], cfg,
-                               music_codes=batch.get("music_codes"), mesh=mesh)
-        loss.backward()
-        grads = [p.grad for p in params if p.grad is not None]
-        if sync_now:
-            sync_gradients(grads, mesh)
-        grad_norm = global_norm(grads) if mesh is None or sync_now else None
-        optimizer.step()
-        with torch.no_grad():
-            spans_sec, _ = decode_top_span(out, cfg)
-            log = {k: v.detach() for k, v in log.items()}
-            log["train_iou"] = eval_iou_batch(batch["gt_moment"][:, 0, :], batch["m_duration"],
-                                              spans_sec, cfg.data.max_m_duration)
-            if grad_norm is not None:
-                log["grad_norm"] = grad_norm
-        return log
+        with span("step", step=optimizer.micro_step):
+            generator = step_generator(cfg.train.seed, optimizer.micro_step,
+                                       batch["frame_feats"].device,
+                                       0 if mesh is None else mesh.dp_index)
+            for p in params:
+                p.grad = None
+            with span("step.forward"):
+                out = model(batch["frame_feats"], batch["frame_mask"], batch["segment_feats"],
+                            batch["segment_mask"], v_duration=batch.get("v_duration"),
+                            generator=generator, fused_decoder=fused_decoder, mesh=mesh)
+            with span("step.loss"):
+                loss, log = total_loss(out, batch["spans_target"], cfg,
+                                       music_codes=batch.get("music_codes"), mesh=mesh)
+            with span("step.backward"):
+                loss.backward()
+            with span("step.optimizer"):
+                grads = [p.grad for p in params if p.grad is not None]
+                if sync_now:
+                    sync_gradients(grads, mesh)
+                grad_norm = global_norm(grads) if mesh is None or sync_now else None
+                optimizer.step()
+            with torch.no_grad():
+                spans_sec, _ = decode_top_span(out, cfg)
+                log = {k: v.detach() for k, v in log.items()}
+                log["train_iou"] = eval_iou_batch(batch["gt_moment"][:, 0, :],
+                                                  batch["m_duration"], spans_sec,
+                                                  cfg.data.max_m_duration)
+                if grad_norm is not None:
+                    log["grad_norm"] = grad_norm
+            return log
 
     return train_step
 
