@@ -8,6 +8,8 @@ not rounded to TF32's ten mantissa bits.
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
 
 
@@ -22,6 +24,16 @@ def resolve_device(name: str | torch.device = "cuda") -> torch.device:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return device
+
+
+def write_to_device(buffer: torch.Tensor, values: Sequence[float]) -> None:
+    """buffer[:len(values)] = values, in buffer's dtype, without the host
+    waiting for the device: on CUDA through a pinned staging tensor and one
+    non-blocking copy.  PyTorch's pinned-memory allocator keeps the staging
+    block from reuse until that copy has run, so a host running steps ahead
+    of the device never overwrites values a queued copy has yet to read."""
+    host = torch.tensor(values, dtype=buffer.dtype, pin_memory=buffer.is_cuda)
+    buffer[:len(values)].copy_(host, non_blocking=True)
 
 
 def check_mesh_shape(mesh_shape, world: int = 1) -> tuple:

@@ -337,14 +337,16 @@ attention_bwd_wg_kernel(const __grid_constant__ WgaParams p) {
         q.il[i] = 1.f / st.y;
         q.dd[i] = d;
       }
-      if (p.drop.thresh != 0u)
+      if (p.drop.thresh != 0u) {
+        const unsigned seed = p.drop.seed();
         for (int g4 = lane; g4 < (L * L + 3) / 4; g4 += 32) {
-          const uint4 w = philox4(p.drop.seed, b, h, g4);
+          const uint4 w = philox4(seed, b, h, g4);
           q.keep[g4] = (unsigned char)((w.x >= p.drop.thresh ? 1u : 0u) |
                                        (w.y >= p.drop.thresh ? 2u : 0u) |
                                        (w.z >= p.drop.thresh ? 4u : 0u) |
                                        (w.w >= p.drop.thresh ? 8u : 0u));
         }
+      }
       mbar_arrive(smem_addr(full));
     }
     return;

@@ -27,13 +27,14 @@ constexpr int kMaxB = 65535;          // batch rows: grid y of the attention lau
 // group and the second row i1's, and the four read them by shuffles (one
 // Philox call per two lanes); else one per weight.  Every lane of the warp
 // calls it; values for j >= L are not used.
-__device__ __forceinline__ void row_pair_keep(const Dropout& drop, unsigned b, unsigned h, int L,
-                                              int i0, int i1, int jb, float& k0, float& k1) {
+__device__ __forceinline__ void row_pair_keep(const Dropout& drop, unsigned seed, unsigned b,
+                                              unsigned h, int L, int i0, int i1, int jb,
+                                              float& k0, float& k1) {
   const int lane = threadIdx.x & 31, j = jb + lane;
   if ((L & 3) == 0) {
     const int sub = lane & 3, lead = lane & ~3;
     uint4 w = make_uint4(0u, 0u, 0u, 0u);
-    if (sub < 2) w = philox4(drop.seed, b, h, (unsigned)((sub ? i1 : i0) * L + (j & ~3)) >> 2);
+    if (sub < 2) w = philox4(seed, b, h, (unsigned)((sub ? i1 : i0) * L + (j & ~3)) >> 2);
     uint4 w0, w1;
     w0.x = __shfl_sync(0xffffffffu, w.x, lead);
     w0.y = __shfl_sync(0xffffffffu, w.y, lead);
@@ -46,8 +47,8 @@ __device__ __forceinline__ void row_pair_keep(const Dropout& drop, unsigned b, u
     k0 = word_of(w0, sub) >= drop.thresh ? drop.scale : 0.f;
     k1 = word_of(w1, sub) >= drop.thresh ? drop.scale : 0.f;
   } else if (j < L) {
-    k0 = keep(drop, b, h, i0 * L + j);
-    k1 = keep(drop, b, h, i1 * L + j);
+    k0 = keep(drop, seed, b, h, i0 * L + j);
+    k1 = keep(drop, seed, b, h, i1 * L + j);
   }
 }
 
@@ -75,6 +76,7 @@ attention_kernel(const float* __restrict__ qkv, const float* __restrict__ mask,
   float* smem = reinterpret_cast<float*>(smem4);
   const int h = blockIdx.x, b = blockIdx.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned seed = seed_of(drop);
   float* q_s = smem;                 // [L][kPad], pre-scaled by 1/sqrt(dh)
   float* k_s = q_s + L * kPad;       // [L][kPad]
   float* v_s = k_s + L * kPad;       // [L][kPad]
@@ -125,7 +127,7 @@ attention_kernel(const float* __restrict__ qkv, const float* __restrict__ mask,
     for (int jb = 0; jb < L; jb += 32) {   // every lane takes each step (row_pair_keep)
       const int j = jb + lane;
       float k0 = 1.f, k1 = 1.f;
-      if constexpr (kDrop) row_pair_keep(drop, b, h, L, i0, i1, jb, k0, k1);
+      if constexpr (kDrop) row_pair_keep(drop, seed, b, h, L, i0, i1, jb, k0, k1);
       if (j < L) {
         const float e0 = expf(p0[j] - mx0), e1 = expf(p1[j] - mx1);
         sum0 += e0;

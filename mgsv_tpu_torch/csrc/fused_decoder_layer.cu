@@ -96,7 +96,7 @@ extern "C" int mgsv_fused_decoder_layer_fwd(
   t.r3 = take(nq * d);
   t.out = out;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Dropout none{0u, 0u, 1.f};
+  const Dropout none{nullptr, 0u, 1.f};
   Launcher lq{s, B * Q, Q, none, nullptr}, lm{s, B * L, L, none, nullptr};
   decoder_layer_fwd(lq, lm,
                     {sa_w_in, sa_b_in, sa_w_out, sa_b_out, n1_g, n1_b, ca_w_in, ca_b_in,

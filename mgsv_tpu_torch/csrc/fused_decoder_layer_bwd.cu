@@ -140,7 +140,7 @@ extern "C" int mgsv_fused_decoder_layer_bwd(
   float* dqq = dt2;          // dq Wq, once dt2 is spent
   float* dz1 = take(nq * F);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Dropout none{0u, 0u, 1.f};
+  const Dropout none{nullptr, 0u, 1.f};
   Launcher lq{s, Nq, Q, none, cur}, lm{s, Nm, L, none, cur};
   const bool sa = self_attn != 0;
 

@@ -76,7 +76,7 @@ extern "C" int mgsv_fused_encoder_layer_fwd(
     const float* g1, const float* be1, const float* w1, const float* b1,
     const float* w2, const float* b2, const float* g2, const float* be2,
     float* ws, float* out, int B, int L, int D, int H, int F,
-    unsigned seed, unsigned thresh, float scale, int bf16, void* stream) {
+    const unsigned* seed, unsigned thresh, float scale, int bf16, void* stream) {
   if (B < 1 || B > kMaxB || L < 1 || L > kMaxL || D != kCols || H * kHeadDim != D ||
       F < kCols || F % kCols != 0)
     return (int)cudaErrorInvalidValue;

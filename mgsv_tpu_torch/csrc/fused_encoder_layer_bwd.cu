@@ -75,7 +75,7 @@ extern "C" int mgsv_fused_encoder_layer_bwd(
     float* dx, float* dpos, float* dw_in, float* db_in, float* dw_out, float* db_out,
     float* dg1, float* dbe1, float* dw1, float* db1, float* dw2, float* db2,
     float* dg2, float* dbe2, float* ws, int B, int L, int D, int H, int F,
-    unsigned seed, unsigned thresh, float scale, int bf16, void* stream) {
+    const unsigned* seed, unsigned thresh, float scale, int bf16, void* stream) {
   if (B < 1 || B > kMaxB || L < 1 || L > kMaxL || D != kCols || H * kHeadDim != D ||
       F < kCols || F % kCols != 0)
     return (int)cudaErrorInvalidValue;

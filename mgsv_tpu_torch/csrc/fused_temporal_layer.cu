@@ -77,7 +77,7 @@ extern "C" int mgsv_fused_temporal_layer_fwd(
     const float* g1, const float* be1, const float* w1, const float* b1,
     const float* w2, const float* b2, const float* g2, const float* be2,
     float* ws, float* out, float* const* saved, int B, int L, int D, int H, int F,
-    unsigned seed, unsigned thresh, float scale, void* stream) {
+    const unsigned* seed, unsigned thresh, float scale, void* stream) {
   if (!temporal_shape_ok(B, L, D, H, F)) return (int)cudaErrorInvalidValue;
   const size_t n = (size_t)B * L, d = kCols;
   float* cur = ws;

@@ -77,7 +77,7 @@ extern "C" int mgsv_fused_temporal_layer_bwd(
     float* dx, float* dw_in, float* db_in, float* dw_out, float* db_out,
     float* dg1, float* dbe1, float* dw1, float* db1, float* dw2, float* db2,
     float* dg2, float* dbe2, float* const* saved, float* ws, int B, int L, int D, int H, int F,
-    unsigned seed, unsigned thresh, float scale, void* stream) {
+    const unsigned* seed, unsigned thresh, float scale, void* stream) {
   if (!temporal_shape_ok(B, L, D, H, F)) return (int)cudaErrorInvalidValue;
   const int rows = B * L;
   const size_t n = (size_t)rows, d = kCols;

@@ -120,7 +120,7 @@ struct RowEpi {
   __host__ __device__ long add_a_ld() const { return p.ldadd; }
   __device__ void warp_keep(int, int r0, int r1, int c, float (&kp)[2][2]) const {
     pair_keep(drop, [&](int r, int c4) {
-      return philox4(drop.seed, r / L, p.site, ((r % L) * p.width + c4) >> 2);
+      return philox4(drop.seed(), r / L, p.site, ((r % L) * p.width + c4) >> 2);
     }, r0, r1, c, kp);
   }
   // the inputs of columns n, n + 1 (n even), loaded ahead of the stores
@@ -312,12 +312,13 @@ ln_bwd_sum_kernel(const float* __restrict__ dy, const float* __restrict__ xhat,
 __global__ void dropout_kernel(const float* __restrict__ in, float* __restrict__ out,
                                int rows, int width, int L, int site, Dropout drop) {
   const size_t n4 = (size_t)rows * width / 4;
+  const unsigned seed = seed_of(drop);
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n4;
        i += (size_t)gridDim.x * blockDim.x) {
     const int gr = (int)(4 * i / width), c = (int)(4 * i % width);
     float4 v = reinterpret_cast<const float4*>(in)[i];
     if (drop.thresh != 0u) {
-      const uint4 w = philox4(drop.seed, gr / L, site, ((gr % L) * width + c) >> 2);
+      const uint4 w = philox4(seed, gr / L, site, ((gr % L) * width + c) >> 2);
       v.x *= w.x >= drop.thresh ? drop.scale : 0.f;
       v.y *= w.y >= drop.thresh ? drop.scale : 0.f;
       v.z *= w.z >= drop.thresh ? drop.scale : 0.f;
@@ -634,20 +635,20 @@ __device__ __forceinline__ void scaled(float (&v)[4], const float (&c)[4], const
 // of four mask words, so a lane pair draws each group once (pair_keep);
 // else one Philox call per pair (keep2).  Every lane of the warp calls it;
 // values outside [0, L) are not used.
-__device__ __forceinline__ void att_keep(const Dropout& drop, int b, int h, int L, int ir, int j,
-                                         float (&kq)[2][2]) {
+__device__ __forceinline__ void att_keep(const Dropout& drop, unsigned seed, int b, int h, int L,
+                                         int ir, int j, float (&kq)[2][2]) {
   if (drop.thresh == 0u) {
     kq[0][0] = kq[0][1] = kq[1][0] = kq[1][1] = 1.f;
   } else if ((L & 3) == 0) {
     pair_keep(drop, [&](int r, int c4) {
-      return philox4(drop.seed, b, h, (unsigned)(r * L + c4) >> 2);
+      return philox4(seed, b, h, (unsigned)(r * L + c4) >> 2);
     }, ir, ir + 8, j, kq);
   } else {
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) {
       const int i = ir + 8 * rr;
       kq[rr][0] = kq[rr][1] = 0.f;
-      if (i < L && j < L) keep2(drop, b, h, i * L + j, kq[rr][0], kq[rr][1]);
+      if (i < L && j < L) keep2(drop, seed, b, h, i * L + j, kq[rr][0], kq[rr][1]);
     }
   }
 }
@@ -663,6 +664,7 @@ attention_fwd_tc_kernel(const float* __restrict__ qkv, const float* __restrict__
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const int h = blockIdx.x, b = blockIdx.y, Lp = att_lp(L), hw = att_head_words(L);
+  const unsigned seed = seed_of(drop);
   float* msk = sm + 3 * hw;
   const size_t row0 = (size_t)b * L;
   const float* base = qkv + row0 * 3 * kCols + h * kHeadDim;
@@ -700,7 +702,7 @@ attention_fwd_tc_kernel(const float* __restrict__ qkv, const float* __restrict__
         dot_tile(c, qa, K, j0 + 8 * hf, g, t);
         scaled(v, c, msk, j0 + 8 * hf, t, scale);
         float kq[2][2];
-        att_keep(drop, b, h, L, r0 + g, j0 + 8 * hf + 2 * t, kq);
+        att_keep(drop, seed, b, h, L, r0 + g, j0 + 8 * hf + 2 * t, kq);
 #pragma unroll
         for (int rr = 0; rr < 2; ++rr) {
 #pragma unroll
@@ -743,6 +745,7 @@ attention_bwd_tc_kernel(const float* __restrict__ qkv, const float* __restrict__
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const int h = blockIdx.x, b = blockIdx.y, Lp = att_lp(L), hw = att_head_words(L);
+  const unsigned seed = seed_of(drop);
   // per query row: max, 1 / sum of exp, D
   float *msk = sm + 4 * hw, *mx_s = msk + Lp, *sum_s = mx_s + Lp, *dd_s = sum_s + Lp;
   // bit j % 32 of word i W + j / 32: the dropout mask of weight (i, j),
@@ -803,7 +806,7 @@ attention_bwd_tc_kernel(const float* __restrict__ qkv, const float* __restrict__
         dot_tile(dp, da, V, j0, g, t);
         scaled(v, c, msk, j0, t, scale);
         float kq[2][2];
-        att_keep(drop, b, h, L, r0 + g, j0 + 2 * t, kq);
+        att_keep(drop, seed, b, h, L, r0 + g, j0 + 2 * t, kq);
 #pragma unroll
         for (int rr = 0; rr < 2; ++rr) {
           const int j = j0 + 2 * t, i = r0 + g + 8 * rr;
@@ -834,7 +837,7 @@ attention_bwd_tc_kernel(const float* __restrict__ qkv, const float* __restrict__
         dot_tile(c, qa, K, j0 + 8 * hf, g, t);
         dot_tile(dp, da, V, j0 + 8 * hf, g, t);
         float kq[2][2];
-        if (from_fwd) att_keep(drop, b, h, L, r0 + g, j0 + 8 * hf + 2 * t, kq);
+        if (from_fwd) att_keep(drop, seed, b, h, L, r0 + g, j0 + 8 * hf + 2 * t, kq);
 #pragma unroll
         for (int rr = 0; rr < 2; ++rr) {
           const int j = j0 + 8 * hf + 2 * t, i = r0 + g + 8 * rr;

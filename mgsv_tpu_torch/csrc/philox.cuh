@@ -3,15 +3,31 @@
 // e & 3 of Philox4x32-10(counter (e >> 2, a, b, 0), key (seed, 0)); it is
 // kept when that word >= thresh and then scaled by `scale` = 1 / (1 - rate).
 // A mask is never stored: each use site, forward or backward, draws again.
+// The seed is read from device memory (one slot of the training step's seed
+// buffer, models/layers.py::StepSeeds), so a launch captured into a CUDA
+// graph draws the seed its host wrote before each replay.
 #pragma once
 
 #include <cuda_runtime.h>
 
 struct Dropout {
-  unsigned seed;
-  unsigned thresh;   // 0: no dropout
+  const unsigned* seed_at;   // device memory; read only when thresh != 0
+  unsigned thresh;           // 0: no dropout
   float scale;
+  // __ldg's asm is volatile, so each call reads memory again: a kernel
+  // reads the seed once where it starts (seed_of), except where a read
+  // per call costs nothing measurable (the GEMM epilogues).  Not to be
+  // made non-volatile: the compiler then hoists the read above the
+  // thresh test, and a launch without dropout has no seed to read.
+  __device__ __forceinline__ unsigned seed() const { return __ldg(seed_at); }
 };
+
+// The seed, read once where a kernel starts (0 without dropout), for the
+// helpers that take it: a read under a branch inside a loop would be made
+// again at every pass.
+__device__ __forceinline__ unsigned seed_of(const Dropout& d) {
+  return d.thresh != 0u ? d.seed() : 0u;
+}
 
 // The four words of Philox4x32-10(counter (c, a, b, 0), key (seed, 0)):
 // elements 4 c .. 4 c + 3 of stream (a, b).
@@ -46,21 +62,26 @@ __device__ __forceinline__ unsigned philox_word(unsigned seed, unsigned a, unsig
 }
 
 // The mask value of element e of stream (a, b): 0, or d.scale (1 at rate 0).
-__device__ __forceinline__ float keep(const Dropout& d, unsigned a, unsigned b, unsigned e) {
+__device__ __forceinline__ float keep(const Dropout& d, unsigned seed, unsigned a, unsigned b,
+                                      unsigned e) {
   if (d.thresh == 0u) return 1.f;
-  return philox_word(d.seed, a, b, e) >= d.thresh ? d.scale : 0.f;
+  return philox_word(seed, a, b, e) >= d.thresh ? d.scale : 0.f;
+}
+
+__device__ __forceinline__ float keep(const Dropout& d, unsigned a, unsigned b, unsigned e) {
+  return keep(d, seed_of(d), a, b, e);
 }
 
 // The mask values of elements e and e + 1 of stream (a, b): one Philox
 // call when both lie in one group of four (e even), two otherwise.
-__device__ __forceinline__ void keep2(const Dropout& d, unsigned a, unsigned b, unsigned e,
-                                      float& k0, float& k1) {
+__device__ __forceinline__ void keep2(const Dropout& d, unsigned seed, unsigned a, unsigned b,
+                                      unsigned e, float& k0, float& k1) {
   if (d.thresh == 0u) {
     k0 = k1 = 1.f;
     return;
   }
-  const uint4 w = philox4(d.seed, a, b, e >> 2);
+  const uint4 w = philox4(seed, a, b, e >> 2);
   k0 = word_of(w, e) >= d.thresh ? d.scale : 0.f;
-  const unsigned w1 = (e & 3u) != 3u ? word_of(w, e + 1) : philox_word(d.seed, a, b, e + 1);
+  const unsigned w1 = (e & 3u) != 3u ? word_of(w, e + 1) : philox_word(seed, a, b, e + 1);
   k1 = w1 >= d.thresh ? d.scale : 0.f;
 }

@@ -366,6 +366,7 @@ xpool_pair_kernel(const __grid_constant__ FwdParams p) {
   // 8 j + 2 t + e
   const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const unsigned seed = seed_of(p.drop);
   // what this thread parks: its float4 of k-step j at mine[128 j]
   float4* mine = parked + wg * kPriv * 128 + tid;
   auto release = [&](int it) {
@@ -505,7 +506,7 @@ xpool_pair_kernel(const __grid_constant__ FwdParams p) {
       float kp[2][2] = {{1.f, 1.f}, {1.f, 1.f}};
       if constexpr (kDrop)
         pair_keep(p.drop, [&](int r, int c4) {
-          return philox4(p.drop.seed, m, r, c4 >> 2);
+          return philox4(seed, m, r, c4 >> 2);
         }, r0, r0 + 8, c, kp);
       acc[4 * j] = (acc[4 * j] + b.x) * kp[0][0] + hv.x;
       acc[4 * j + 1] = (acc[4 * j + 1] + b.y) * kp[0][1] + hv.y;
@@ -660,7 +661,7 @@ struct LinEpi {
   __device__ void warp_keep(int, int r0, int r1, int c, float (&kp)[2][2]) const {
     if (drop.thresh == 0u) return;
     pair_keep(drop, [&](int r, int c4) {
-      return philox4(drop.seed, m0 + r / V, r % V, c4 >> 2);
+      return philox4(drop.seed(), m0 + r / V, r % V, c4 >> 2);
     }, r0, r1, c, kp);
   }
   __device__ void pair(int, int r, int c, float v0, float v1, const In& in,
@@ -722,6 +723,7 @@ head_bwd_kernel(const float* __restrict__ t3, const float* __restrict__ vhat,
                 float* __restrict__ du3, float* __restrict__ dlin, float* __restrict__ part,
                 int rows, int V, int m0, Dropout drop) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned seed = seed_of(drop);
   float acc[3][kVec] = {};
   constexpr int kWarpRows = kSumRows / kWarps;
   for (int i = 0; i < kWarpRows; ++i) {
@@ -770,7 +772,7 @@ head_bwd_kernel(const float* __restrict__ t3, const float* __restrict__ vhat,
     for (int t = 0; t < kVec; ++t) {
       const int c = lane + 32 * t;
       const float du = (dog[t] - m1 - x[t] * m2) * inv3;
-      const float dl = du * keep(drop, m, v, c);
+      const float dl = du * keep(drop, seed, m, v, c);
       du3[base + c] = du;
       dlin[base + c] = dl;
       acc[2][t] += dl;
@@ -812,7 +814,7 @@ extern "C" int mgsv_xpool_sim_fwd(const float* q, const float* k, const float* v
                                   const float* bout, const float* g2, const float* b2,
                                   const float* wlin, const float* blin, const float* g3,
                                   const float* b3, float* out, float* ws, int V, int M, int S,
-                                  int D, unsigned seed, unsigned thresh, float scale,
+                                  int D, const unsigned* seed, unsigned thresh, float scale,
                                   void* stream) {
   if (bad_shape(V, M, S, D)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -904,7 +906,7 @@ extern "C" int mgsv_xpool_sim_bwd(
     const float* wlin, const float* blin, const float* g3, const float* b3, const float* g,
     float* dq, float* dk, float* dv, float* dvhat, float* dwout, float* dbout, float* dg2,
     float* db2, float* dwlin, float* dblin, float* dg3, float* db3, float* ws, int V, int M,
-    int S, int D, unsigned seed, unsigned thresh, float scale, void* stream) {
+    int S, int D, const unsigned* seed, unsigned thresh, float scale, void* stream) {
   if (bad_shape(V, M, S, D)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Dropout drop{seed, thresh, scale};
@@ -931,7 +933,7 @@ extern "C" int mgsv_xpool_sim_bwd(
     if (err == cudaSuccess) err = e != cudaSuccess ? e : cudaGetLastError();
     return err == cudaSuccess;
   };
-  const Dropout none{0u, 0u, 1.f};
+  const Dropout none{nullptr, 0u, 1.f};
   Launcher per_track{st, M * S, 1, none, partial};
 
   // u = v Wout^T, once per track

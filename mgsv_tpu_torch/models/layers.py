@@ -13,13 +13,18 @@ plain Dense layers, xavier-normal for the CA fusion's cross-attention).
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional
+import threading
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from mgsv_tpu_torch.core.device import write_to_device
+from mgsv_tpu_torch.ops.philox import seed_tensor
 
 BIG_NEG = -1e9
 
@@ -85,19 +90,88 @@ class Dropout(nn.Module):
         return dropout(x, self.rate, generator)
 
 
-def draw_seed(generator: torch.Generator) -> int:
-    """One int seed for a kernel's Philox masks per call (as the JAX package
-    draws an int32 seed from its dropout rng per call).  The kernels take
-    the seed as a host int.  A CPU generator draws it; a CUDA generator's
-    draw would make the host wait for the device, so the seed is derived on
-    the host from the generator's seed and Philox offset (host state), and
-    the offset steps on as a draw would."""
-    if generator.device.type == "cpu":
-        return int(torch.randint(0, 2 ** 31 - 1, (), generator=generator))
+def seed_at(generator_seed: int, offset: int) -> int:
+    """The Philox seed a kernel call draws from a CUDA generator of seed
+    `generator_seed` at Philox offset `offset`."""
+    key = np.random.SeedSequence([generator_seed, offset])
+    return int(key.generate_state(1)[0] & 0x7FFFFFFF)
+
+
+def _step_on(generator: torch.Generator) -> int:
+    """A CUDA generator's Philox offset, then stepped on by 4 as a draw of
+    one Philox call would."""
     offset = generator.get_offset()
     generator.set_offset(offset + 4)
-    key = np.random.SeedSequence([generator.initial_seed(), offset])
-    return int(key.generate_state(1)[0] & 0x7FFFFFFF)
+    return offset
+
+
+class StepSeeds:
+    """One training step's kernel seeds in device memory: slot i holds the
+    seed of the step's i-th `draw_seed`, and the kernels read it through a
+    pointer (csrc/philox.cuh), so a step captured as CUDA graphs
+    (train/graphs.py) replays with the seeds its host writes in before
+    each replay.  While `drawing` is open, `draw_seed` on a CUDA generator
+    takes the next slot: outside a capture it derives the seed as
+    `seed_at(generator seed, offset)`, fills the slot with it and records
+    the offset in `offsets`; inside one it only steps the generator on."""
+
+    CAPACITY = 64
+
+    def __init__(self, device: torch.device):
+        self.buffer = torch.zeros(self.CAPACITY, dtype=torch.int32, device=device)
+        self.offsets: List[Optional[int]] = []
+        self.capturing = False
+
+    @contextlib.contextmanager
+    def drawing(self, capturing: bool = False):
+        """Route this thread's `draw_seed` calls to the slots, from slot 0,
+        until closed."""
+        outer = getattr(_drawing, "seeds", None)
+        _drawing.seeds, self.offsets, self.capturing = self, [], capturing
+        try:
+            yield self
+        finally:
+            _drawing.seeds = outer
+
+    def draw(self, generator: torch.Generator) -> torch.Tensor:
+        i = len(self.offsets)
+        if i == self.CAPACITY:
+            raise RuntimeError(f"more than {self.CAPACITY} kernel seeds in one step")
+        slot = self.buffer[i:i + 1]
+        if self.capturing:
+            # get_offset and set_offset raise while a stream captures; a
+            # draw of one element steps the captured offset on by 4 as well
+            torch.empty(1, device=generator.device).uniform_(generator=generator)
+            self.offsets.append(None)
+            return slot
+        offset = _step_on(generator)
+        slot.fill_(seed_at(generator.initial_seed(), offset))
+        self.offsets.append(offset)
+        return slot
+
+    def write(self, generator_seed: int, offsets: Sequence[int]) -> None:
+        """Fill slots 0.. with the seeds drawn at `offsets` from a generator
+        of seed `generator_seed`, in one copy that does not wait."""
+        write_to_device(self.buffer, [seed_at(generator_seed, o) for o in offsets])
+
+
+_drawing = threading.local()   # .seeds: the StepSeeds open on this thread
+
+
+def draw_seed(generator: torch.Generator) -> Union[int, torch.Tensor]:
+    """One Philox seed for a kernel call's masks (as the JAX package draws an
+    int32 seed from its dropout rng per call).  A CPU generator draws it, an
+    int.  On a CUDA generator a draw would make the host wait for the
+    device, so the seed is derived on the host from the generator's seed and
+    Philox offset (`seed_at`), the offset stepped on as a draw would, and
+    handed to the kernel in device memory: a slot of the open `StepSeeds`,
+    else a tensor of its own (ops/philox.py::seed_tensor)."""
+    if generator.device.type == "cpu":
+        return int(torch.randint(0, 2 ** 31 - 1, (), generator=generator))
+    seeds = getattr(_drawing, "seeds", None)
+    if seeds is not None:
+        return seeds.draw(generator)
+    return seed_tensor(seed_at(generator.initial_seed(), _step_on(generator)), generator.device)
 
 
 def widen(x: torch.Tensor) -> torch.Tensor:

@@ -345,8 +345,10 @@ class MaDe(nn.Module):
             target = pooled_mean[:, None, :].expand(-1, nq, -1)
         else:                                   # "zero" / "random": zeros
             target = None
+        # no cast cache: a training step captured as a CUDA graph must
+        # cast inside the graph (train/graphs.py)
         with torch.autocast(fused.device.type, dtype=self.compute_dtype or torch.bfloat16,
-                            enabled=self.compute_dtype is not None):
+                            enabled=self.compute_dtype is not None, cache_enabled=False):
             hidden, memory = self.detr_transformer(
                 fused, fused_mask, pos, self.decoder_query_embed.weight, target,
                 generator, plain=not m.fused_detr_encoder,

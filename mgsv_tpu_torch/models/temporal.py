@@ -90,7 +90,7 @@ class TemporalTransformer(nn.Module):
         x [B, L, D], mask [B, L] (1 = valid) -> [B, L, out_dim]; dropout
         only with a generator."""
         with torch.autocast(x.device.type, dtype=self.compute_dtype or torch.bfloat16,
-                            enabled=self.compute_dtype is not None):
+                            enabled=self.compute_dtype is not None, cache_enabled=False):
             for layer in self.layers:
                 x = layer(x, mask, generator)
         return self.final_linear(widen(x))

@@ -218,7 +218,7 @@ def _launcher(device_index: int):
     fn = lib.mgsv_fused_encoder_layer_fwd
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 5
-                   + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_int,
+                   + [ctypes.c_void_p, ctypes.c_uint32, ctypes.c_float, ctypes.c_int,
                       ctypes.c_void_p])
     return size, fn
 
@@ -233,7 +233,7 @@ def _bwd_launcher(device_index: int):
     fn = lib.mgsv_fused_encoder_layer_bwd
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 31 + [ctypes.c_int] * 5
-                   + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_int,
+                   + [ctypes.c_void_p, ctypes.c_uint32, ctypes.c_float, ctypes.c_int,
                       ctypes.c_void_p])
     return size, fn
 
@@ -241,6 +241,7 @@ def _bwd_launcher(device_index: int):
 def _forward_kernel(x, mask, pos, layer, weights, rate, seed, precision) -> torch.Tensor:
     (b, L, d), f = x.shape, weights[6].shape[0]
     out = torch.empty_like(x)
+    seed = philox.device_seed(seed, rate, x.device)
     with torch.cuda.device(x.device):
         size, launch = _launcher(x.device.index)
         ws = x.new_empty(int(size(b * L, f)))
@@ -273,6 +274,7 @@ def fused_encoder_layer_bwd(x: torch.Tensor, mask: torch.Tensor, pos: torch.Tens
     (b, L, d), f = x.shape, weights[6].shape[0]
     grads = [torch.empty_like(w) for w in weights]
     dx, dpos = torch.empty_like(x), torch.empty_like(x)
+    seed = philox.device_seed(seed, rate, x.device)
     with torch.cuda.device(x.device):
         size, launch = _bwd_launcher(x.device.index)
         ws = x.new_empty(int(size(b * L, f)))

@@ -276,7 +276,7 @@ def _launcher(device_index: int):
     fn = lib.mgsv_fused_temporal_layer_fwd
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 5
-                   + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_void_p, ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p])
     return size, fn
 
 
@@ -290,7 +290,7 @@ def _bwd_launcher(device_index: int):
     fn = lib.mgsv_fused_temporal_layer_bwd
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 30 + [ctypes.c_int] * 5
-                   + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_void_p, ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p])
     return size, fn
 
 
@@ -316,6 +316,7 @@ def _forward_kernel(x, mask, layer, weights, rate, seed, save: bool):
     out = torch.empty_like(x)
     acts = (tuple(x.new_empty(shape) for shape in _saved_shapes(b, L, f, heads))
             if save else None)
+    seed = philox.device_seed(seed, rate, x.device)
     with torch.cuda.device(x.device):
         size, launch = _launcher(x.device.index)
         ws = x.new_empty(int(size(b * L, f, int(save))))
@@ -375,6 +376,7 @@ def fused_temporal_layer_bwd(x: torch.Tensor, mask: torch.Tensor, g: torch.Tenso
         _check_acts(acts, x, layer, f)
     grads = [torch.empty_like(w) for w in weights]
     dx = torch.empty_like(x)
+    seed = philox.device_seed(seed, rate, x.device)
     with torch.cuda.device(x.device):
         size, launch = _bwd_launcher(x.device.index)
         ws = x.new_empty(int(size(b * L, f, int(acts is not None))))

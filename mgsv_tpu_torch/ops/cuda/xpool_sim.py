@@ -114,7 +114,7 @@ def _launchers(device_index: int):
     err = lib.mgsv_xpool_sim_init()
     if err != 0:
         raise RuntimeError(f"xpool_sim: CUDA error {err} in init on cuda:{device_index}")
-    drop = [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p]
+    drop = [ctypes.c_void_p, ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p]
     fwd = lib.mgsv_xpool_sim_fwd
     fwd.restype = ctypes.c_int
     fwd.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + drop
@@ -140,6 +140,7 @@ def forward_workspace_bytes(vc: int, m: int, s: int, device: torch.device) -> in
 def _forward(q, k, v, mask, vhat, weights, out, ws, rate, seed) -> int:
     """One launch of the forward into out [M, V]; returns the CUDA error."""
     (vc, d), (m, s) = q.shape, mask.shape
+    seed = philox.device_seed(seed, rate, q.device)
     with torch.cuda.device(q.device):
         fwd = _launchers(q.device.index)[0]
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -176,6 +177,7 @@ def xpool_sim_bwd(q, k, v, mask, vhat, weights, g, rate: float = 0.0, seed: int 
     dq, dvhat = torch.empty_like(q), torch.empty_like(vhat)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     grads = [torch.empty_like(w) for w in weights]
+    seed = philox.device_seed(seed, rate, q.device)
     with torch.cuda.device(q.device):
         _, _, size, bwd = _launchers(q.device.index)
         ws = q.new_empty(int(size(vc, m, s)))

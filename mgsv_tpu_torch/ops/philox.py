@@ -25,7 +25,7 @@ torch's inverted dropout, with P(keep) = 1 - threshold / 2^32.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -45,14 +45,34 @@ def keep_scale(rate: float) -> float:
     return float(np.float32(1.0 / (1.0 - rate)))
 
 
-def kernel_args(rate: float, seed: int) -> Tuple[int, int, float]:
-    """(seed, threshold, keep scale) as a kernel's `Dropout` struct takes
-    them (csrc/philox.cuh); threshold 0 turns dropout off."""
+def seed_tensor(seed: int, device: torch.device) -> torch.Tensor:
+    """A new one-element int32 tensor on `device` holding the bits of the
+    uint32 `seed`, made by a fill (no wait for the device)."""
+    word = int(seed) & _MASK
+    return torch.full((1,), word - (1 << 32) if word >> 31 else word, dtype=torch.int32,
+                      device=device)
+
+
+def device_seed(seed: Union[int, torch.Tensor], rate: float,
+                device: torch.device) -> Optional[torch.Tensor]:
+    """A kernel call's seed as the kernels read it, from device memory: None
+    at rate 0 (no mask is drawn), `seed` itself when it is a tensor already
+    (a slot of the step's seed buffer, models/layers.py::StepSeeds), else
+    `seed_tensor(seed)`."""
+    if rate == 0.0:
+        return None
+    return seed if isinstance(seed, torch.Tensor) else seed_tensor(seed, device)
+
+
+def kernel_args(rate: float, seed: Optional[torch.Tensor]) -> Tuple[int, int, float]:
+    """(seed pointer, threshold, keep scale) as a kernel's `Dropout` struct
+    takes them (csrc/philox.cuh), `seed` a `device_seed`; threshold 0 turns
+    dropout off and the pointer is then null."""
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"dropout rate {rate} outside [0, 1)")
     if rate == 0.0:
         return 0, 0, 1.0
-    return int(seed) & _MASK, threshold(rate), keep_scale(rate)
+    return seed.data_ptr(), threshold(rate), keep_scale(rate)
 
 
 def _mulhilo(a: torch.Tensor, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -74,18 +94,22 @@ def philox4x32(c0, c1, c2, c3, k0: int, k1: int):
     return c0, c1, c2, c3
 
 
-def bits(seed: int, a: torch.Tensor, b: torch.Tensor, n: int) -> torch.Tensor:
+def bits(seed: Union[int, torch.Tensor], a: torch.Tensor, b: torch.Tensor,
+         n: int) -> torch.Tensor:
     """uint32 draws (as int64) of elements 0..n-1 of streams (a, b).
 
     a and b are int64 tensors that broadcast to the streams' shape S; the
-    result has shape S + (n,)."""
+    result has shape S + (n,).  `seed` may be a one-element tensor on a's
+    device (a `device_seed`), read there without a wait for the device."""
     a, b = torch.broadcast_tensors(a, b)
+    key = (seed.reshape(()).to(torch.int64) & _MASK if isinstance(seed, torch.Tensor)
+           else int(seed) & _MASK)
     j = torch.arange((n + 3) // 4, dtype=torch.int64, device=a.device)
     shape = a.shape + (1,)
     c0 = j.expand(*a.shape, j.numel())
     c1 = a.reshape(shape).expand_as(c0)
     c2 = b.reshape(shape).expand_as(c0)
-    words = philox4x32(c0, c1, c2, torch.zeros_like(c0), int(seed) & _MASK, 0)
+    words = philox4x32(c0, c1, c2, torch.zeros_like(c0), key, 0)
     return torch.stack(words, dim=-1).reshape(*a.shape, -1)[..., :n]
 
 

@@ -11,7 +11,11 @@ is optax's, step for step:
     mu    <- b1 mu + (1 - b1) g;   nu <- b2 nu + (1 - b2) g^2
     p     <- p - lr(k) * (mu / (1 - b1^(k+1))) / (sqrt(nu / (1 - b2^(k+1))) + eps)
 
-with k the update count (0 first).  Not torch.nn.utils.clip_grad_norm_,
+with k the update count (0 first).  The update's per-step scalars (the
+count k + 1, both bias corrections, each group's learning rate) live in
+device memory, refreshed from the host before each update without a wait
+(`stage`), so the update's launches read no host value and replay as a
+CUDA graph (train/graphs.py).  Not torch.nn.utils.clip_grad_norm_,
 which adds 1e-6 to the norm, nor torch.optim.Adam, whose schedule and eps
 placement differ.  `decoder_query_embed` belongs to no reference group and
 never updates unless train_query_embed is set.  Parameter gradients are
@@ -50,6 +54,7 @@ import torch
 from torch import nn
 
 from mgsv_tpu_torch.config import Config
+from mgsv_tpu_torch.core.device import write_to_device
 from mgsv_tpu_torch.core.mesh import Mesh, all_reduce_sum, sync_gradients
 from mgsv_tpu_torch.train.schedule import make_schedule
 
@@ -129,6 +134,11 @@ class GroupedAdam:
                      for name, p in self.groups[g]} if self.k > 1 else {})
         self.count = 0
         self.mini_step = 0
+        # [k + 1, 1 - b1^(k+1), 1 - b2^(k+1), lr(k) of each group] of update k
+        # (`stage`), and the update count they were staged for
+        device = next(model.parameters()).device
+        self.scalars = torch.zeros(3 + len(self.schedules), dtype=torch.float32, device=device)
+        self._staged: Optional[int] = None
 
     @property
     def micro_step(self) -> int:
@@ -177,6 +187,7 @@ class GroupedAdam:
                 a.zero_()
         self.count = int(state["count"])
         self.mini_step = mini_step
+        self._staged = None
 
     @torch.no_grad()
     def step(self) -> None:
@@ -208,23 +219,33 @@ class GroupedAdam:
             a.zero_()
         self.mini_step = 0
 
+    def stage(self) -> None:
+        """Write the next update's scalars into `scalars` (once per update
+        count): the bias corrections in float32 as optax computes them, the
+        schedules' learning rates rounded to float32."""
+        if self._staged == self.count:
+            return
+        k = self.count + 1
+        bcs = [float(1.0 - torch.full((), b, dtype=torch.float32) ** k)
+               for b in (self.b1, self.b2)]
+        write_to_device(self.scalars, [float(k)] + bcs
+                        + [schedule(self.count) for schedule in self.schedules.values()])
+        self._staged = self.count
+
     def _update(self, grads_of) -> None:
         """One clipped Adam update from grads_of(group's named parameters),
         each group's arithmetic in multi-tensor (torch._foreach_*) launches,
-        in optax's operation order."""
-        k = self.count + 1
-        for group, schedule in self.schedules.items():
+        in optax's operation order, its scalars read from `scalars`."""
+        self.stage()
+        bc1, bc2 = self.scalars[1], self.scalars[2]
+        for i, group in enumerate(self.schedules):
             named = self.groups[group]
             if not named:
                 continue
             params = [p for _, p in named]
-            device = params[0].device
             grads = grads_of(named)
             mus = [self.state[name][0] for name, _ in named]
             nus = [self.state[name][1] for name, _ in named]
-            # made on the device (a copy from the host would wait for it)
-            bc1, bc2 = (1.0 - torch.full((), b, dtype=torch.float32, device=device) ** k
-                        for b in (self.b1, self.b2))
             # g / norm * max_norm where norm >= max_norm, else g / 1 * 1 = g
             norm = global_norm(grads)
             clip = norm >= self.max_norm
@@ -243,7 +264,7 @@ class GroupedAdam:
             torch._foreach_add_(denom, self.eps)
             update = torch._foreach_div(mus, bc1)
             torch._foreach_div_(update, denom)
-            torch._foreach_mul_(update, schedule(self.count))
+            torch._foreach_mul_(update, self.scalars[3 + i])
             torch._foreach_sub_(params, update)
         self.count += 1
 

@@ -17,11 +17,13 @@ generator (core/mesh.py::fold_axis_into_seed), from which every plain
 dropout mask and every kernel's Philox seed is drawn, so one local row
 draws other masks at each dp index, as JAX folds axis_index("dp") into its
 kernels' seeds; the mp replicas of a dp index draw the same masks and
-keep the same weights.
+keep the same weights.  On a single CUDA device the training step replays
+as CUDA graphs (train/graphs.py).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -30,20 +32,26 @@ import torch
 from mgsv_tpu_torch.config import Config
 from mgsv_tpu_torch.core.mesh import Mesh, fold_axis_into_seed, sync_gradients
 from mgsv_tpu_torch.core.profiling import span
+from mgsv_tpu_torch.models.layers import StepSeeds
 from mgsv_tpu_torch.models.made import MaDe
 from mgsv_tpu_torch.ops.spans import eval_iou_batch, span_cw_to_se
+from mgsv_tpu_torch.train.graphs import StepGraphs, eager_phase, engages
 from mgsv_tpu_torch.train.objective import total_loss
 from mgsv_tpu_torch.train.optimizer import GroupedAdam, global_norm
 
 
-def step_generator(seed: int, step: int, device: torch.device, dp_index: int = 0
-                   ) -> torch.Generator:
-    """The step's dropout generator on `device`, keyed on (seed, step) as
+def step_key(seed: int, step: int, dp_index: int = 0) -> int:
+    """The seed of the step's dropout generator, keyed on (seed, step) as
     the JAX step keys its rng with fold_in(rng, step), with the dp index
     folded into the seed (dp index 0 keeps it)."""
-    key = int(np.random.SeedSequence([fold_axis_into_seed(seed, dp_index), step])
-              .generate_state(1, np.uint64)[0])
-    return torch.Generator(device=device).manual_seed(key)
+    return int(np.random.SeedSequence([fold_axis_into_seed(seed, dp_index), step])
+               .generate_state(1, np.uint64)[0])
+
+
+def step_generator(seed: int, step: int, device: torch.device, dp_index: int = 0
+                   ) -> torch.Generator:
+    """The step's dropout generator on `device`: seeded with `step_key`."""
+    return torch.Generator(device=device).manual_seed(step_key(seed, step, dp_index))
 
 
 def decode_top_span(outputs: Dict[str, Any], cfg: Config) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -60,22 +68,33 @@ def decode_top_span(outputs: Dict[str, Any], cfg: Config) -> Tuple[torch.Tensor,
 
 
 def make_train_step(model: MaDe, cfg: Config, optimizer: GroupedAdam,
-                    fused_decoder: bool = False, mesh: Optional[Mesh] = None):
+                    fused_decoder: bool = False, mesh: Optional[Mesh] = None,
+                    cuda_graphs: bool = True):
     """step(batch) -> log.  batch: tensors on the model's device, keyed as
     data/example_batch.py makes them.  The log holds the losses,
     train_iou [B] and grad_norm (the norm over every gradient, frozen
-    parameters included, as optax.global_norm(grads) is), as tensors; with
-    gradient accumulation grad_norm is this micro-batch's, as JAX logs it.
-    After the step each parameter's .grad holds its gradient.  Dropout, the
-    kernels' Philox seeds included, draws from (cfg.train.seed, the
-    optimizer's micro_step): JAX folds state.step into its rng, and flax's
-    apply_gradients advances state.step on every micro-batch.
+    parameters included, as optax.global_norm(grads) is), as tensors of
+    their own; with gradient accumulation grad_norm is this micro-batch's,
+    as JAX logs it.  After the step each parameter's .grad holds its
+    gradient.  Dropout, the kernels' Philox seeds included, draws from
+    (cfg.train.seed, the optimizer's micro_step): JAX folds state.step into
+    its rng, and flax's apply_gradients advances state.step on every
+    micro-batch; one generator on the model's device, re-seeded in place
+    each step with `step_key`, is the step's dropout generator.
     fused_decoder: the DETR decoder on the decoder-layer kernel
     (MaDe.forward; it raises for a detr_dropout above 0).  The step is the
     span "step" (core/profiling.py; its identifier the micro_step) with the
     children "step.forward", "step.loss" (the losses, the matcher
-    included), "step.backward" and "step.optimizer" (the gradient sync,
-    the norm and the update).
+    included, and the log's decoded spans), "step.backward" and
+    "step.optimizer" (the gradient sync, the norm and the update).
+
+    On a CUDA device without a mesh and at gradient_accumulation_steps 1
+    the step replays its phases as CUDA graphs (train/graphs.py): the first
+    call of a set of batch shapes runs eagerly, the second captures, later
+    calls replay, each replay also recording the span "step.replay" (the
+    host's preparation of its seeds, scalars and inputs); cuda_graphs=False
+    keeps every call eager.  Either way one body runs, and its results are
+    the same bit for bit.
 
     mesh: the batch is this rank's rows (their music codes coded over the
     global batch); the losses in the log are the global batch's and
@@ -88,38 +107,54 @@ def make_train_step(model: MaDe, cfg: Config, optimizer: GroupedAdam,
     if optimizer.mesh != mesh:
         raise ValueError(f"the step's mesh {mesh} is not its optimizer's {optimizer.mesh}")
     sync_now = mesh is not None and optimizer.k == 1
+    device = params[0].device
+    generator = torch.Generator(device=device)
+    dp_index = 0 if mesh is None else mesh.dp_index
+
+    def loss_and_log(out, batch):
+        loss, log = total_loss(out, batch["spans_target"], cfg,
+                               music_codes=batch.get("music_codes"), mesh=mesh)
+        with torch.no_grad():
+            spans_sec, _ = decode_top_span(out, cfg)
+            log = {k: v.detach() for k, v in log.items()}
+            log["train_iou"] = eval_iou_batch(batch["gt_moment"][:, 0, :], batch["m_duration"],
+                                              spans_sec, cfg.data.max_m_duration)
+        return loss, log
+
+    def update():
+        grads = [p.grad for p in params if p.grad is not None]
+        if sync_now:
+            sync_gradients(grads, mesh)
+        grad_norm = global_norm(grads) if mesh is None or sync_now else None
+        optimizer.step()
+        return grad_norm
+
+    def body(batch: Dict[str, torch.Tensor], phase) -> Dict[str, torch.Tensor]:
+        for p in params:
+            p.grad = None
+        out = phase("step.forward", lambda: model(
+            batch["frame_feats"], batch["frame_mask"], batch["segment_feats"],
+            batch["segment_mask"], v_duration=batch.get("v_duration"), generator=generator,
+            fused_decoder=fused_decoder, mesh=mesh))
+        loss, log = phase("step.loss", lambda: loss_and_log(out, batch))
+        phase("step.backward", loss.backward)
+        grad_norm = phase("step.optimizer", update)
+        if grad_norm is not None:
+            log["grad_norm"] = grad_norm
+        return log
+
+    graphs = (StepGraphs(body, params, optimizer, generator)
+              if cuda_graphs and engages(device, mesh, optimizer.k) else None)
+    seeds = StepSeeds(device) if device.type == "cuda" and graphs is None else None
 
     def train_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         with span("step", step=optimizer.micro_step):
-            generator = step_generator(cfg.train.seed, optimizer.micro_step,
-                                       batch["frame_feats"].device,
-                                       0 if mesh is None else mesh.dp_index)
-            for p in params:
-                p.grad = None
-            with span("step.forward"):
-                out = model(batch["frame_feats"], batch["frame_mask"], batch["segment_feats"],
-                            batch["segment_mask"], v_duration=batch.get("v_duration"),
-                            generator=generator, fused_decoder=fused_decoder, mesh=mesh)
-            with span("step.loss"):
-                loss, log = total_loss(out, batch["spans_target"], cfg,
-                                       music_codes=batch.get("music_codes"), mesh=mesh)
-            with span("step.backward"):
-                loss.backward()
-            with span("step.optimizer"):
-                grads = [p.grad for p in params if p.grad is not None]
-                if sync_now:
-                    sync_gradients(grads, mesh)
-                grad_norm = global_norm(grads) if mesh is None or sync_now else None
-                optimizer.step()
-            with torch.no_grad():
-                spans_sec, _ = decode_top_span(out, cfg)
-                log = {k: v.detach() for k, v in log.items()}
-                log["train_iou"] = eval_iou_batch(batch["gt_moment"][:, 0, :],
-                                                  batch["m_duration"], spans_sec,
-                                                  cfg.data.max_m_duration)
-                if grad_norm is not None:
-                    log["grad_norm"] = grad_norm
-            return log
+            key = step_key(cfg.train.seed, optimizer.micro_step, dp_index)
+            generator.manual_seed(key)
+            if graphs is not None:
+                return graphs(batch, key)
+            with seeds.drawing() if seeds is not None else contextlib.nullcontext():
+                return body(batch, eager_phase)
 
     return train_step
 

@@ -85,9 +85,25 @@ def test_encoder_and_xpool_masks_use_the_documented_streams():
 
 
 def test_kernel_args_turn_dropout_off_at_rate_0_and_refuse_rate_1():
-    assert philox.kernel_args(0.0, 123) == (0, 0, 1.0)
-    seed, thresh, scale = philox.kernel_args(0.3, -1)
-    assert seed == 0xFFFFFFFF and thresh == philox.threshold(0.3) > 0
+    # the kernels read the seed through a pointer: null at rate 0
+    assert philox.device_seed(123, 0.0, torch.device("cpu")) is None
+    assert philox.kernel_args(0.0, None) == (0, 0, 1.0)
+    seed = philox.device_seed(-1, 0.3, torch.device("cpu"))
+    assert seed.dtype == torch.int32 and seed.shape == (1,)
+    assert seed.numpy().view(np.uint32)[0] == 0xFFFFFFFF       # the uint32's bits
+    assert philox.device_seed(seed, 0.3, torch.device("cpu")) is seed
+    ptr, thresh, scale = philox.kernel_args(0.3, seed)
+    assert ptr == seed.data_ptr() and thresh == philox.threshold(0.3) > 0
     assert scale == philox.keep_scale(0.3)
     with pytest.raises(ValueError):
-        philox.kernel_args(1.0, 0)
+        philox.kernel_args(1.0, seed)
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2 ** 31 - 1, 2 ** 31 + 5, 2 ** 32 - 1])
+def test_masks_from_a_seed_in_device_memory_equal_the_int_seeds(seed):
+    """A seed handed over as a tensor (a slot of the step's seed buffer)
+    draws the bits its int draws."""
+    a = torch.arange(3, dtype=torch.int64)[:, None]
+    b = torch.arange(2, dtype=torch.int64)[None, :]
+    held = philox.seed_tensor(seed, torch.device("cpu"))
+    assert torch.equal(philox.bits(held, a, b, 37), philox.bits(seed, a, b, 37))
