@@ -10,6 +10,16 @@ Training (three steps from the same weights on the same rows):
               the leaves whose reference gradient is at least a thousandth
               of the median leaf's (the others move under Adam by round-off
               alone, as a key's bias under softmax)
+Evaluation (the window's last pass over the whole split):
+  sim_gap     the largest |similarity - reference similarity| over the
+              [N, N] corpus, over the standard deviation of the reference's
+              entries
+  span_gap_s  the largest |top-1 span bound - reference bound|, seconds
+  ret_loss_gap  the largest |retrieval loss - reference| / |reference| of a
+              batch (the in-batch dual and X-Pool InfoNCE); the eval loss,
+              a mean over the batches, does not separate the control
+  Ranks and recalls are not compared: with random weights near-ties swap
+  on rounding.
 Serving (a seeded sample of the window's requests):
   index_gap        the index's embeddings and tokens against the reference's
                    music tower, largest absolute gap over the largest value
@@ -68,6 +78,17 @@ def train(losses, first_grad, change, ref, weights) -> Dict[str, float]:
         "loss_gap": max(abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])),
         "grad_gap": max(leaf_gaps(first_grad, ref_grad, list(ref_grad)).values()),
         "change_gap": max(leaf_gaps(change, ref_change, moving).values()),
+    }
+
+
+def evaluation(got: dict, ref: dict) -> Dict[str, float]:
+    """got / ref: "sim" [N, N], "spans" [N, 2] and "retrieval_losses" [batches]
+    (numpy)."""
+    rl, ref_rl = got["retrieval_losses"], ref["retrieval_losses"]
+    return {
+        "sim_gap": float(np.abs(got["sim"] - ref["sim"]).max() / ref["sim"].std()),
+        "span_gap_s": float(np.abs(got["spans"] - ref["spans"]).max()),
+        "ret_loss_gap": float((np.abs(rl - ref_rl) / np.abs(ref_rl)).max()),
     }
 
 

@@ -8,8 +8,9 @@ check has to separate this control from the program's own runs.
 
 prints one JSON line a seed with the control's readings beside the cell's
 limits.  Training: the checked steps of a run of that seed (same weights,
-same rows, same dropout).  Serving: the sample of requests a run would
-check (`sample` videos of the pool), ranked over the whole catalog.
+same rows, same dropout).  Evaluation: a whole pass over the split.
+Serving: the sample of requests a run would check (`sample` videos of the
+pool), ranked over the whole catalog.
 """
 
 from __future__ import annotations
@@ -50,6 +51,18 @@ def train_control(cell, seed: int, device, precision: str = "fp8", batch: int = 
     grad = check.leaf_norms(low["first_grad"])
     change = check.leaf_norms({n: low["params"][n] - weights[n] for n in low["first_grad"]})
     return check.train(low["losses"], grad, change, ref, weights)
+
+
+def eval_control(cell, seed: int, device, precision: str = "fp8") -> dict:
+    p, flat = cell.traffic, cell.config
+    tree = generate.eval_tables(p, flat, seed, device)
+    weights = make_weights(flat, seed, device)
+    out = {}
+    for name, prec in (("ref", "fp32"), ("low", precision)):
+        with lowered(prec):
+            got = R.evaluation(weights, flat, tree, flat["train.batch_size_val"])
+        out[name] = dict(got, sim=check.numpy(got["sim"]), spans=check.numpy(got["spans"]))
+    return check.evaluation(out["low"], out["ref"])
 
 
 def serve_control(cell, seed: int, device, precision: str = "fp8") -> dict:
@@ -102,7 +115,8 @@ def main() -> int:
     device = torch.device("cuda:0")
     bench = harness.load_json(os.path.join(ROOT, "BENCHMARK.json"))
     cell = harness.load_cell(ROOT, harness.with_pending(bench, a.workload), a.workload)
-    fn = train_control if cell.traffic["driver"] == "train" else serve_control
+    fn = {"train": train_control, "eval": eval_control,
+          "serve": serve_control}[cell.traffic["driver"]]
     for seed in (int(s) for s in a.seeds.split(",")):
         got = fn(cell, seed, device, a.precision)
         print(json.dumps({"workload": a.workload, "seed": seed, "precision": a.precision,

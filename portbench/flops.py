@@ -6,8 +6,9 @@ mgsv_tpu_torch/core/flops.py (itself a copy of the JAX package's), reading
 the benchmark's flat configuration: 2*M*N*K per GEMM over MaDe's forward,
 times 3 for a training step; elementwise work, the matcher and the
 optimizer left out.  `serve_query_flops` counts an engine query the same
-way.  The kernel counts (`encoder_flops`, `temporal_flops`,
-`xpool_pair_flops`) and `least_s` are copies of chip_smoke.py's.
+way, and `eval_pass_flops` one evaluation of a split.  The kernel counts
+(`encoder_flops`, `temporal_flops`, `xpool_pair_flops`) and `least_s` are
+copies of chip_smoke.py's.
 """
 
 from __future__ import annotations
@@ -116,6 +117,21 @@ def serve_query_flops(cfg: dict, batch: int, candidates: int, tracks: int) -> fl
         + batch * tracks * (_attention_flops(1, 1, s, d) + 2.0 * (2.0 * d * d))
     pairs = forward_flops(cfg, batch * candidates)
     return video + scan + pairs["detr_encoder"] + pairs["detr_decoder"] + pairs["heads"]
+
+
+def eval_pass_flops(cfg: dict, rows: int, batch: int) -> Dict[str, float]:
+    """One evaluation of `rows` rows at `batch` (eval/evaluator.py::evaluate):
+    the forward of every batch, the last padded to `batch`, and the corpus
+    similarity over the split: the dual cosine [N, N], X-Pool's q projection
+    once per video and its k and v once per snippet of each track, and the
+    pair chain (`xpool_pair_flops`, Wout once per snippet)."""
+    m = _View(cfg, "model")
+    d = m.dim_input
+    s = int(cfg["data.max_m_duration"] / cfg["data.stride"])
+    forward = -(-rows // batch) * sum(forward_flops(cfg, batch).values())
+    corpus = (2.0 * rows * rows * d + 2.0 * rows * d * d + 2.0 * (2.0 * rows * s * d * d)
+              + xpool_pair_flops(rows, rows, s, d))
+    return {"forward": forward, "corpus": corpus, "pass": forward + corpus}
 
 
 def encoder_flops(b: int, length: int, d: int, ffn: int) -> int:

@@ -79,6 +79,15 @@ def train_tables(p: dict, cfg: dict, seed: int, device) -> Dict[str, torch.Tenso
     }
 
 
+def eval_tables(p: dict, cfg: dict, seed: int, device) -> Dict[str, torch.Tensor]:
+    """An evaluation split in the resident layout of `train_tables`:
+    p["rows"] rows, each with a video of its own and, with p["tracks"]
+    equal to p["rows"], a track of its own (as MGSV-EC's val and test
+    splits), durations spread over p["video_seconds"] and
+    p["track_seconds"]."""
+    return train_tables(dict(p, video_rows=p["rows"]), cfg, seed, device)
+
+
 def epoch_order(n: int, batch: int, seed: int, epoch: int) -> np.ndarray:
     """[n // batch, batch] row indices of one epoch: a seeded permutation,
     the last partial batch dropped, as the Trainer's stream."""

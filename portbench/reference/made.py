@@ -1,4 +1,5 @@
-"""Plain PyTorch reference of MaDe's training step and of its serving query.
+"""Plain PyTorch reference of MaDe's training step, its evaluation and its
+serving query.
 
 Written from the published equations (the ICCV 2025 MGSV paper, its
 reference code xxayt/MGSV, and Moment-DETR), in float32, with no kernel,
@@ -19,9 +20,10 @@ Configuration: a flat dict of `section.key` numbers and switches (the
 benchmark's configuration file).  Covered: concat fusion, the video-guided
 music X-Pool, the video moment query, post-norm DETR with decoder
 self-attention, the DETR heads with contrastive alignment, the
-dual_single_loss_fuse retrieval loss, one ground-truth moment, and the
-temporal towers plain (under dropout from the generator) or on the fused
-temporal kernel (Philox masks).
+dual_single_loss_fuse retrieval loss and its evaluation's corpus
+similarity, one ground-truth moment, and the temporal towers plain (under
+dropout from the generator) or on the fused temporal kernel (Philox
+masks).
 """
 
 from __future__ import annotations
@@ -350,9 +352,9 @@ def forward(P, cfg, batch, gen=None):
                      torch.cat([batch["frame_mask"], batch["segment_mask"]], 1),
                      vemb[:, None, :].expand(-1, q, -1), gen)
     logits, spans = heads(P, hidden)
-    return {"video_emb": vemb, "music_emb": memb, "single_sim": single, "logits": logits,
-            "spans": spans, "proj_q": l2n(linear(P, "contrastive_align_projection_query",
-                                                 hidden)),
+    return {"video_emb": vemb, "music_emb": memb, "music_tokens": st, "single_sim": single,
+            "logits": logits, "spans": spans,
+            "proj_q": l2n(linear(P, "contrastive_align_projection_query", hidden)),
             "proj_v": l2n(linear(P, "contrastive_align_projection_vid", ft))}
 
 
@@ -501,6 +503,54 @@ def gather(tree: Dict[str, torch.Tensor], idx: torch.Tensor) -> dict:
             "spans_target": tree["spans"][idx].float()}
 
 
+# ---------------------------------------------------------------- evaluation
+def top_span(cfg, logits, spans):
+    """Of one decoder layer's heads [N, Q, 2], each row's top-1 span in
+    seconds [N, 2] and its score [N]: the query of the highest foreground
+    probability."""
+    score = torch.softmax(logits, -1)[..., 0]
+    best = score.argmax(-1)
+    rows = torch.arange(best.shape[0], device=best.device)
+    return cw_to_se(spans)[rows, best] * cfg["data.max_m_duration"], score[rows, best]
+
+
+@torch.no_grad()
+def evaluation(P, cfg, tree, batch_size: int, block: int = 64) -> dict:
+    """An evaluation of the rows of `tree` in order: the forward without
+    dropout a batch of `batch_size` rows (the last padded by repeating the
+    last row), each batch's loss weighted by its valid rows, each row's top-1
+    span in seconds, and the corpus similarity of dual_single_loss_fuse, the
+    dual cosine plus the pooled X-Pool cosine, `block` tracks at a time.
+    Returns {"sim" [N, N], "spans" [N, 2], "loss", "retrieval_losses" (a
+    batch's each)}."""
+    if cfg["loss.vmr_loss"] != "dual_single_loss_fuse":
+        raise ValueError(f"the reference evaluates dual_single_loss_fuse, "
+                         f"not {cfg['loss.vmr_loss']!r}")
+    n = tree["video_rows"].shape[0]
+    pad = (-n) % batch_size
+    order = torch.cat([torch.arange(n), torch.full((pad,), n - 1)]).to(tree["vf"].device)
+    parts = {"video_emb": [], "music_emb": [], "music_tokens": [], "segment_mask": [],
+             "spans": []}
+    losses, retrieval, weights = [], [], []
+    for i in range(0, n + pad, batch_size):
+        batch = gather(tree, order[i:i + batch_size])
+        out = forward(P, cfg, batch)
+        terms = loss_terms(cfg, out, P, batch["spans_target"])
+        losses.append(float(terms["loss"]))
+        retrieval.append(float(terms["retrieval_loss"]))
+        weights.append(min(batch_size, n - i))
+        out["segment_mask"] = batch["segment_mask"]
+        out["spans"] = top_span(cfg, out["logits"][-1], out["spans"][-1])[0]
+        for k, v in parts.items():
+            v.append(out[k])
+    cat = {k: torch.cat(v)[:n] for k, v in parts.items()}
+    vemb, memb = cat["video_emb"], cat["music_emb"]
+    sim = l2n(vemb) @ l2n(memb).T + xpool_sim(P, vemb, cat["music_tokens"],
+                                               cat["segment_mask"], block=block)
+    return {"sim": sim, "spans": cat["spans"], "loss": float(np.average(losses, weights=weights)),
+            "retrieval_losses": np.array(retrieval)}
+
+
 # ---------------------------------------------------------------- serving
 @torch.no_grad()
 def music_index(P, cfg, feats, masks, block: int = 512):
@@ -530,8 +580,4 @@ def localize(P, cfg, ft, fmask, vemb, tokens, smask):
     q = cfg["model.num_moment_queries"]
     hidden, _ = detr(P, cfg, torch.cat([ft, tokens], 1), torch.cat([fmask.float(), smask], 1),
                      vemb[:, None, :].expand(-1, q, -1))
-    logits, spans = heads(P, hidden[-1])
-    score = torch.softmax(logits, -1)[..., 0]
-    best = score.argmax(-1)
-    rows = torch.arange(best.shape[0], device=best.device)
-    return cw_to_se(spans)[rows, best] * cfg["data.max_m_duration"], score[rows, best]
+    return top_span(cfg, *heads(P, hidden[-1]))

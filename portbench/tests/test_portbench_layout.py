@@ -22,7 +22,8 @@ def test_every_cell_finds_its_files():
     b = bench()
     for w in b["workloads"]:
         cell = harness.load_cell(ROOT, b, w["name"])
-        assert cell.traffic["driver"] in ("train", "serve")
+        assert cell.traffic["driver"] in ("train", "serve", "eval")
+        assert os.path.exists(os.path.join(HERE, "drivers", cell.traffic["driver"] + ".py"))
         assert cell.end_to_end and cell.per_layer
         assert "setup_s" in {m["name"] for m in cell.end_to_end}
         for m in cell.per_layer:

@@ -19,8 +19,8 @@ TINY = {"data.max_v_frames": 12, "data.stride": 20.0, "data.filter_sec": 20.0,
 
 
 def tiny_tree(tmp: str, q10: bool = False, rate: float = 40.0) -> tuple:
-    """(root, portbench dir) of a toy benchmark with the cells tiny-train
-    and tiny-serve."""
+    """(root, portbench dir) of a toy benchmark with the cells tiny-train,
+    tiny-serve and tiny-eval."""
     here = os.path.join(tmp, "portbench")
     shutil.copytree(HERE, here, ignore=shutil.ignore_patterns("__pycache__", "tests"))
     name = "made_q10" if q10 else "made_paper"
@@ -34,6 +34,11 @@ def tiny_tree(tmp: str, q10: bool = False, rate: float = 40.0) -> tuple:
     serve.update(tracks=40, pool=16, rate_per_s=rate, sample=6, clients=8, trace_seconds=0.3,
                  warm_buckets=[1, 2, 4, 8], max_batch=8)
     json.dump(serve, open(os.path.join(here, "traffic", "tiny_serve.json"), "w"))
+    ev = json.load(open(os.path.join(HERE, "traffic", "eval_val_resident.json")))
+    ev.update(rows=44, tracks=44, warm_passes=1, trace_passes=1)
+    json.dump(ev, open(os.path.join(here, "traffic", "tiny_eval.json"), "w"))
+    lim = {"sim_gap": 1e-4, "span_gap_s": 1e-3, "ret_loss_gap": 1e-4}
+    json.dump(lim, open(os.path.join(here, "limits", "tiny-eval.json"), "w"))
     lim = {"loss_gap": 1e-4, "grad_gap": 1e-4, "change_gap": 1e-2}
     json.dump(lim, open(os.path.join(here, "limits", "tiny-train.json"), "w"))
     lim = {"index_gap": 1e-4, "rank_gap": 1e-4, "score_gap": 1e-4, "moment_gap_s": 1e-3,
@@ -46,9 +51,10 @@ def tiny_tree(tmp: str, q10: bool = False, rate: float = 40.0) -> tuple:
                          "reduced": [], "why": "toy"}]
     bench["workloads"] = [
         {"name": "tiny-train", "config": "tiny", "traffic": "tiny_train", "chips": 1, "why": "t"},
-        {"name": "tiny-serve", "config": "tiny", "traffic": "tiny_serve", "chips": 1, "why": "s"}]
+        {"name": "tiny-serve", "config": "tiny", "traffic": "tiny_serve", "chips": 1, "why": "s"},
+        {"name": "tiny-eval", "config": "tiny", "traffic": "tiny_eval", "chips": 1, "why": "e"}]
     rename = {"train-paper-b512": "tiny-train", "train-q10-b512": "tiny-train",
-              "serve-paper-idx16k": "tiny-serve"}
+              "serve-paper-idx16k": "tiny-serve", "eval-paper-val2000": "tiny-eval"}
     for m in bench["end_to_end"] + bench["per_layer"]:
         if "workloads" in m:
             m["workloads"] = sorted({rename[w] for w in m["workloads"]})

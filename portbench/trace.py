@@ -8,6 +8,10 @@ kernel, copy and set intervals), the kernels by name, the device time of
 the kernels launched inside a named host range (`record_function`), and the
 longest idle gaps of the device, each named by the host operation that
 launched the kernel that ended it.
+
+`DeviceClock` is the light clock of a whole window: the profiler with
+the device's activity alone, read from its events in memory (no trace
+written), giving the device's busy seconds of the block.
 """
 
 from __future__ import annotations
@@ -28,6 +32,51 @@ LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 HOST_CATS = ("cpu_op", "user_annotation")
 
 
+def union(intervals) -> List[List[float]]:
+    """The union of (start, end) intervals, as sorted disjoint [start, end]."""
+    merged: List[List[float]] = []
+    for a, b in sorted(intervals):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    return merged
+
+
+def busy_seconds(events, on_device: bool) -> float:
+    """The busy seconds of the profiler's events (`_KinetoEvent`s): the union
+    of the intervals of the device's activity (kernels, copies, sets; its
+    user annotations left out), or on the CPU of its operators.  A profiler
+    of the device's activity alone records no host operators, and the
+    runtime's launch calls are host events."""
+    kind = torch.autograd.DeviceType.CUDA if on_device else torch.autograd.DeviceType.CPU
+    spans = [(e.start_ns(), e.end_ns()) for e in events
+             if e.device_type() == kind and not e.is_user_annotation()]
+    return sum(b - a for a, b in union(spans)) * 1e-9
+
+
+class DeviceClock:
+    """`busy_s`: the device's busy seconds over every block run under it."""
+
+    def __init__(self, device: torch.device):
+        self.device, self.busy_s = device, 0.0
+
+    @contextlib.contextmanager
+    def __call__(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        cuda = self.device.type == "cuda"
+        prof = profile(activities=[ProfilerActivity.CUDA if cuda else ProfilerActivity.CPU])
+        prof.start()
+        try:
+            yield
+        finally:
+            if cuda:
+                torch.cuda.synchronize(self.device)
+            prof.stop()
+            self.busy_s += busy_seconds(prof.profiler.kineto_results.events(), cuda)
+
+
 class Summary:
     """What one traced window holds; times in seconds."""
 
@@ -36,13 +85,7 @@ class Summary:
         dev = [e for e in events if e.get("cat") in DEVICE_CATS and "dur" in e]
         self.kernels = [e for e in dev if e["cat"] == "kernel"]
         self.kernel_s = sum(e["dur"] for e in self.kernels) * 1e-6
-        spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in dev)
-        merged: List[List[float]] = []
-        for a, b in spans:
-            if merged and a <= merged[-1][1]:
-                merged[-1][1] = max(merged[-1][1], b)
-            else:
-                merged.append([a, b])
+        merged = union((e["ts"], e["ts"] + e["dur"]) for e in dev)
         self.busy_s = sum(b - a for a, b in merged) * 1e-6
         launches = [e for e in events if e.get("cat") in LAUNCH_CATS]
         self._launch_of = {e.get("args", {}).get("correlation"): e for e in launches}
