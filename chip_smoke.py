@@ -798,20 +798,16 @@ def check_encoder(device: torch.device, length: int = TRAIN_L) -> list:
             lambda: fel.fused_encoder_layer_reference(x, mask, pos, layer, rate, DROPOUT_SEED))
     xi, pi = x.clone().requires_grad_(), pos.clone().requires_grad_()
     out = fel.fused_encoder_layer_reference(xi, mask, pi, layer, rate, DROPOUT_SEED)
+    fwd, bwd, acts = encoder_variants(layer, x, pos, mask, g, rate, "f32")
     bms, plain_bms = in_turns(
-        lambda: fel.fused_encoder_layer_bwd(x, mask, pos, g, layer, rate, DROPOUT_SEED),
-        lambda: torch.autograd.grad(out, [xi, pi, *params], g, retain_graph=True))
+        bwd(acts), lambda: torch.autograd.grad(out, [xi, pi, *params], g, retain_graph=True))
     del out
     phase("kernel-time", name="fused_encoder_layer", B=TRAIN_B, L=length, rate=rate,
           ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}")
     phase("kernel-time", name="fused_encoder_layer_bwd", B=TRAIN_B, L=length, rate=rate,
-          ms=f"{bms:.4f}", plain_ms=f"{plain_bms:.4f}")
-    if full:
-        with torch.no_grad():
-            breakdown("fused_encoder_layer", lambda: fel.fused_encoder_layer(
-                x, mask, pos, layer, rate, DROPOUT_SEED), precision="f32")
-        breakdown("fused_encoder_layer_bwd", lambda: fel.fused_encoder_layer_bwd(
-            x, mask, pos, g, layer, rate, DROPOUT_SEED), precision="f32")
+          ms=f"{bms:.4f}", plain_ms=f"{plain_bms:.4f}", given="the saved set")
+    time_encoder_variants(fwd, bwd, acts, length, rate, "f32", full)
+    del acts
     flops = encoder_flops(TRAIN_B, length, d, ffn)
     fwd_bytes = nbytes(x, pos, mask, x, *params)
     bwd_bytes = nbytes(x, pos, mask, g, *params, x, pos, *params)
@@ -837,6 +833,56 @@ def check_encoder(device: torch.device, length: int = TRAIN_L) -> list:
         for e in entries:
             e.update(name=f"{e['name']}@L{length}", shape=f"B={TRAIN_B} L={length}")
     return entries
+
+
+def encoder_variants(layer, x, pos, mask, g, rate, precision):
+    """(fwd, bwd, acts) at `precision`: fwd(train) a call of #1, its
+    training variant (which keeps the saved set) or its inference one;
+    bwd(acts) a call of #2 given the saved set, or recomputing it given
+    None; acts the training variant's saved set, and #2 from it checked
+    equal to the recompute bit for bit (what the step runs against what it
+    ran before the saved set)."""
+    def fwd(train):
+        if train:
+            return lambda: fel.fused_encoder_layer_fwd(x, mask, pos, layer, rate, DROPOUT_SEED,
+                                                       precision)
+        return lambda: fel.fused_encoder_layer(x, mask, pos, layer, rate, DROPOUT_SEED,
+                                               precision)
+
+    bwd = lambda acts: lambda: fel.fused_encoder_layer_bwd(x, mask, pos, g, layer, rate,
+                                                           DROPOUT_SEED, precision, acts=acts)
+    with torch.no_grad():
+        out, acts = fwd(True)()
+        same_out = torch.equal(out, fwd(False)())
+    saved, recomputed = bwd(acts)(), bwd(None)()
+    same = [torch.equal(a, c) for a, c in zip([saved[0], saved[1], *saved[2]],
+                                              [recomputed[0], recomputed[1], *recomputed[2]])]
+    phase("kernel", name="fused_encoder_layer_bwd", precision=precision, B=x.shape[0],
+          L=x.shape[1], rate=rate, saved_set_equals_recompute=all(same),
+          training_out_equals_inference=same_out)
+    if not (all(same) and same_out):
+        raise AssertionError(f"fused_encoder_layer {precision}: from the saved set the "
+                             f"gradients equal the recompute's {same}, the outputs {same_out}")
+    return fwd, bwd, acts
+
+
+def time_encoder_variants(fwd, bwd, acts, length, rate, precision, breakdowns):
+    """#1's training variant against its inference variant, and #2 from the
+    saved set against the recompute, in turns; with `breakdowns`, each by
+    kernel name ([breakdown] lines)."""
+    with torch.no_grad():
+        train_ms, infer_ms = in_turns(fwd(True), fwd(False))
+    saved_ms, recompute_ms = in_turns(bwd(acts), bwd(None))
+    phase("kernel-time", name="fused_encoder_layer", precision=precision, B=TRAIN_B, L=length,
+          rate=rate, training_ms=f"{train_ms:.4f}", inference_ms=f"{infer_ms:.4f}")
+    phase("kernel-time", name="fused_encoder_layer_bwd", precision=precision, B=TRAIN_B,
+          L=length, rate=rate, saved_set_ms=f"{saved_ms:.4f}", recompute_ms=f"{recompute_ms:.4f}")
+    if breakdowns:
+        with torch.no_grad():
+            breakdown("fused_encoder_layer", fwd(False), precision=precision)
+            breakdown("fused_encoder_layer training variant", fwd(True), precision=precision)
+        breakdown("fused_encoder_layer_bwd", bwd(acts), precision=precision, given="saved set")
+        breakdown("fused_encoder_layer_bwd recomputing", bwd(None), precision=precision)
 
 
 def check_encoder_bf16(layer, layer64, names, x, pos, mask, g, rate,
@@ -880,24 +926,20 @@ def check_encoder_bf16(layer, layer64, names, x, pos, mask, g, rate,
               plain_f32_err=perr, rtol_of_max=BF16_GRAD_RTOL)
         fwd_err, bwd_err = max(fwd_err, err), max(bwd_err, gerr)
         del outs, grads
-    fwd = lambda prec: lambda: fel.fused_encoder_layer(x, mask, pos, layer, rate, DROPOUT_SEED,
-                                                       prec)
-    bwd = lambda prec: lambda: fel.fused_encoder_layer_bwd(x, mask, pos, g, layer, rate,
-                                                           DROPOUT_SEED, prec)
+    fwd, bwd, acts = encoder_variants(layer, x, pos, mask, g, rate, "bf16")
+    fwd32, bwd32, acts32 = encoder_variants(layer, x, pos, mask, g, rate, "f32")
     with torch.no_grad():
-        ms, plain_ms = in_turns(fwd("bf16"), lambda: fel.fused_encoder_layer_reference(
+        ms, plain_ms = in_turns(fwd(False), lambda: fel.fused_encoder_layer_reference(
             x, mask, pos, layer, rate, DROPOUT_SEED, "bf16"))
-        ms_b, ms32 = in_turns(fwd("bf16"), fwd("f32"))
+        ms_b, ms32 = in_turns(fwd(False), fwd32(False))
     xi, pi = x.clone().requires_grad_(), pos.clone().requires_grad_()
     out = fel.fused_encoder_layer_reference(xi, mask, pi, layer, rate, DROPOUT_SEED, "bf16")
-    bms, plain_bms = in_turns(bwd("bf16"), lambda: torch.autograd.grad(
+    bms, plain_bms = in_turns(bwd(acts), lambda: torch.autograd.grad(
         out, [xi, pi, *params], g, retain_graph=True))
-    bms_b, bms32 = in_turns(bwd("bf16"), bwd("f32"))
-    del out
-    if breakdowns:
-        with torch.no_grad():
-            breakdown("fused_encoder_layer", fwd("bf16"), precision="bf16")
-        breakdown("fused_encoder_layer_bwd", bwd("bf16"), precision="bf16")
+    bms_b, bms32 = in_turns(bwd(acts), bwd32(acts32))
+    del out, acts32
+    time_encoder_variants(fwd, bwd, acts, length, rate, "bf16", breakdowns)
+    del acts
     return {"fused_encoder_layer": (fwd_err, (ms + ms_b) / 2, plain_ms, ms32),
             "fused_encoder_layer_bwd": (bwd_err, (bms + bms_b) / 2, plain_bms, bms32)}
 

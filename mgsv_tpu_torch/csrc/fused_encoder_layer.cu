@@ -19,8 +19,9 @@
 // 134.5 GFLOP, 85 % of it the five activation x weight products, against
 // some 240 MB of inputs and output: the tensor cores' rate bounds it (0.27
 // ms at TF32's 495 TFLOP/s, 0.14 ms at bf16's 989).  So every product runs
-// on Hopper's tensor cores through wgmma, as one sequence that #2's
-// recompute shares (layer_bwd_kernels.cuh::encoder_layer_fwd):
+// on Hopper's tensor cores through wgmma, as one launch sequence
+// (layer_bwd_kernels.cuh::encoder_layer_fwd) that #2 runs again only when
+// it is given no saved set:
 //
 //  * x + pos; q|k and v, the out-projection (dropout, residual x) and both
 //    FFN products (bias, ReLU, dropout; dropout, residual y1) are launches
@@ -38,7 +39,13 @@
 // activations pass through device memory: at B=512 some 1.2 GB written and
 // read once, about 0.7 ms at 3.35 TB/s, which the products' speed on the
 // wgmma core repays.  The wrapper allocates that workspace
-// (mgsv_fused_encoder_layer_workspace floats) with torch.empty.
+// (mgsv_fused_encoder_layer_workspace floats) with torch.empty.  When a
+// gradient will be taken, the wrapper passes tensors of its own for them
+// (EncoderSaved, layer_bwd_kernels.cuh: a, q|k|v, ctx, y1, h1): the same
+// launches then also keep both LayerNorms' xhat and 1 / std and the
+// attention rows' softmax statistics, 3,090 floats a row at F = 1024 (0.96
+// GB a layer at B=512, L=152), and the backward reads them instead of
+// recomputing the forward.
 //
 // Precision "f32" (bf16 = 0): 3xTF32 products (float32 accuracy).
 // Precision "bf16" (the JAX kernel's precision="bf16", which the model
@@ -50,9 +57,10 @@
 #include "layer_bwd_kernels.cuh"
 
 // Floats of device workspace mgsv_fused_encoder_layer_fwd needs at B*L rows
-// and FFN width F (D = 256).
-extern "C" size_t mgsv_fused_encoder_layer_workspace(int rows, int F) {
+// and FFN width F (D = 256), with (saved 1) or without the saved set.
+extern "C" size_t mgsv_fused_encoder_layer_workspace(int rows, int F, int saved) {
   const size_t n = (size_t)rows, d = kCols;
+  if (saved) return align4(n * d);                       // r alone
   return 4 * align4(n * d) + align4(n * 3 * d) + align4(n * F);
 }
 
@@ -66,16 +74,17 @@ extern "C" int mgsv_fused_encoder_layer_init() {
 // One post-norm encoder layer on `stream`, dropout (seed, thresh, scale) as
 // in philox.cuh (thresh 0: none), after mgsv_fused_encoder_layer_init
 // on that device.  out is the [B, L, D] result, ws
-// mgsv_fused_encoder_layer_workspace floats of scratch; every pointer
-// 16-byte aligned.  The shapes must be ones the Python wrapper accepts (its
-// check_supported).  bf16 != 0: bf16 operands, float32 sums.  Returns the
-// first CUDA error (0 = ok).
+// mgsv_fused_encoder_layer_workspace floats of scratch; `saved`, when not
+// null, the EncoderSaved pointers (layer_bwd_kernels.cuh) the backward
+// takes, written here.  Every pointer 16-byte aligned.  The shapes must be
+// ones the Python wrapper accepts (its check_supported).  bf16 != 0: bf16
+// operands, float32 sums.  Returns the first CUDA error (0 = ok).
 extern "C" int mgsv_fused_encoder_layer_fwd(
     const float* x, const float* pos, const float* mask,
     const float* w_in, const float* b_in, const float* w_out, const float* b_out,
     const float* g1, const float* be1, const float* w1, const float* b1,
     const float* w2, const float* b2, const float* g2, const float* be2,
-    float* ws, float* out, int B, int L, int D, int H, int F,
+    float* ws, float* out, float* const* saved, int B, int L, int D, int H, int F,
     const unsigned* seed, unsigned thresh, float scale, int bf16, void* stream) {
   if (B < 1 || B > kMaxB || L < 1 || L > kMaxL || D != kCols || H * kHeadDim != D ||
       F < kCols || F % kCols != 0)
@@ -84,12 +93,16 @@ extern "C" int mgsv_fused_encoder_layer_fwd(
   float* cur = ws;
   auto take = [&](size_t count) { float* p = cur; cur += align4(count); return p; };
   EncoderActs t{};
-  t.a = take(n * d);
-  t.qkv = take(n * 3 * d);
-  t.ctx = take(n * d);
+  if (saved) {
+    t = encoder_saved(saved);
+  } else {
+    t.a = take(n * d);
+    t.qkv = take(n * 3 * d);
+    t.ctx = take(n * d);
+    t.y1 = take(n * d);
+    t.h1 = take(n * F);
+  }
   t.r = take(n * d);
-  t.y1 = take(n * d);
-  t.h1 = take(n * F);
   t.out = out;
   Launcher k{static_cast<cudaStream_t>(stream), B * L, L, Dropout{seed, thresh, scale}, nullptr};
   k.bf16 = bf16 != 0;

@@ -1,10 +1,13 @@
-// The launches of the port's transformer layers, forward and backward by
-// recompute: the post-norm DETR encoder layer (fused_encoder_layer{,_bwd}.cu),
-// the temporal-tower layer (fused_temporal_layer{,_bwd}.cu) and the DETR
+// The launches of the port's transformer layers, forward and backward: the
+// post-norm DETR encoder layer (fused_encoder_layer{,_bwd}.cu), the
+// temporal-tower layer (fused_temporal_layer{,_bwd}.cu) and the DETR
 // decoder layer (fused_decoder_layer{,_bwd}.cu).  Each layer's forward is
 // one launch sequence (encoder_layer_fwd and temporal_layer_fwd here,
-// decoder_layer_fwd in decoder_layer_kernels.cuh) that its backward's
-// recompute runs too:
+// decoder_layer_fwd in decoder_layer_kernels.cuh).  With a gradient to
+// take, the training forward keeps its activations (EncoderSaved,
+// TemporalSaved, and the decoder's set) for the backward; a backward given
+// none runs the same sequence again first (its recompute), so both give
+// the same bits:
 //
 //  * rowgemm: activation x weight products over all rows on the wgmma core
 //    of wgmma_gemm.cuh (128 x 128 tiles fed by TMA), the weight read as a
@@ -24,15 +27,15 @@
 //    ln_bwd_sum_kernel: its backward with the gradients of its parameters
 //    (column sums per 256-row block, summed in block order);
 //    dropout_kernel: a mask over a tensor.
-//  * attention_bwd_tc_kernel (and, at "bf16", the recompute's
+//  * attention_bwd_tc_kernel (and, at "bf16", the forward's
 //    attention_fwd_tc_kernel): the attention of one (head, batch row) on
 //    the tensor cores (mma.sync: m16n8k16 bf16, or 3xTF32 m16n8k8), q, k,
 //    v (and dctx) of the head in shared memory, FlashAttention-2 style: the
 //    [L, L] weights are rebuilt from the row statistics and never leave
 //    registers.  The backward runs two sweeps, over query rows (statistics,
 //    D_i = sum_j p_ij m_ij dp_ij, then dq) and over key rows (dk, dv), so
-//    every sum has one owner: no atomics.  At "f32" the recompute takes the
-//    forward kernel's float32 attention, with its statistics.  (The
+//    every sum has one owner: no atomics.  At "f32" it takes the forward's
+//    statistics (its float32 attention_kernel's), and D_i = dctx_i . ctx_i.  (The
 //    temporal layer's backward runs attention_bwd_wg.cuh's wgmma kernel up
 //    to its kWgaMaxL instead.)
 //
@@ -653,7 +656,7 @@ __device__ __forceinline__ void att_keep(const Dropout& drop, unsigned seed, int
   }
 }
 
-// The recompute's attention forward at precision "bf16": ctx [B, L, D] from
+// The layers' attention forward at precision "bf16": ctx [B, L, D] from
 // qkv [B, L, 3D] (q, k, v rounded to bf16 as staged), and each row's softmax
 // max and sum [B, H, L] into stats.  The weights are normalized, dropped
 // (as torch does, after the softmax) and rounded to bf16 before p v: JAX's
@@ -779,7 +782,7 @@ attention_bwd_tc_kernel(const float* __restrict__ qkv, const float* __restrict__
     float il[2];
     const bool from_fwd = stats != nullptr;
     if (from_fwd) {
-      // the recompute's statistics, and D_i = dctx_i . ctx_i (= sum_j p_ij
+      // the forward's statistics, and D_i = dctx_i . ctx_i (= sum_j p_ij
       // m_ij dp_ij, ctx_i being sum_j p_ij m_ij v_j): no pass over the keys
 #pragma unroll
       for (int rr = 0; rr < 2; ++rr) {
@@ -1115,7 +1118,7 @@ struct Launcher {
         qkv, mask, ctx, stats, len, drop);
   }
   // the attention backward over B sequences of len rows; with the
-  // recompute's ctx and stats at precision "f32", D_i from dctx_i . ctx_i
+  // forward's ctx and stats at precision "f32", D_i from dctx_i . ctx_i
   void attention_bwd(const float* qkv, const float* dctx, const float* mask, float* dqkv, int B,
                      int H, int len, const float* ctx = nullptr, const float2* stats = nullptr) {
     if (!check()) return;
@@ -1142,14 +1145,38 @@ struct EncoderActs {
   float2* stats;
 };
 
+// What kernel #1's forward keeps for its backward when a gradient will be
+// taken, in the order both C entries take the pointers and the wrapper
+// allocates the tensors (ops/cuda/fused_encoder_layer.py::SAVED): all of
+// EncoderActs but r and out.
+enum EncoderSaved : int { kEncSavedA, kEncSavedQkv, kEncSavedCtx, kEncSavedY1, kEncSavedH1,
+                          kEncSavedXh1, kEncSavedInv1, kEncSavedXh2, kEncSavedInv2,
+                          kEncSavedStats };
+
+inline EncoderActs encoder_saved(float* const* s) {
+  EncoderActs t{};
+  t.a = s[kEncSavedA];
+  t.qkv = s[kEncSavedQkv];
+  t.ctx = s[kEncSavedCtx];
+  t.y1 = s[kEncSavedY1];
+  t.h1 = s[kEncSavedH1];
+  t.xh1 = s[kEncSavedXh1];
+  t.inv1 = s[kEncSavedInv1];
+  t.xh2 = s[kEncSavedXh2];
+  t.inv2 = s[kEncSavedInv2];
+  t.stats = reinterpret_cast<float2*>(s[kEncSavedStats]);
+  return t;
+}
+
 // The post-norm DETR encoder layer's forward: x + pos; q|k (from x + pos)
 // and v (from x) on the GEMM core with their biases; the attention (at
 // "bf16" on the tensor cores, at "f32" attention_kernel's float32 one);
 // the out-projection with dropout (site H) and the residual x; LN1; FFN1
 // with bias, ReLU and dropout (H + 1); FFN2 with dropout (H + 2) and the
-// residual y1; LN2.  Kernel #1 (fused_encoder_layer.cu) keeps `out`, #2's
-// recompute (fused_encoder_layer_bwd.cu) the statistics its backward reads:
-// both run this one sequence.
+// residual y1; LN2.  Kernel #1 (fused_encoder_layer.cu) keeps `out` (and,
+// for a gradient, the EncoderSaved set), #2's recompute
+// (fused_encoder_layer_bwd.cu, given no saved set) that set: both run this
+// one sequence, so the two give the same bits.
 inline void encoder_layer_fwd(Launcher& k, const float* x, const float* pos, const float* mask,
                               const EncoderWeights& w, const EncoderActs& t, int B, int H,
                               int F) {

@@ -5,7 +5,8 @@
 At the default training shapes (the encoder layer at B=512, L=152, D=256,
 FFN 1024, dropout 0.1; the X-Pool similarity at V=M=512, S=96, dropout
 0.3), float32 with TF32 off: each backward kernel and its plain version
-(autograd through the plain forward) timed in turns with CUDA events
+(autograd through the plain forward) timed in turns with CUDA events,
+#2 given the training forward's saved set where the checkout keeps one
 (plain, kernel, kernel, plain, `--iters` calls each), the encoder layer at
 precision "f32" and "bf16"; then one call of each kernel under
 torch.profiler, its device time summed by kernel name.  Prints the card's
@@ -86,7 +87,11 @@ def encoder(device, iters: int) -> None:
     mask = torch.from_numpy((np.arange(L)[None] < lens[:, None]).astype(np.float32)).to(device)
     rate = m.detr_dropout
     for prec in ("f32", "bf16"):
-        run = lambda: fel.fused_encoder_layer_bwd(x, mask, pos, g, layer, rate, 5, prec)
+        # given the training forward's saved set, as the step runs it, where
+        # the checkout keeps one
+        acts = ({"acts": fel.fused_encoder_layer_fwd(x, mask, pos, layer, rate, 5, prec)[1]}
+                if hasattr(fel, "fused_encoder_layer_fwd") else {})
+        run = lambda: fel.fused_encoder_layer_bwd(x, mask, pos, g, layer, rate, 5, prec, **acts)
         a, b = run(), run()
         same = all(torch.equal(u, v) for u, v in zip([a[0], a[1], *a[2]], [b[0], b[1], *b[2]]))
         xi, pi = x.clone().requires_grad_(), pos.clone().requires_grad_()

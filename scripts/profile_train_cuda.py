@@ -11,8 +11,9 @@ with their plain versions, in turns (plain, kernel, kernel, plain).  Then
 it traces one bf16 step with torch.profiler and prints the device time by
 kernel, the step's wall time and the device's busy share of it, and
 the host's time by operator and its kernel launches, then traces the two
-backward kernels alone at the step's shapes, so their launches can be read
-apart.  With --fused-temporal the configurations set fused_temporal (both
+backward kernels alone at the step's shapes (the encoder layer's given the
+training forward's saved set, where the checkout keeps one), so their
+launches can be read apart.  With --fused-temporal the configurations set fused_temporal (both
 temporal towers on the temporal-layer kernels, float32), and the temporal
 backward at the audio tower's shape is traced too (given the training
 forward's saved activations, where the checkout keeps them).  With --queries Q the
@@ -193,9 +194,14 @@ def main() -> int:
           f"{2 * rows * (d * d + 2 * d * f) / 1e9:.1f} GFLOP, activation gradients "
           f"{2 * rows * (2 * d * f + d * d + 3 * d * d + 2 * d * d) / 1e9:.1f} GFLOP, "
           f"weight gradients {2 * rows * (2 * d * f + d * d + 3 * d * d) / 1e9:.1f} GFLOP")
+    # given the training forward's saved set, as the step runs it, where the
+    # checkout keeps one
+    eacts = ({"acts": fel.fused_encoder_layer_fwd(x, mask, pos, layer, m.detr_dropout, 1)[1]}
+             if hasattr(fel, "fused_encoder_layer_fwd") else {})
     calls = {
         f"fused_encoder_layer_bwd B={BATCH} L=152 rate={m.detr_dropout}":
-            lambda: fel.fused_encoder_layer_bwd(x, mask, pos, g, layer, m.detr_dropout, 1),
+            lambda: fel.fused_encoder_layer_bwd(x, mask, pos, g, layer, m.detr_dropout, 1,
+                                                **eacts),
         f"xpool_sim_bwd V=M={BATCH} S={s} rate={m.xpool_dropout}":
             lambda: xps.xpool_sim_bwd(q, k, v, smask, vhat, weights, gsim, m.xpool_dropout, 1),
     }

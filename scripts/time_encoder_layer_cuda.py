@@ -13,8 +13,9 @@ and plain ms, their medians, the kernel's max abs error against the plain
 version), and the kernel's registers per thread where the build log has
 them.  Run from two checkouts in one call to compare two versions of the
 kernel on the same card.  With --backward B it also times the backward
-kernel (`fused_encoder_layer_bwd`) at B batch rows of L=152, dropout 0.1
-(the training step's shape and rate), in `--rounds` turns of `--iters`
+kernel (`fused_encoder_layer_bwd`, given the training forward's saved set
+where the checkout keeps one) at B batch rows of L=152, dropout 0.1 (the
+training step's shape and rate), in `--rounds` turns of `--iters`
 calls, and checks that two calls give the same gradients bit for bit.
 """
 
@@ -116,7 +117,11 @@ def main() -> int:
         lens = rng.integers(1, L + 1, b)
         mask = torch.from_numpy((np.arange(L)[None] < lens[:, None]).astype(np.float32)
                                 ).to(device)
-        bwd = lambda: fel.fused_encoder_layer_bwd(x, mask, pos, g, layer, 0.1, 1234)
+        # given the training forward's saved set, as the step runs it, where
+        # the checkout keeps one
+        acts = ({"acts": fel.fused_encoder_layer_fwd(x, mask, pos, layer, 0.1, 1234)[1]}
+                if hasattr(fel, "fused_encoder_layer_fwd") else {})
+        bwd = lambda: fel.fused_encoder_layer_bwd(x, mask, pos, g, layer, 0.1, 1234, **acts)
         first, second = bwd(), bwd()
         same = all(torch.equal(a, c) for a, c in zip([*first[:2], *first[2]],
                                                      [*second[:2], *second[2]]))

@@ -496,6 +496,142 @@ def test_cuda_encoder_forward_shapes(dev, precision, rate, b, L):
         assert err <= 2e-2 and err < (f32 - ref).abs().max().item(), err
 
 
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("b,L", [(512, 152), (5, 1), (3, 21), (7, 150), (2, 256), (8, 152),
+                                 (6, 96)])
+def test_cuda_encoder_backward_from_saved_acts_equals_recompute(dev, precision, rate, b, L):
+    """The training forward's saved activations (#1) against their plain
+    version, and the backward given them (what autograd runs) equal to the
+    recomputing backward bit for bit: both run one forward sequence.  The
+    cells' shape (B=512, L=152) and test_cuda_encoder_forward_shapes's, a
+    row that keeps no key included; the set within the forward's bar of
+    each precision (1e-4, "bf16" 2e-2) of its largest magnitude."""
+    rng = np.random.default_rng(b * L + 2)
+    x, pos, g = (_randn(rng, (b, L, 256), dev) for _ in range(3))
+    mask = _ragged(rng, b, L, dev)
+    mask[-1] = 0.0
+    layer = _encoder_layer(dev)
+    tol = 1e-4 if precision == "f32" else 2e-2
+    with torch.no_grad():
+        out, acts = fel.fused_encoder_layer_fwd(x, mask, pos, layer, rate, 7, precision)
+        plain = fel.fused_encoder_layer(x, mask, pos, layer, rate, 7, precision)
+        want_out, want = fel.encoder_layer_acts_reference(x, mask, pos, layer, rate, 7,
+                                                          precision)
+    assert torch.equal(out, plain)                   # the inference variant's bits
+    torch.testing.assert_close(out, want_out, atol=tol, rtol=0)
+    for name, got, ref in zip(fel.SAVED, acts, want):
+        if name == "stats":                          # max and sum; -1e9 in the keyless row
+            torch.testing.assert_close(got, ref, atol=tol, rtol=tol, msg=name)
+        else:
+            torch.testing.assert_close(got, ref, atol=tol * max(1.0, ref.abs().max().item()),
+                                       rtol=0, msg=name)
+    before = fel.fused_encoder_layer_bwd.launches
+    saved = fel.fused_encoder_layer_bwd(x, mask, pos, g, layer, rate, 7, precision, acts=acts)
+    recomputed = fel.fused_encoder_layer_bwd(x, mask, pos, g, layer, rate, 7, precision)
+    assert fel.fused_encoder_layer_bwd.launches == before + 2
+    for a, c in zip([saved[0], saved[1], *saved[2]],
+                    [recomputed[0], recomputed[1], *recomputed[2]]):
+        assert torch.isfinite(a).all() and torch.equal(a, c)
+    with pytest.raises(ValueError, match="acts"):
+        fel.fused_encoder_layer_bwd(x, mask, pos, g, layer, rate, 7, precision, acts=acts[:-1])
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_cuda_encoder_autograd_launches_once_each_from_the_saved_set(dev, precision):
+    """One forward and one backward through autograd at B=512, L=152, rate
+    0.1 move #1's and #2's counters by one each, and the gradients equal
+    the recomputing backward's bit for bit."""
+    rng = np.random.default_rng(11)
+    x, pos, g = (_randn(rng, (512, 152, 256), dev) for _ in range(3))
+    mask = _ragged(rng, 512, 152, dev)
+    layer = _encoder_layer(dev)
+    before = fel.fused_encoder_layer.launches, fel.fused_encoder_layer_bwd.launches
+    xi, pi = x.clone().requires_grad_(), pos.clone().requires_grad_()
+    out = fel.fused_encoder_layer(xi, mask, pi, layer, 0.1, 5, precision)
+    got = torch.autograd.grad(out, [xi, pi, *fel._layer_tensors(layer)], g)
+    assert (fel.fused_encoder_layer.launches, fel.fused_encoder_layer_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    dx, dpos, grads = fel.fused_encoder_layer_bwd(x, mask, pos, g, layer, 0.1, 5, precision)
+    for a, c in zip(got, [dx, dpos, *grads]):
+        assert torch.equal(a, c)
+
+
+def test_cuda_encoder_forward_saves_only_for_a_gradient(dev):
+    """Under torch.no_grad() (the evaluation's and the server's path) the
+    forward allocates its output alone and keeps nothing; with a gradient
+    to take it keeps the SAVED set for the backward, and frees it with the
+    graph."""
+    rng = np.random.default_rng(12)
+    x, pos = _randn(rng, (40, 152, 256), dev), _randn(rng, (40, 152, 256), dev)
+    mask = _ragged(rng, 40, 152, dev)
+    layer = _encoder_layer(dev)
+    with torch.no_grad():
+        fel.fused_encoder_layer(x, mask, pos, layer)     # first use: libraries, workspace
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated(dev)
+        plain = torch.empty_like(x)
+        one_output = torch.cuda.memory_allocated(dev) - start
+        del plain
+        start = torch.cuda.memory_allocated(dev)
+        out = fel.fused_encoder_layer(x, mask, pos, layer, 0.1, 3, "bf16")
+        torch.cuda.synchronize()
+        assert torch.cuda.memory_allocated(dev) - start == one_output
+        assert out.grad_fn is None
+        del out
+    start = torch.cuda.memory_allocated(dev)
+    out = fel.fused_encoder_layer(x, mask, pos.clone().requires_grad_(), layer, 0.1, 3, "bf16")
+    saved = sum(4 * int(np.prod(s)) for s in fel._saved_shapes(40, 152, 1024, 8))
+    assert torch.cuda.memory_allocated(dev) - start >= one_output + saved
+    del out
+    assert torch.cuda.memory_allocated(dev) == start
+
+
+def test_cuda_graphed_step_runs_the_encoder_from_its_saved_set(dev, monkeypatch):
+    """make_train_step at Config()'s widths (#1 and #2 at "bf16", dropout
+    0.1, B=64), eager and graphed from the same weights: the graphed arm's
+    second call captures all four phases, whose recorded launches hold one
+    #1 and one #2 a DETR encoder layer, every backward given the forward's
+    saved set; over four steps (eager, capture, two replays) its weights,
+    gradients and logs equal the eager arm's bit for bit."""
+    from mgsv_tpu_torch.config import Config
+    from mgsv_tpu_torch.data.example_batch import example_batch, to_tensors
+    from mgsv_tpu_torch.models.made import MaDe
+    from mgsv_tpu_torch.train import graphs
+    from mgsv_tpu_torch.train.optimizer import make_optimizer
+    from mgsv_tpu_torch.train.step import make_train_step
+
+    captured, given = [], []
+    capture, check_acts = graphs.StepGraphs._capture, fel._check_acts
+    monkeypatch.setattr(graphs.StepGraphs, "_capture",
+                        lambda self, *a: captured.append(capture(self, *a)) or captured[-1])
+    monkeypatch.setattr(fel, "_check_acts", lambda *a: given.append(1) or check_acts(*a))
+    cfg = Config.from_overrides({"train.batch_size_train": 64})
+    arms = []
+    for cuda_graphs in (False, True):
+        model = MaDe(cfg, torch.Generator().manual_seed(3)).to(dev)
+        step = make_train_step(model, cfg, make_optimizer(model, cfg, 200),
+                               cuda_graphs=cuda_graphs)
+        arms.append((model, step))
+    for i in range(4):
+        batch = to_tensors(example_batch(np.random.RandomState(i), cfg, 64), dev)
+        (model_e, eager), (model_g, graphed) = arms
+        log_e, log_g = eager(batch), graphed(batch)
+        assert log_e.keys() == log_g.keys()
+        for k in log_e:
+            assert torch.equal(log_e[k], log_g[k]), (i, k)
+        for (n, p), q in zip(model_e.named_parameters(), model_g.parameters()):
+            assert torch.equal(p, q), (i, n)
+            assert (p.grad is None and q.grad is None) or torch.equal(p.grad, q.grad), (i, n)
+    enc = cfg.model.detr_enc_layers
+    assert len(captured) == 1
+    assert [name for name, _ in captured[0].graphs] == ["step.forward", "step.loss",
+                                                        "step.backward", "step.optimizer"]
+    launches = {fn.__name__: n for fn, n in captured[0].launches}
+    assert launches["fused_encoder_layer"] == launches["fused_encoder_layer_bwd"] == enc
+    assert len(given) == (4 + 2) * enc         # the eager arm's 4 steps; the other's 2 calls
+
+
 def _decoder_layer(dev, self_attn):
     layer = DetrDecoderLayer(256, 8, 1024, self_attn=self_attn)
     layer.reset_parameters(torch.Generator().manual_seed(0))
